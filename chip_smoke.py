@@ -6,8 +6,8 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
 
   1. builds the CUDA kernels from `seaice_tpu_torch/csrc/` (one nvcc per
      source, in parallel) and the host remap-stencil library;
-  2. drives three paths at full width through `SeaIceModel.make_step()`,
-     float32, column package off:
+  2. drives four paths at full width through `SeaIceModel.make_step()` and
+     `ShardedSeaIceModel.make_step()`, float32, column package off:
        raw sphere   raw icosahedral subdiv 6 (40,962 cells), 5 categories,
                     7 ice + 1 snow layers, full enthalpy tracer tree, EVP
                     with 120 subcycles and metric terms, incremental
@@ -17,19 +17,23 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
                     whole-loop panel kernel K3 + K2, and with
                     `use_fused_panel_loop=False` the per-subcycle cell
                     kernel K5 (120 launches per solve);
+       sharded sphere the raw sphere split into 4 blocks on the one card,
+                    stepped in lockstep: the one-subcycle kernel K6 (one
+                    call per block and subcycle, the vertex halo exchanged
+                    between calls) + K2 per block;
        raster box   the 168 x 168 box test, raster-ordered, one category:
                     the raster loop K4;
   3. holds each kernel against its plain PyTorch version on the card, on
      the very tensors the step hands it (float32, and the same tensors
      cast to float64), and times both with CUDA events; runs K1 on K3's
      inputs (two kernels, one function) and reports their times and
-     their distance;
+     their distance; holds the sharded step against the unsharded one;
   4. for each path sets the launch counts to 0, takes a few steps, reads
      the counts and checks the state (finite, |u| bounded, every tracer
      product conserved);
   5. checks small float64 models (raw sphere, panel sphere by both routes,
-     box) on the card against the same models on the CPU (plain PyTorch
-     throughout).
+     box, sphere in 4 blocks) on the card against the same models on the
+     CPU (plain PyTorch throughout).
 
 One JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -59,6 +63,8 @@ SHORT_LOOP, SHORT_LOOP_TOL = 10, 1e-4
 # the full width of the sphere paths, and of the box path
 SUBDIV, N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES = 6, 5, 7, 120
 BOX_NX = 168
+# the blocks of the sharded sphere, all on the one card
+SHARDS = 4
 
 # CICE category thickness bounds for 5 categories (m)
 HIN_MAX = np.array([0.0, 0.6445, 1.3914, 2.4702, 4.5673, 9.3338])
@@ -104,14 +110,13 @@ def rel_err(a, b):
     return float((a - b).abs().max()) / max(scale, 1e-300)
 
 
-def build_model(subdiv, n_cat, n_ice, n_sub, dtype, device, panel=False,
+def sphere_case(subdiv, n_cat, n_ice, n_sub, panel=False,
                 fused_panel_loop=None):
-    """The sphere model: raw icosahedral mesh, or panel-reordered."""
+    """The sphere configuration: mesh, config, tracer tree, and the global
+    initial ice (polar caps) and forcing (analytic wind) as numpy."""
     from seaice_tpu_torch import config as C
-    from seaice_tpu_torch.dynamics.evp import DynamicsForcing
     from seaice_tpu_torch.mesh import (icosahedral_mesh,
                                        latlon_vector_rotation_forward)
-    from seaice_tpu_torch.model import SeaIceModel
     from seaice_tpu_torch.transport.tracers import standard_tracer_tree
 
     mesh = icosahedral_mesh(subdiv)
@@ -127,33 +132,72 @@ def build_model(subdiv, n_cat, n_ice, n_sub, dtype, device, panel=False,
             use_fused_panel_loop=fused_panel_loop),
         advection=C.AdvectionConfig(),
         column=C.ColumnConfig(use_column_package=False))
-    model = SeaIceModel(mesh, cfg, dtype=dtype, device=device,
-                        tracer_tree=standard_tracer_tree(
-                            n_ice_layers=n_ice, n_snow_layers=1))
-    device = model.device          # the card, where None was asked for
+    tree = standard_tracer_tree(n_ice_layers=n_ice, n_snow_layers=1)
     nc = mesh.n_cells
     polar = np.abs(mesh.lat_cell) > np.deg2rad(65.0)
     h = HIN_MAX[:n_cat + 1]
     mids = 0.5 * (h[:-1] + np.minimum(h[1:], 10.0))
     area = np.where(polar[:, None], 0.9 / n_cat, 0.0) * np.ones((1, n_cat))
-    state = model.init_state(area, area * mids, area * 0.05)
-
     lat, lon = mesh.lat_cell, mesh.lon_cell
     u_t = 6.0 * np.cos(lat) + 2.0 * np.sin(lon)
     v_t = 1.5 * np.sin(2 * lon)
     uw, vw = latlon_vector_rotation_forward(
         u_t, v_t, mesh.x_cell, mesh.y_cell, mesh.z_cell)
+    z = np.zeros(nc)
+    forcing = dict(u_air_velocity=uw, v_air_velocity=vw,
+                   air_density=np.full(nc, 1.3), u_ocean_velocity=z,
+                   v_ocean_velocity=z, sea_surface_tilt_u=z,
+                   sea_surface_tilt_v=z, land_ice_mask=z)
+    return mesh, cfg, tree, (area, area * mids, area * 0.05), forcing
 
-    def fl(a):
-        return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
 
-    z = torch.zeros((nc,), dtype=dtype, device=device)
-    forcing = DynamicsForcing(
-        u_air_velocity=fl(uw), v_air_velocity=fl(vw),
-        air_density=torch.full((nc,), 1.3, dtype=dtype, device=device),
-        u_ocean_velocity=z, v_ocean_velocity=z,
-        sea_surface_tilt_u=z, sea_surface_tilt_v=z, land_ice_mask=z)
+def build_model(subdiv, n_cat, n_ice, n_sub, dtype, device, panel=False,
+                fused_panel_loop=None):
+    """The sphere model: raw icosahedral mesh, or panel-reordered."""
+    from seaice_tpu_torch.dynamics.evp import DynamicsForcing
+    from seaice_tpu_torch.model import SeaIceModel
+    mesh, cfg, tree, ice, forcing = sphere_case(
+        subdiv, n_cat, n_ice, n_sub, panel, fused_panel_loop)
+    model = SeaIceModel(mesh, cfg, dtype=dtype, device=device,
+                        tracer_tree=tree)
+    device = model.device          # the card, where None was asked for
+    state = model.init_state(*ice)
+    forcing = DynamicsForcing(**{
+        k: torch.as_tensor(v).to(device=device, dtype=dtype)
+        for k, v in forcing.items()})
     return model, state, forcing
+
+
+def build_sharded_model(subdiv, n_cat, n_ice, n_sub, dtype, device,
+                        n_shards):
+    """The raw sphere split into n_shards blocks on one device."""
+    from seaice_tpu_torch.dynamics.evp import DynamicsForcing
+    from seaice_tpu_torch.parallel import ShardedSeaIceModel
+    mesh, cfg, tree, ice, forcing = sphere_case(subdiv, n_cat, n_ice, n_sub)
+    model = ShardedSeaIceModel(mesh, cfg, n_shards, dtype=dtype,
+                               devices=device, tracer_tree=tree)
+    return (model, model.init_state(*ice),
+            model.scatter_cell_tree(DynamicsForcing(**forcing)))
+
+
+def stepper(model):
+    """step(state, forcing) -> (state, diags) of a SeaIceModel or a
+    ShardedSeaIceModel (whose state and forcing are lists of blocks)."""
+    step = model.make_step()
+    if hasattr(model, "halo"):
+        return lambda state, forcing: step(model.tensors, model.halo, state,
+                                           forcing)
+    return lambda state, forcing: step(model.tensors, state, forcing)
+
+
+def global_fields(model, state):
+    """{"u", "v", tracer names: numpy array on the whole mesh}."""
+    if hasattr(model, "halo"):
+        u, v = model.gather_velocity(state)
+        return dict(u=u, v=v, **model.gather_tracers(state))
+    return dict(u=state.velocity.u_velocity.cpu().numpy(),
+                v=state.velocity.v_velocity.cpu().numpy(),
+                **{k: t.cpu().numpy() for k, t in state.tracers.items()})
 
 
 def build_box_model(nx, n_sub, dtype, device):
@@ -174,18 +218,19 @@ def build_box_model(nx, n_sub, dtype, device):
 
 def capture_kernel_inputs(model, state, forcing):
     """Take one step with recording wrappers in place of the kernel
-    wrappers; returns (state after the step, {kernel name: (args, kwargs)
-    of its first call in that step})."""
+    wrappers; returns (state after the step, {kernel name: [(args, kwargs)
+    of each call in that step]})."""
     from seaice_tpu_torch.dynamics import cuda_raster, evp as evp_mod
     from seaice_tpu_torch.transport import cuda_flux as flux_mod
     sites = [(evp_mod, "evp_subcycle_loop"), (evp_mod, "evp_panel_loop"),
              (evp_mod, "panel_cell_step"), (cuda_raster, "evp_raster_loop"),
+             (evp_mod, "evp_subcycle_prepare"),
              (flux_mod, "integrate_fluxes_cuda")]
     rec, saved = {}, []
 
     def recorder(name, fn):
         def wrapped(*a, **kw):
-            rec.setdefault(name, (a, kw))
+            rec.setdefault(name, []).append((a, kw))
             return fn(*a, **kw)
         return wrapped
 
@@ -194,8 +239,7 @@ def capture_kernel_inputs(model, state, forcing):
         saved.append((mod, name, fn))
         setattr(mod, name, recorder(name, fn))
     try:
-        step = model.make_step()
-        state, _ = step(model.tensors, state, forcing)
+        state, _ = stepper(model)(state, forcing)
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
@@ -525,6 +569,194 @@ def check_k2(call, reps):
     return out
 
 
+def sharded_loops(model, calls, dtype):
+    """K6's loops of every block, begun from the step's captured
+    `evp_subcycle_prepare` calls cast to dtype."""
+    from seaice_tpu_torch.dynamics.cuda_unstructured import (
+        evp_subcycle_prepare)
+    return [evp_subcycle_prepare(*cast(a, dtype), **kw) for a, kw in calls]
+
+
+def run_sharded_loops(model, loops, step, n):
+    """n subcycles of every block's loop, the vertex halo exchanged after
+    each, as the sharded step does; returns every block's state."""
+    from seaice_tpu_torch.dynamics.cuda_unstructured import (
+        evp_subcycle_finish)
+    for _ in range(n):
+        for lp in loops:
+            step(lp)
+        model.exchange("vertex_uv", [(lp.u, lp.v) for lp in loops])
+    return [evp_subcycle_finish(lp) for lp in loops]
+
+
+def check_k6(model, calls, reps):
+    """K6, the one-subcycle EVP kernel, on the captured inputs of every
+    block of the sharded sphere.
+
+    One call (block 0) against `evp_subcycle_step_plain` on the same
+    tensors, float32 and float64: held to TOL.  SHORT_LOOP subcycles of all
+    blocks with the exchange after each, float32 kernel against float32
+    plain: SHORT_LOOP_TOL.  The whole loop (N_SUBCYCLES) with exchanges in
+    float64: the larger of 1e-7 and ten times the plain loop's response to
+    a one-ulp perturbation of every block's u, v and stresses (ROADMAP
+    Queue 3, fault 4).  Distances are relative to each field's max |value|
+    over the blocks."""
+    from seaice_tpu_torch.dynamics.cuda_unstructured import (
+        evp_loop_work, evp_subcycle_finish, evp_subcycle_step,
+        evp_subcycle_step_plain)
+    names = ("u", "v", "s11", "s22", "s12")
+    out = {"name": "evp_subcycle_step", "route": "cuda",
+           "source": "seaice_tpu_torch/csrc/evp_unstructured.cu",
+           "replaces": "seaice_tpu/dynamics/pallas_unstructured.py:395",
+           "library_ms": None}
+
+    def errs(x, y):
+        return {n: max(float((a[i].double() - b[i].double()).abs().max())
+                       for a, b in zip(x, y)) /
+                max(max(float(b[i].double().abs().max()) for b in y), 1e-300)
+                for i, n in enumerate(names)}
+
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        k, p = (sharded_loops(model, calls[:1], dtype)[0] for _ in range(2))
+        evp_subcycle_step(k)
+        evp_subcycle_step_plain(p)
+        torch.cuda.synchronize()
+        got, want = evp_subcycle_finish(k), evp_subcycle_finish(p)
+        e = errs([got], [want])
+        out["one_subcycle_rel_err_" + tag] = e
+        if dtype == torch.float32:
+            out["max_abs_err"] = max(float((a - b).abs().max())
+                                     for a, b in zip(got, want))
+            out["max_rel_err_f32"] = max(e.values())
+        if not max(e.values()) <= TOL[dtype]:
+            fail(f"K6 {tag}, one subcycle: kernel and plain version "
+                 f"disagree, {e} > {TOL[dtype]}")
+
+    def run(dtype, step, n, scale=None):
+        loops = sharded_loops(model, calls, dtype)
+        if scale is not None:
+            for lp in loops:
+                for t in evp_subcycle_finish(lp):
+                    t.mul_(scale)
+        return run_sharded_loops(model, loops, step, n)
+
+    p32 = run(torch.float32, evp_subcycle_step_plain, SHORT_LOOP)
+    e = errs(run(torch.float32, evp_subcycle_step, SHORT_LOOP), p32)
+    out["short_loop_subcycles"] = SHORT_LOOP
+    out["short_loop_rel_err_f32"] = e
+    # for scale: the f32 plain loop's own response to one f32 ulp
+    out["short_loop_rel_err_f32_plain_one_ulp"] = errs(run(
+        torch.float32, evp_subcycle_step_plain, SHORT_LOOP, 1.0 + 2.0 ** -23),
+        p32)
+    if not max(e.values()) <= SHORT_LOOP_TOL:
+        fail(f"K6 f32, {SHORT_LOOP} subcycles with exchanges: kernel and "
+             f"plain version disagree, {e} > {SHORT_LOOP_TOL}")
+    k64 = run(torch.float64, evp_subcycle_step, N_SUBCYCLES)
+    p64 = run(torch.float64, evp_subcycle_step_plain, N_SUBCYCLES)
+    pu = run(torch.float64, evp_subcycle_step_plain, N_SUBCYCLES,
+             1.0 + 2.0 ** -52)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(t).all()) for b in k64 for t in b):
+        fail("K6: non-finite output")
+    e64, e_ulp = errs(k64, p64), errs(pu, p64)
+    limit64 = max(1e-7, 10.0 * max(e_ulp.values()))
+    out["max_rel_err_f64"] = max(e64.values())
+    out["loop_rel_err_f64"] = e64
+    out["loop_rel_err_f64_plain_one_ulp"] = e_ulp
+    out["loop_rel_err_f64_limit"] = limit64
+    if not max(e64.values()) <= limit64:
+        fail(f"K6 f64, {N_SUBCYCLES} subcycles with exchanges: kernel and "
+             f"plain version disagree, {e64} > {limit64}")
+
+    ft = calls[0][0][0]
+    me, nc = ft.voc_T.shape
+    vd, nv = ft.flat_corner_idx.shape
+    byts, flops = evp_loop_work(nc, nv, me, vd, 1,
+                                calls[0][1]["include_metric"], 4)
+    t_b, t_f = byts / PEAK_BYTES_PER_S, flops / PEAK_FLOPS_F32
+    out["bound_ms"] = 1e3 * max(t_b, t_f)
+    out["bound_by"] = "bytes" if t_b >= t_f else "operations"
+    out["bytes"], out["flops"] = byts, flops
+    out["shapes"] = {"nc": nc, "nv": nv, "me": me, "vd": vd,
+                     "blocks": len(calls), "n_subcycles": 1}
+    # per call, over runs of N_SUBCYCLES calls on block 0
+    k = sharded_loops(model, calls[:1], torch.float32)[0]
+    p = sharded_loops(model, calls[:1], torch.float32)[0]
+
+    def calls_of(step):
+        def run_n():
+            for _ in range(N_SUBCYCLES):
+                step(k if step is evp_subcycle_step else p)
+        return run_n
+
+    out["ms"] = time_ms(calls_of(evp_subcycle_step), reps) / N_SUBCYCLES
+    out["plain_ms"] = time_ms(calls_of(evp_subcycle_step_plain),
+                              max(2, reps // 3)) / N_SUBCYCLES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls_of(evp_subcycle_step)()
+    out["host_us_per_call"] = 1e6 * (time.perf_counter() - t0) / N_SUBCYCLES
+    torch.cuda.synchronize()
+    # the exchange alone, per subcycle
+    loops = sharded_loops(model, calls, torch.float32)
+    fields = [(lp.u, lp.v) for lp in loops]
+    out["exchange_ms_per_subcycle"] = time_ms(
+        lambda: model.exchange("vertex_uv", fields), reps)
+    return out
+
+
+def sharded_against_unsharded(smodel, sstate, sforcing, model, state,
+                              forcing, reps):
+    """The sharded step against the unsharded one (K1) from the same
+    initial state and forcing, two steps: torch.equal and the largest
+    relative distance of u, v and every tracer after each, held to the
+    larger of 1e-7 and ten times the unsharded second step's response to
+    a one-ulp (float32) perturbation of its velocities and stresses.  Then
+    ms per step of both, in turns.  The second sharded step is recorded
+    (`capture_kernel_inputs`), so that K6 is checked on the step where K1
+    is.  Returns the sharded state after two steps and that record."""
+    sstep, step = stepper(smodel), stepper(model)
+    rows, states = [], []
+    for i in range(2):
+        states.append(state)
+        if i == 0:
+            sstate, _ = sstep(sstate, sforcing)
+        else:
+            sstate, calls = capture_kernel_inputs(smodel, sstate, sforcing)
+        state, _ = step(state, forcing)
+        torch.cuda.synchronize()
+        got, want = global_fields(smodel, sstate), global_fields(model, state)
+        rows.append({k: {"equal": bool(np.array_equal(got[k], want[k])),
+                         "rel_diff": float(np.abs(got[k] - want[k]).max()) /
+                         max(float(np.abs(want[k]).max()), 1e-300)}
+                     for k in want})
+    ulp = 1.0 + 2.0 ** -23
+    vel = states[1].velocity
+    pert = states[1].replace(velocity=vel.replace(**{
+        k: getattr(vel, k) * ulp for k in (
+            "u_velocity", "v_velocity", "stress11", "stress22", "stress12")}))
+    pstate, _ = step(pert, forcing)
+    want, pw = global_fields(model, state), global_fields(model, pstate)
+    resp = {k: float(np.abs(pw[k] - want[k]).max()) /
+            max(float(np.abs(want[k]).max()), 1e-300) for k in want}
+    limit = max(1e-7, 10.0 * max(resp.values()))
+    worst = max(r["rel_diff"] for row in rows for r in row.values())
+    t = [time_ms(lambda: step(state, forcing), reps),
+         time_ms(lambda: sstep(sstate, sforcing), reps),
+         time_ms(lambda: sstep(sstate, sforcing), reps),
+         time_ms(lambda: step(state, forcing), reps)]
+    out = {"blocks": smodel.n_shards, "dtype": str(model.dtype),
+           "after_step": rows,
+           "bitwise": all(r["equal"] for row in rows for r in row.values()),
+           "max_rel_diff": worst, "one_ulp_response": resp,
+           "limit": limit, "unsharded_ms": [t[0], t[3]],
+           "sharded_ms": [t[1], t[2]]}
+    emit({"sharded_against_unsharded": out})
+    if not worst <= limit:
+        fail(f"sharded and unsharded steps disagree: {worst} > {limit}")
+    return sstate, calls
+
+
 def loop_drift(model, state, forcing, n_steps=4):
     """How far float64 evaluations of the same EVP loop drift apart
     (--drift): on each of the panel sphere's first `n_steps` steps, after
@@ -545,7 +777,7 @@ def loop_drift(model, state, forcing, n_steps=4):
     rows = []
     for i in range(n_steps):
         state, calls = capture_kernel_inputs(model, state, forcing)
-        args, kw = calls["evp_panel_loop"]
+        args, kw = calls["evp_panel_loop"][0]
         a = cast(args, torch.float64)
         pert = list(a)
         pert[1:6] = [x * ulp for x in pert[1:6]]
@@ -566,11 +798,18 @@ def loop_drift(model, state, forcing, n_steps=4):
 
 
 def conserved_sums(model, state):
-    """Global tracer-product sums, accumulated in float64."""
+    """Global tracer-product sums over the whole mesh (a sharded model's
+    blocks gathered by owner), accumulated in float64."""
     from seaice_tpu_torch.transport.remap import global_conserved_sums
-    tr = {k: v.double() for k, v in state.tracers.items()}
-    sums = global_conserved_sums(model.tree, tr,
-                                 model.tensors.area_cell.double())
+    if hasattr(model, "halo"):
+        tr = {k: torch.as_tensor(a).cuda().double()
+              for k, a in model.gather_tracers(state).items()}
+        area = torch.as_tensor(model.global_mesh.area_cell).to(
+            model.dtype).cuda().double()
+    else:
+        tr = {k: v.double() for k, v in state.tracers.items()}
+        area = model.tensors.area_cell.double()
+    sums = global_conserved_sums(model.tree, tr, area)
     return {k: float(v) for k, v in sums.items()}
 
 
@@ -580,14 +819,14 @@ def main_path(label, model, state, forcing, n_steps, expect):
     step; every other kernel must stay at 0."""
     from seaice_tpu_torch.kernels import (launch_counts, reset_launch_counts,
                                           wrappers)
-    step = model.make_step()
+    step = stepper(model)
     before = conserved_sums(model, state)
     torch.cuda.synchronize()
     reset_launch_counts()
     ms = []
     for _ in range(n_steps):
         t0 = time.perf_counter()
-        state, diags = step(model.tensors, state, forcing)
+        state, diags = step(state, forcing)
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
     counts = launch_counts()
@@ -596,22 +835,23 @@ def main_path(label, model, state, forcing, n_steps, expect):
     after = conserved_sums(model, state)
     cons = {k: abs(after[k] - before[k]) / max(abs(before[k]), 1e-30)
             for k in before}
-    u, v = state.velocity.u_velocity, state.velocity.v_velocity
-    max_u = float(torch.sqrt(u * u + v * v).max())
-    nc, nv = model.mesh.n_cells, model.mesh.n_vertices
+    fields = global_fields(model, state)
+    u, v = fields.pop("u"), fields.pop("v")
+    max_u = float(np.sqrt(u * u + v * v).max())
+    mesh = getattr(model, "global_mesh", None) or model.mesh
+    nc, nv = mesh.n_cells, mesh.n_vertices
     out = {"path": label, "steps": n_steps, "ms_per_step": ms,
            "ms_per_step_median": float(np.median(ms)),
            "launches": counts, "inner_launches": inner,
            "max_speed": max_u, "conservation_rel_err": cons,
-           "cells": nc, "vertices": nv, "edges": model.mesh.n_edges,
+           "cells": nc, "vertices": nv, "edges": mesh.n_edges,
            "ice_area_sum": after["iceAreaCategory"],
            "peak_mem_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
     emit({"main_path": out})
-    for name, t in list(state.tracers.items()) + [("u", u), ("v", v)]:
-        if not bool(torch.isfinite(t).all()):
+    for name, t in list(fields.items()) + [("u", u), ("v", v)]:
+        if not np.isfinite(t).all():
             fail(f"{label}: {name} is not finite")
-    if tuple(u.shape) != (nv,) or \
-            state.tracers["iceAreaCategory"].shape[0] != nc:
+    if tuple(u.shape) != (nv,) or fields["iceAreaCategory"].shape[0] != nc:
         fail(f"{label}: state has the wrong shape")
     if not 0.0 < max_u < 3.0:
         fail(f"{label}: max |u| = {max_u} outside (0, 3) m/s")
@@ -723,8 +963,9 @@ def profile(model, state, forcing, step_ms):
 def small_reference():
     """Small float64 models on the card (kernels) against the same models
     on the CPU (plain PyTorch): every velocity, stress and tracer field,
-    for each of the four routes of the velocity solve."""
-    from seaice_tpu_torch.convert import flatten_arrays
+    for each of the four routes of the velocity solve, and the sphere
+    split into 4 blocks (the one-subcycle kernel with exchanges)."""
+    from seaice_tpu_torch.convert import flatten_arrays, to_stacked_arrays
     cases = {
         "icos subdiv 3": lambda dev: build_model(
             3, 3, 4, 8, torch.float64, dev),
@@ -735,15 +976,19 @@ def small_reference():
             fused_panel_loop=False),
         "box 24 x 24": lambda dev: build_box_model(
             24, 8, torch.float64, dev),
+        "icos subdiv 3, 4 blocks": lambda dev: build_sharded_model(
+            3, 3, 4, 8, torch.float64, dev, 4),
     }
     for label, build in cases.items():
         outs = {}
         for device in ("cuda", "cpu"):
             model, state, forcing = build(device)
-            step = model.make_step()
+            step = stepper(model)
             for _ in range(2):
-                state, _ = step(model.tensors, state, forcing)
-            outs[device] = flatten_arrays(state)
+                state, _ = step(state, forcing)
+            outs[device] = (to_stacked_arrays(state)
+                            if isinstance(state, list)
+                            else flatten_arrays(state))
         worst = 0.0
         for k, ref in outs["cpu"].items():
             scale = max(float(np.abs(ref).max()), 1e-300)
@@ -786,11 +1031,12 @@ def main():
                               for k, v in build.build_log.items()}}})
     kernels = {}
 
-    def model_line(label, model, t0):
-        emit({"model": {"path": label,
-                        "seconds_to_build": time.perf_counter() - t0,
-                        "cells": model.mesh.n_cells, "dtype": "float32",
-                        "tracers": model.tree.names}})
+    def model_line(label, model, t0, **extra):
+        mesh = getattr(model, "global_mesh", None) or model.mesh
+        emit({"model": dict({"path": label,
+                             "seconds_to_build": time.perf_counter() - t0,
+                             "cells": mesh.n_cells, "dtype": "float32",
+                             "tracers": model.tree.names}, **extra)})
 
     # --- raw sphere: K1 + K2.  One step from rest to spin up, a second
     # one that is recorded, then the path itself (one step) ---
@@ -798,21 +1044,61 @@ def main():
     model, state, forcing = build_model(SUBDIV, N_CATEGORIES, N_ICE_LAYERS,
                                         N_SUBCYCLES, torch.float32, None)
     model_line("raw sphere", model, t0)
+    raw = (model, state, forcing)            # for the sharded comparison
     step = model.make_step()
     state, _ = step(model.tensors, state, forcing)
     state, calls = capture_kernel_inputs(model, state, forcing)
     if set(calls) != {"evp_subcycle_loop", "integrate_fluxes_cuda"}:
         fail(f"raw sphere: the step called {sorted(calls)}")
     kernels["evp_subcycle_loop"] = check_loop(
-        "evp_subcycle_loop", calls["evp_subcycle_loop"], args.reps)
+        "evp_subcycle_loop", calls["evp_subcycle_loop"][0], args.reps)
     kernels["integrate_fluxes_cuda"] = check_k2(
-        calls["integrate_fluxes_cuda"], args.reps)
+        calls["integrate_fluxes_cuda"][0], args.reps)
     del calls
     state, counts, _ = main_path(
         "raw sphere", model, state, forcing, 1,
         {"evp_subcycle_loop": 1, "integrate_fluxes_cuda": 1})
     kernels["evp_subcycle_loop"]["launches"] = counts["evp_subcycle_loop"]
     del model, state, forcing, step
+    torch.cuda.empty_cache()
+
+    # --- sharded sphere: the raw sphere in SHARDS blocks on the card, K6
+    # + K2.  Two steps from rest against the unsharded step, the second
+    # recorded, then the path itself (one step) ---
+    t0 = time.perf_counter()
+    smodel, sstate, sforcing = build_sharded_model(
+        SUBDIV, N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES, torch.float32, None,
+        SHARDS)
+    model_line("sharded sphere", smodel, t0, blocks=[
+        {"cells": b.mesh.n_cells, "cells_owned": b.n_cells_owned,
+         "cells_padded": int((b.cell_global < 0).sum()),
+         "vertices": b.mesh.n_vertices,
+         "vertices_owned": b.n_vertices_owned,
+         "vertices_padded": int((b.vertex_global < 0).sum()),
+         "edges": b.mesh.n_edges} for b in smodel.part.blocks],
+        halo_rounds=len(smodel.halo_perms))
+    from seaice_tpu_torch.convert import flatten_arrays
+    for s, t in enumerate(smodel.tensors):
+        bad = [k for k, a in flatten_arrays(t).items()
+               if a.dtype.kind == "f" and not np.isfinite(a).all()]
+        if bad:
+            fail(f"sharded sphere, block {s}: non-finite tensors {bad}")
+    sstate, calls = sharded_against_unsharded(smodel, sstate, sforcing, *raw,
+                                              min(args.reps, 3))
+    del raw
+    if set(calls) != {"evp_subcycle_prepare", "integrate_fluxes_cuda"} \
+            or len(calls["evp_subcycle_prepare"]) != SHARDS:
+        fail(f"sharded sphere: the step called "
+             f"{ {k: len(v) for k, v in calls.items()} }")
+    kernels["evp_subcycle_step"] = check_k6(
+        smodel, calls["evp_subcycle_prepare"], args.reps)
+    del calls
+    sstate, counts, _ = main_path(
+        "sharded sphere", smodel, sstate, sforcing, 1,
+        {"evp_subcycle_step": SHARDS * N_SUBCYCLES,
+         "integrate_fluxes_cuda": SHARDS})
+    kernels["evp_subcycle_step"]["launches"] = counts["evp_subcycle_step"]
+    del smodel, sstate, sforcing
     torch.cuda.empty_cache()
 
     # --- panel sphere: K3 + K2, then K5 ---
@@ -829,8 +1115,8 @@ def main():
     if set(calls) != {"evp_panel_loop", "integrate_fluxes_cuda"}:
         fail(f"panel sphere: the step called {sorted(calls)}")
     kernels["evp_panel_loop"] = check_loop(
-        "evp_panel_loop", calls["evp_panel_loop"], args.reps)
-    k3_against_k1(calls["evp_panel_loop"], model.tensors.dynamics, args.reps,
+        "evp_panel_loop", calls["evp_panel_loop"][0], args.reps)
+    k3_against_k1(calls["evp_panel_loop"][0], model.tensors.dynamics, args.reps,
                   kernels["evp_panel_loop"]["loop_rel_err_f64_limit"])
     del calls
     state, counts, step_ms = main_path(
@@ -851,7 +1137,7 @@ def main():
     if set(calls) != {"panel_cell_step", "integrate_fluxes_cuda"}:
         fail(f"panel sphere, per-subcycle route: the step called "
              f"{sorted(calls)}")
-    kernels["panel_cell_step"] = check_k5(calls["panel_cell_step"],
+    kernels["panel_cell_step"] = check_k5(calls["panel_cell_step"][0],
                                           args.reps)
     del calls, state5
     _, counts, _ = main_path(
@@ -872,7 +1158,7 @@ def main():
     if set(calls) != {"evp_raster_loop"}:       # the box test has no transport
         fail(f"raster box: the step called {sorted(calls)}")
     kernels["evp_raster_loop"] = check_loop(
-        "evp_raster_loop", calls["evp_raster_loop"], args.reps)
+        "evp_raster_loop", calls["evp_raster_loop"][0], args.reps)
     del calls
     state, counts, _ = main_path(
         "raster box", model, state, forcing, args.steps,
@@ -884,7 +1170,7 @@ def main():
     small_reference()
 
     order = ("evp_subcycle_loop", "integrate_fluxes_cuda", "evp_panel_loop",
-             "panel_cell_step", "evp_raster_loop")
+             "panel_cell_step", "evp_raster_loop", "evp_subcycle_step")
     for name in order:
         if not kernels[name].get("launches", 0) > 0:
             fail(f"{name} was launched no time on its path")

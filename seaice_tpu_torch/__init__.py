@@ -3,7 +3,8 @@
 The counterpart of the JAX package `seaice_tpu`, module for module, for
 an NVIDIA Hopper GPU: plain tensor code is PyTorch, and the kernels that
 carry the dynamics-transport step (the EVP elastic-subcycle loop for any
-mesh, for the panel-reordered sphere and for the raster box, and the
+mesh, for the panel-reordered sphere and for the raster box, one subcycle
+per call on a block of a partitioned mesh (`parallel/`), and the
 incremental-remapping flux integration) are CUDA C++ under `csrc/`,
 built at first use by `kernels/build.py`.
 

@@ -5,7 +5,10 @@ the static per-mesh data (`ModelTensors`) and the prognostic state
 (`State`, `DynamicsForcing`).  `flatten_arrays` turns any container of
 arrays (a dataclass, a dict, nested) into {dotted name: numpy array};
 `from_reference_arrays` builds the port's containers from such
-dictionaries.  The tests use the pair to feed both packages the same
+dictionaries.  For a partitioned mesh the JAX package stacks every block
+on a leading shard axis and the port keeps a list, one container per
+block: `from_sharded_reference_arrays` and `to_stacked_arrays` carry
+between the two.  The tests use these to feed both packages the same
 inputs.  Nothing here imports the JAX package: a reference object is
 walked by `dataclasses.fields` and read through `numpy.asarray`.
 """
@@ -13,7 +16,7 @@ walked by `dataclasses.fields` and read through `numpy.asarray`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -112,3 +115,32 @@ def from_reference_arrays(tensors_np: Optional[Dict[str, np.ndarray]],
     if forcing_np is not None:
         forcing = _build(DynamicsForcing, forcing_np, "", device, dtype)
     return tensors, state, forcing
+
+
+def from_sharded_reference_arrays(
+        state_np: Optional[Dict[str, np.ndarray]], device, dtype,
+        forcing_np: Optional[Dict[str, np.ndarray]] = None):
+    """The JAX package's sharded `State` / `DynamicsForcing`, flattened by
+    `flatten_arrays` (every array [S, ...]), as the port's per-block lists
+    (states, forcings); a part passed as None comes back as None."""
+    def blocks(arrays):
+        n = {a.shape[0] for a in arrays.values()}
+        if len(n) != 1:
+            raise ValueError(f"shard axes of different lengths: {n}")
+        return [{k: a[s] for k, a in arrays.items()} for s in range(n.pop())]
+
+    states = forcings = None
+    if state_np is not None:
+        states = [from_reference_arrays(None, b, device, dtype)[1]
+                  for b in blocks(state_np)]
+    if forcing_np is not None:
+        forcings = [from_reference_arrays(None, None, device, dtype, b)[2]
+                    for b in blocks(forcing_np)]
+    return states, forcings
+
+
+def to_stacked_arrays(objs: List) -> Dict[str, np.ndarray]:
+    """The port's per-block containers as {dotted.name: [S, ...] numpy
+    array}, the JAX package's stacked layout."""
+    flat = [flatten_arrays(o) for o in objs]
+    return {k: np.stack([f[k] for f in flat]) for k in flat[0]}

@@ -1,11 +1,17 @@
 // EVP elastic-subcycle loop on any MPAS-style connectivity, for Hopper.
 //
-// Replaces the TPU kernel of seaice_tpu/dynamics/pallas_unstructured.py
-// (build_unstructured_solver): all n_sub subcycles of
-//   corner-velocity gather -> Wachspress strain (+ tan(lat)/r metric)
-//   -> EVP stress relaxation -> stress-divergence partials
-//   -> vertex-side gather-sum -> ocean drag -> 2x2 momentum solve
-// run inside ONE call of the C function below.
+// Replaces the TPU kernels of seaice_tpu/dynamics/pallas_unstructured.py:
+//   build_unstructured_solver (K1): all n_sub subcycles of
+//     corner-velocity gather -> Wachspress strain (+ tan(lat)/r metric)
+//     -> EVP stress relaxation -> stress-divergence partials
+//     -> vertex-side gather-sum -> ocean drag -> 2x2 momentum solve
+//   run inside ONE call of evp_subcycle_loop_* below;
+//   build_unstructured_loop_solver (K6): the same body one subcycle per
+//   call, evp_subcycle_step_*, so that the caller refreshes the vertex
+//   velocity halo of a partitioned mesh between calls (the reference
+//   exchanges it after every subcycle, mpas_seaice_velocity_solver.F:
+//   2546-2584).  Both entries launch the same two kernels, as the TPU K6
+//   runs K1's pallas_call with n_subcycles=1.
 //
 // The TPU kernel is one sequential program.  Here the vertex phase of
 // subcycle k needs every cell's partials and the cell phase of k+1 needs
@@ -27,7 +33,8 @@
 // ~0.01 ms, the flops ~0.08 ms at the f32 peak: the loop is bound by L2
 // bandwidth and by 2*n_sub launch latencies, not by either roofline term.
 // One cooperative launch with a grid-wide barrier per phase is the later
-// optimisation.
+// optimisation; for the one-subcycle entry, one launch covering every
+// block of a partitioned mesh (a pointer table, the block as blockIdx.y).
 
 #include <cuda_runtime.h>
 
@@ -283,24 +290,38 @@ int run_loop(int nc, int nv, int me, int vd, int n_sub, int metric,
 
 }  // namespace
 
-#define EVP_ARGS                                                                    \
-  int nc, int nv, int me, int vd, int n_sub, int metric, const int* voc,            \
-  const void* vmask, const void* bgrad, const void* bint, const void* bmet,         \
-  const int* fci, const void* cmask, const void* denom, const void* tanlat,         \
-  void* u, void* v, void* s11, void* s22, void* s12, const void* pressure,          \
-  const void* solve_stress, const void* uo, const void* vo, const void* mass_v,     \
-  const void* mass_f, const void* rhs_u0, const void* rhs_v0, const void* ocn_u,    \
-  const void* ocn_v, const void* solve_velocity, const void* area_v, void* pu,      \
-  void* pv, double dte, double damping, double ecc2, double puny, double cosw,      \
-  double sinw, double drag, void* stream, int* n_launches
-#define EVP_PASS                                                                    \
-  nc, nv, me, vd, n_sub, metric, voc, vmask, bgrad, bint, bmet, fci, cmask, denom,  \
-  tanlat, u, v, s11, s22, s12, pressure, solve_stress, uo, vo, mass_v, mass_f,      \
-  rhs_u0, rhs_v0, ocn_u, ocn_v, solve_velocity, area_v, pu, pv, dte, damping, ecc2, \
-  puny, cosw, sinw, drag, stream, n_launches
+#define EVP_TAIL_ARGS                                                               \
+  const int* voc, const void* vmask, const void* bgrad, const void* bint,           \
+  const void* bmet, const int* fci, const void* cmask, const void* denom,           \
+  const void* tanlat, void* u, void* v, void* s11, void* s22, void* s12,            \
+  const void* pressure, const void* solve_stress, const void* uo, const void* vo,   \
+  const void* mass_v, const void* mass_f, const void* rhs_u0, const void* rhs_v0,   \
+  const void* ocn_u, const void* ocn_v, const void* solve_velocity,                 \
+  const void* area_v, void* pu, void* pv, double dte, double damping, double ecc2,  \
+  double puny, double cosw, double sinw, double drag, void* stream, int* n_launches
+#define EVP_TAIL_PASS                                                               \
+  voc, vmask, bgrad, bint, bmet, fci, cmask, denom, tanlat, u, v, s11, s22, s12,    \
+  pressure, solve_stress, uo, vo, mass_v, mass_f, rhs_u0, rhs_v0, ocn_u, ocn_v,     \
+  solve_velocity, area_v, pu, pv, dte, damping, ecc2, puny, cosw, sinw, drag,       \
+  stream, n_launches
 
 // u, v [nv] and s11, s22, s12 [me, nc] are updated in place; pu, pv are
 // [nc*me] scratch.  Returns the first CUDA error (0 = none) and the number
-// of kernel launches made.
-extern "C" int evp_subcycle_loop_f32(EVP_ARGS) { return run_loop<float>(EVP_PASS); }
-extern "C" int evp_subcycle_loop_f64(EVP_ARGS) { return run_loop<double>(EVP_PASS); }
+// of kernel launches made.  Nothing is allocated and nothing synchronises.
+extern "C" int evp_subcycle_loop_f32(int nc, int nv, int me, int vd, int n_sub,
+                                     int metric, EVP_TAIL_ARGS) {
+  return run_loop<float>(nc, nv, me, vd, n_sub, metric, EVP_TAIL_PASS);
+}
+extern "C" int evp_subcycle_loop_f64(int nc, int nv, int me, int vd, int n_sub,
+                                     int metric, EVP_TAIL_ARGS) {
+  return run_loop<double>(nc, nv, me, vd, n_sub, metric, EVP_TAIL_PASS);
+}
+// K6: one subcycle, the same two launches, on the same arguments.
+extern "C" int evp_subcycle_step_f32(int nc, int nv, int me, int vd, int metric,
+                                     EVP_TAIL_ARGS) {
+  return run_loop<float>(nc, nv, me, vd, 1, metric, EVP_TAIL_PASS);
+}
+extern "C" int evp_subcycle_step_f64(int nc, int nv, int me, int vd, int metric,
+                                     EVP_TAIL_ARGS) {
+  return run_loop<double>(nc, nv, me, vd, 1, metric, EVP_TAIL_PASS);
+}

@@ -14,12 +14,20 @@ PyTorch version on the CPU:
     per subcycle with the vertex side in torch;
   * a raster-ordered planar quad mesh with a cell-constant basis
     (`mesh/structured.py`): one call of `cuda_raster.evp_raster_loop`;
-  * any other mesh: one call of `cuda_unstructured.evp_subcycle_loop`.
+  * any other mesh: one call of `cuda_unstructured.evp_subcycle_loop`;
+    on a block of a partitioned mesh (a vertex halo exchange present),
+    one `cuda_unstructured.evp_subcycle_step` per subcycle with the
+    vertex-velocity halo refreshed between calls.
+
+The solve is written as a generator (`velocity_solve_steps`) that stops
+at each halo exchange (`utils/lockstep.py`); `make_velocity_solver` runs
+it with the caller's exchange functions, the partitioned model
+(`parallel/sharded.py`) runs one per block in lockstep.
 
 The port covers the variational scheme with standard EVP and quadratic
-ocean stress.  The weak scheme, revised EVP, the linear relation, strain
-averaging and the sharded halo exchange of the JAX package raise
-NotImplementedError.
+ocean stress.  The weak scheme, revised EVP (and with it `min_dv_edge`),
+the linear relation, strain averaging and the interior/boundary overlap
+of the halo exchange (`halo_overlap`) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,12 +43,14 @@ from ..config import (Config, ConstitutiveRelation, OceanStressType,
 from ..mesh.core import Mesh, MeshTensors, cell_to_vertex
 from ..utils.containers import tensor_dataclass
 from ..utils.device import resolve_device
+from ..utils.lockstep import drive
 from . import constitutive, variational
 from . import variational_panel as vpn
 from .cuda_panel import panel_cell_step
 from .cuda_panel_fused import evp_panel_loop
 from .cuda_raster import basis_tables, build_raster_loop
-from .cuda_unstructured import evp_subcycle_loop
+from .cuda_unstructured import (evp_subcycle_finish, evp_subcycle_loop,
+                                evp_subcycle_prepare, evp_subcycle_step)
 from .momentum import momentum_update
 from .variational_fast import build_fast_tensors, strain_tensor_T
 
@@ -247,13 +257,74 @@ def _air_stress(forcing: DynamicsForcing, mass: IceMassState,
 # -- solver -------------------------------------------------------------------
 
 def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
-                         halo_exchange_vertex=None, halo_overlap=None,
+                         halo_exchange_vertex=None,
+                         halo_exchange_cell_field=None,
+                         halo_exchange_vertex_field=None, halo_overlap=None,
                          raster=None, use_pallas: Optional[bool] = None,
                          panel_n: Optional[int] = None, panel_mesh=None):
     """Build the dynamics-step function.
 
     The subcycle loop goes through a kernel wrapper: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors.
+    CUDA tensors, the plain version for CPU tensors; see
+    `velocity_solve_steps` for the routes and for raster, use_pallas,
+    panel_n and panel_mesh.
+    halo_exchange_vertex: optional (u, v) -> (u, v), the vertex-velocity
+    halo refresh of one block of a partitioned mesh, run before the loop
+    and after every subcycle; with it the loop is one
+    `evp_subcycle_step` per subcycle (K6).
+    halo_exchange_cell_field / halo_exchange_vertex_field: optional
+    f -> f refreshers of the solveStress (cell) and solveVelocity (vertex)
+    masks, whose stencils reach one ring beyond the halo (the reference's
+    exchange groups, velocity_solver.F:257-345).  An exchange may refresh
+    in place and return its argument, or return new tensors.
+    halo_overlap: the interior/boundary overlap of the JAX package; not
+    ported, raises.
+    dyn: optional; if given, returns a convenience wrapper with dyn bound.
+
+    Returns step(dyn, state, forcing, ice_area_cat, ice_volume_cat,
+                 snow_volume_cat, pressure_in=None) -> (state, diags).
+    """
+    if halo_overlap is not None:
+        raise NotImplementedError(
+            "make_velocity_solver(halo_overlap=...): the interior/boundary "
+            "overlap of the halo exchange needs CUDA streams; ROADMAP "
+            "Queue 1 item 10")
+    exchanges = {"vertex_uv": halo_exchange_vertex,
+                 "cell_field": halo_exchange_cell_field,
+                 "vertex_field": halo_exchange_vertex_field}
+    solve = velocity_solve_steps(
+        cfg, halo=any(f is not None for f in exchanges.values()),
+        raster=raster, use_pallas=use_pallas, panel_n=panel_n,
+        panel_mesh=panel_mesh)
+
+    def step(dyn, state, forcing, ice_area_cat, ice_volume_cat,
+             snow_volume_cat, pressure_in=None):
+        return drive(solve(dyn, state, forcing, ice_area_cat,
+                           ice_volume_cat, snow_volume_cat, pressure_in),
+                     exchanges)
+
+    if dyn is not None:
+        return functools.partial(step, dyn)
+    return step  # call as step(dyn, state, forcing, area, vol, snow)
+
+
+def velocity_solve_steps(cfg: Config, *, halo: bool = False, raster=None,
+                         use_pallas: Optional[bool] = None,
+                         panel_n: Optional[int] = None, panel_mesh=None):
+    """The velocity solve as a generator function (`utils/lockstep.py`).
+
+    Returns solve(dyn, state, forcing, ice_area_cat, ice_volume_cat,
+    snow_volume_cat, pressure_in=None): a generator that yields
+    ("cell_field", (solveStress,)), ("vertex_field", (solveVelocity,)) and
+    ("vertex_uv", (u, v)) where the JAX package refreshes halos
+    (`seaice_tpu/dynamics/evp.py:597-598, 608, 812`) and returns
+    (state, diags).
+
+    The subcycle loop goes through a kernel wrapper.
+    halo: the solve runs on one block of a partitioned mesh: the loop is
+    `evp_subcycle_prepare`, then per subcycle `evp_subcycle_step` and a
+    ("vertex_uv", (u, v)) exchange, then `evp_subcycle_finish` (K6).  The
+    panel and raster routes take no halo: with either, ValueError.
     raster: optional mesh.structured.RasterQuad layout; the loop is then
     `evp_raster_loop` (planar raster quad mesh, cell-constant basis, no
     metric terms; the caller asserts the basis, as `SeaIceModel` does).
@@ -264,18 +335,11 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
     subcycle with the vertex side in torch.
     use_pallas: False asks for a plain loop and raises; None and True
     mean the kernel routes above.
-    dyn: optional; if given, returns a convenience wrapper with dyn bound.
-
-    Returns step(dyn, state, forcing, ice_area_cat, ice_volume_cat,
-                 snow_volume_cat, pressure_in=None) -> (state, diags).
     """
-    later = dict(halo_exchange_vertex=halo_exchange_vertex,
-                 halo_overlap=halo_overlap)
-    for name, val in later.items():
-        if val is not None:
-            raise NotImplementedError(
-                f"make_velocity_solver({name}=...): the sharded halo "
-                "exchange belongs to a later slice of the port")
+    if halo and (panel_n is not None or raster is not None):
+        raise ValueError(
+            "a halo exchange needs the any-connectivity loop: the panel "
+            "and raster loops run on a whole, unpartitioned mesh")
     if use_pallas is False:
         raise NotImplementedError(
             "use_pallas=False: every subcycle loop of the port is a "
@@ -336,11 +400,12 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
             raise ValueError("raster layout ineligible for the raster "
                              "subcycle kernel")
 
-    def step(dyn: DynamicsTensors, state: VelocitySolverState,
-             forcing: DynamicsForcing,
-             ice_area_cat, ice_volume_cat, snow_volume_cat,
-             pressure_in: Optional[Any] = None):
-        """One dynamics step of the velocity solver.
+    def solve(dyn: DynamicsTensors, state: VelocitySolverState,
+              forcing: DynamicsForcing,
+              ice_area_cat, ice_volume_cat, snow_volume_cat,
+              pressure_in: Optional[Any] = None):
+        """One dynamics step of the velocity solver (a generator, see
+        `velocity_solve_steps`).
 
         pressure_in: optional externally computed ice strength [nCells]
         (from the column package); default Hibler.
@@ -359,6 +424,10 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
             solve_stress = torch.ones_like(solve_stress)
             solve_velocity = (mesh.interior_vertex > 0).to(
                 solve_velocity.dtype)
+        # the solveStress neighbor-max and the vertex masks reach one ring
+        # beyond the halo: refresh from their owners
+        yield "cell_field", (solve_stress,)
+        yield "vertex_field", (solve_velocity,)
         sv = solve_velocity > 0
         zero_v = torch.zeros_like(state.u_velocity)
 
@@ -370,6 +439,7 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
         v = torch.where(is_new, vo_v, state.v_velocity)
         u = torch.where(sv, u, zero_v)
         v = torch.where(sv, v, zero_v)
+        yield "vertex_uv", (u, v)
 
         # ice strength (reference :1341-1508)
         if pressure_in is None:
@@ -476,6 +546,20 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
                     area_vertex, dt_e)
             t11, t22, t12 = (vpn.stress_slot_to_ring(pt, t)
                              for t in (t11, t22, t12))
+        elif halo:
+            # a block of a partitioned mesh: one kernel call per subcycle,
+            # the vertex halo refreshed between calls (in place); the
+            # copies, checks and scratch once per solve
+            loop = evp_subcycle_prepare(
+                dyn.fast, u, v, *sT, pressure, solve_stress, uo_v, vo_v,
+                mass_vertex, mass_f, air_u + tilt_u, air_v + tilt_v,
+                ocean_u, ocean_v, solve_velocity, area_vertex,
+                include_metric=metric, dt_elastic=dt_e,
+                damping_timescale=damping_t)
+            for _ in range(n_sub):
+                evp_subcycle_step(loop)
+                yield "vertex_uv", (loop.u, loop.v)
+            u, v, t11, t22, t12 = evp_subcycle_finish(loop)
         elif raster_loop is not None:
             # ONE call runs all subcycles on the raster with the four
             # cell-constant basis tables
@@ -546,6 +630,4 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
         }
         return new_state, diags
 
-    if dyn is not None:
-        return functools.partial(step, dyn)
-    return step  # call as step(dyn, state, forcing, area, vol, snow)
+    return solve

@@ -12,13 +12,15 @@ def wrappers():
     from ..dynamics.cuda_panel import panel_cell_step
     from ..dynamics.cuda_panel_fused import evp_panel_loop
     from ..dynamics.cuda_raster import evp_raster_loop
-    from ..dynamics.cuda_unstructured import evp_subcycle_loop
+    from ..dynamics.cuda_unstructured import (evp_subcycle_loop,
+                                              evp_subcycle_step)
     from ..transport.cuda_flux import integrate_fluxes_cuda
     return {"evp_subcycle_loop": evp_subcycle_loop,
             "integrate_fluxes_cuda": integrate_fluxes_cuda,
             "evp_panel_loop": evp_panel_loop,
             "panel_cell_step": panel_cell_step,
-            "evp_raster_loop": evp_raster_loop}
+            "evp_raster_loop": evp_raster_loop,
+            "evp_subcycle_step": evp_subcycle_step}
 
 
 def reset_launch_counts():

@@ -10,8 +10,11 @@ The port runs the dynamics-transport step so far
 (`use_column_package=False`): velocity solve -> incremental remap, with
 the working set resident on the device; the velocity solve's kernel
 follows from the mesh (panel-reordered sphere, raster quad box, or any
-connectivity).  The column physics (and with it ridging and the Rothrock
-strength) is the next slice.
+connectivity).  The body of the step, `dynamics_transport_steps`, is a
+generator that stops at every halo exchange (`utils/lockstep.py`):
+`SeaIceModel` runs it alone, `parallel/sharded.py` runs one per block.
+The column physics (and with it ridging and the Rothrock strength) is a
+later slice.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from .transport.tracers import (TracerTree, mass_only_tree,
                                 standard_tracer_tree)
 from .utils.containers import tensor_dataclass
 from .utils.device import resolve_device
+from .utils.lockstep import drive
 
 
 @tensor_dataclass
@@ -63,7 +67,9 @@ class SeaIceModel:
     def __init__(self, mesh: Mesh, cfg: Config, dtype=torch.float32,
                  device=None, tracer_tree: Optional[TracerTree] = None):
         if cfg.column.use_column_package:
-            raise NotImplementedError("column physics: next slice")
+            raise NotImplementedError(
+                "column physics: a later slice of the port (ROADMAP Queue 1 "
+                "item 4)")
         self.mesh = mesh
         self.cfg = cfg
         self.dtype = dtype
@@ -186,18 +192,7 @@ class SeaIceModel:
         the card."""
         cfg = self.cfg
         tree = self.tree
-        if cfg.advection.use_pallas_flux is False:
-            raise NotImplementedError(
-                "use_pallas_flux=False: the port has one flux integration, "
-                "`integrate_fluxes_cuda`, which takes its CUDA kernel for "
-                "CUDA tensors and its plain version for CPU tensors; there "
-                "is no option that runs the plain version on the card")
-        if cfg.velocity.use_pallas_subcycle is False:
-            raise NotImplementedError(
-                "use_pallas_subcycle=False: every subcycle loop of the "
-                "port is a kernel wrapper that takes its CUDA kernel for "
-                "CUDA tensors and its plain version for CPU tensors; there "
-                "is no option that runs a plain version on the card")
+        check_kernel_options(cfg)
         from .mesh.structured import detect_raster_quad
         lay = getattr(self.mesh, "panel_layout", None)
         panel_n = (lay.N if lay is not None
@@ -207,70 +202,109 @@ class SeaIceModel:
             raster = detect_raster_quad(self.mesh)
             if not self._raster_loop_eligible(raster):
                 raster = None
-        vel_step = evp.make_velocity_solver(
+        vel_solve = evp.velocity_solve_steps(
             cfg, raster=raster, panel_n=panel_n,
             panel_mesh=self.mesh if panel_n is not None else None)
-        use_remap = (cfg.advection.advection_type ==
-                     AdvectionType.INCREMENTAL_REMAP)
-        if use_remap:
+        remap_step = None
+        if cfg.advection.advection_type == AdvectionType.INCREMENTAL_REMAP:
             remap_step = make_remap_step(
                 tree, self.mesh.vertex_degree,
                 monotonic=cfg.advection.monotonic)
-        adv_checks = (cfg.advection.conservation_check or
-                      cfg.advection.monotonicity_check)
-        dt_dyn = cfg.dynamics_timestep
-        n_sub = cfg.velocity.dynamics_subcycle_number
+        body = dynamics_transport_steps(cfg, tree, vel_solve, remap_step)
 
         def step(tensors: ModelTensors, state: State,
                  forcing: DynamicsForcing):
             """One coupling timestep (reference seaice_timestep,
             mpas_seaice_time_integration.F:42-175) without the column
             package: (velocity solve -> transport) x n_sub."""
-            tr = dict(state.tracers)
-            vel = state.velocity
-            diags = {}
-            for _ in range(n_sub):
-                if cfg.velocity.use_velocity_solver:
-                    vel, diags = vel_step(
-                        tensors.dynamics, vel, forcing,
-                        tr["iceAreaCategory"], tr["iceVolumeCategory"],
-                        tr["snowVolumeCategory"], pressure_in=None)
-                if use_remap:
-                    if adv_checks:
-                        pre_sums = (global_conserved_sums(
-                            tree, tr, tensors.area_cell)
-                            if cfg.advection.conservation_check
-                            else None)
-                        pre_ext = (local_extrema(
-                            tree, tr, tensors.mesh.cells_on_cell,
-                            tensors.mesh.cells_on_cell_mask)
-                            if cfg.advection.monotonicity_check
-                            else None)
-                    tr = remap_step(
-                        tensors.remap, tensors.mesh.cells_on_cell,
-                        tensors.mesh.cells_on_cell_mask, tensors.area_cell,
-                        tr, vel.u_velocity, vel.v_velocity, dt_dyn)
-                    if adv_checks:
-                        # runtime self-checks (reference optional IR
-                        # checks, ..._incremental_remap.F:8126,8416)
-                        if pre_sums is not None:
-                            post = global_conserved_sums(
-                                tree, tr, tensors.area_cell)
-                            err = torch.stack([
-                                (post[k] - pre_sums[k]).abs() /
-                                pre_sums[k].abs().clamp(min=1e-30)
-                                for k in pre_sums]).max()
-                            prev = diags.get("ir_conservation_error")
-                            diags["ir_conservation_error"] = err \
-                                if prev is None else torch.maximum(prev, err)
-                        if pre_ext is not None:
-                            viol = monotonicity_violation(
-                                tree, tr, *pre_ext)
-                            prev = diags.get("ir_monotonicity_violation")
-                            diags["ir_monotonicity_violation"] = viol \
-                                if prev is None else torch.maximum(prev, viol)
-            new_state = State(velocity=vel, tracers=tr,
-                              time=state.time + cfg.run.dt)
-            return new_state, diags
+            return drive(body(tensors, state, forcing))
 
         return step
+
+
+def check_kernel_options(cfg: Config):
+    """The config's `use_pallas_flux` / `use_pallas_subcycle` = False ask
+    for a plain version on the card, which no option of the port runs."""
+    if cfg.advection.use_pallas_flux is False:
+        raise NotImplementedError(
+            "use_pallas_flux=False: the port has one flux integration, "
+            "`integrate_fluxes_cuda`, which takes its CUDA kernel for "
+            "CUDA tensors and its plain version for CPU tensors; there "
+            "is no option that runs the plain version on the card")
+    if cfg.velocity.use_pallas_subcycle is False:
+        raise NotImplementedError(
+            "use_pallas_subcycle=False: every subcycle loop of the "
+            "port is a kernel wrapper that takes its CUDA kernel for "
+            "CUDA tensors and its plain version for CPU tensors; there "
+            "is no option that runs a plain version on the card")
+
+
+def dynamics_transport_steps(cfg: Config, tree: TracerTree, vel_solve,
+                             remap_step, adv_checks: bool = True):
+    """The body of the dynamics-transport step as a generator function:
+    (velocity solve -> incremental remap -> tracer halo refresh) x
+    dynamics_subcycle_number, returning (state, diags).
+
+    vel_solve: from `evp.velocity_solve_steps`; remap_step: from
+    `make_remap_step`, or None without transport.  It yields where the
+    velocity solve does, and ("cell_field", tracers) after each remap (the
+    2-deep tracer halo refresh of a partitioned mesh; the remap returns new
+    tensors, so the refresh may write them in place).  adv_checks=False
+    leaves out the optional conservation and monotonicity checks of the
+    config, which sum over the mesh (a block's sums are not the mesh's)."""
+    adv_checks = adv_checks and (cfg.advection.conservation_check or
+                                 cfg.advection.monotonicity_check)
+    dt_dyn = cfg.dynamics_timestep
+    n_sub = cfg.velocity.dynamics_subcycle_number
+
+    def steps(tensors: ModelTensors, state: State,
+              forcing: DynamicsForcing):
+        tr = dict(state.tracers)
+        vel = state.velocity
+        diags = {}
+        for _ in range(n_sub):
+            if cfg.velocity.use_velocity_solver:
+                vel, diags = yield from vel_solve(
+                    tensors.dynamics, vel, forcing,
+                    tr["iceAreaCategory"], tr["iceVolumeCategory"],
+                    tr["snowVolumeCategory"], pressure_in=None)
+            if remap_step is None:
+                continue
+            if adv_checks:
+                pre_sums = (global_conserved_sums(
+                    tree, tr, tensors.area_cell)
+                    if cfg.advection.conservation_check else None)
+                pre_ext = (local_extrema(
+                    tree, tr, tensors.mesh.cells_on_cell,
+                    tensors.mesh.cells_on_cell_mask)
+                    if cfg.advection.monotonicity_check else None)
+            tr = remap_step(
+                tensors.remap, tensors.mesh.cells_on_cell,
+                tensors.mesh.cells_on_cell_mask, tensors.area_cell,
+                tr, vel.u_velocity, vel.v_velocity, dt_dyn)
+            # 2-deep tracer halo refresh (owned values are authoritative;
+            # halo updates computed locally are discarded)
+            yield "cell_field", tuple(tr.values())
+            if adv_checks:
+                # runtime self-checks (reference optional IR checks,
+                # ..._incremental_remap.F:8126,8416)
+                if pre_sums is not None:
+                    post = global_conserved_sums(
+                        tree, tr, tensors.area_cell)
+                    err = torch.stack([
+                        (post[k] - pre_sums[k]).abs() /
+                        pre_sums[k].abs().clamp(min=1e-30)
+                        for k in pre_sums]).max()
+                    prev = diags.get("ir_conservation_error")
+                    diags["ir_conservation_error"] = err \
+                        if prev is None else torch.maximum(prev, err)
+                if pre_ext is not None:
+                    viol = monotonicity_violation(tree, tr, *pre_ext)
+                    prev = diags.get("ir_monotonicity_violation")
+                    diags["ir_monotonicity_violation"] = viol \
+                        if prev is None else torch.maximum(prev, viol)
+        new_state = State(velocity=vel, tracers=tr,
+                          time=state.time + cfg.run.dt)
+        return new_state, diags
+
+    return steps

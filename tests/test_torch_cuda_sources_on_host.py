@@ -1,4 +1,4 @@
-"""The CUDA sources of the four EVP kernels, run on the CPU.
+"""The CUDA sources of the EVP kernels, run on the CPU.
 
 A CUDA kernel has no interpret mode, so its arithmetic is only ever held
 against the plain version on the card (`chip_smoke.py`).  What CAN be run
@@ -256,6 +256,39 @@ def test_unstructured_loop_source_matches_plain(on_host, metric, dtype):
              ctypes.byref(n_inner))
     assert err == 0 and n_inner.value == 10
     _assert_close((u, v, s11, s22, s12), want, dtype, "K1")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_unstructured_step_source_matches_plain(on_host, dtype):
+    """K6's C entry (one subcycle per call) through the same stand-in: two
+    calls with a halo refresh written in place between them, against the
+    plain version with the same refresh."""
+    mesh, _, dyn = _panel_problem(True, dtype)
+    args = _loop_inputs(mesh, np.random.default_rng(10), dtype)
+    kw = dict(dt_elastic=15.0, damping_timescale=648.0, include_metric=True)
+    halo = torch.arange(0, mesh.n_vertices, 3)
+    fresh = [torch.as_tensor(np.random.default_rng(11).normal(
+        0.0, 0.1, len(halo))).to(dtype) for _ in range(2)]
+
+    def two_steps(step, loop):
+        step(loop)
+        loop.u[halo], loop.v[halo] = fresh      # the exchange, in place
+        step(loop)
+        return cuda_unstructured.evp_subcycle_finish(loop)
+
+    want = two_steps(cuda_unstructured.evp_subcycle_step_plain,
+                     cuda_unstructured.evp_subcycle_prepare(
+                         dyn.fast, *_loop_args(args), **kw))
+    loop = cuda_unstructured.evp_subcycle_prepare(dyn.fast, *_loop_args(args),
+                                                  **kw)
+    cuda_unstructured._bind_kernel(loop)
+    fn, c_args = loop.c_step
+
+    def c_step(lp):
+        assert fn(*c_args) == 0 and lp.c_count.value == 2
+
+    _assert_close(two_steps(c_step, loop), want, dtype, "K6")
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],

@@ -155,7 +155,9 @@ def test_later_slices_raise(what):
     elif what == "linear_drag":
         v.update(ocean_stress_type=tconfig.OceanStressType.LINEAR)
     else:
-        kw["halo_exchange_vertex"] = lambda u, v: (u, v)
+        # the vertex exchange itself is ported (K6); the overlap of the
+        # exchange with the interior's compute is not
+        kw["halo_overlap"] = (None, lambda buf: buf, 0)
     cfg = tconfig.Config(velocity=tconfig.VelocitySolverConfig(**v))
     with pytest.raises(NotImplementedError):
         tevp.make_velocity_solver(cfg, **kw)

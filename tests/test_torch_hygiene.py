@@ -30,6 +30,8 @@ MODULES = [
     "seaice_tpu_torch.transport.cuda_flux",
     "seaice_tpu_torch.column", "seaice_tpu_torch.testcases",
     "seaice_tpu_torch.kernels.build", "seaice_tpu_torch.native",
+    "seaice_tpu_torch.parallel", "seaice_tpu_torch.parallel.partition",
+    "seaice_tpu_torch.parallel.sharded", "seaice_tpu_torch.utils.lockstep",
 ]
 
 
@@ -61,7 +63,8 @@ def test_sources_do_not_name_the_jax_package_in_imports():
     names = {os.path.relpath(f, ROOT) for f in files}
     for new in ("mesh/panels.py", "mesh/structured.py",
                 "dynamics/variational_panel.py", "dynamics/cuda_panel.py",
-                "dynamics/cuda_panel_fused.py", "dynamics/cuda_raster.py"):
+                "dynamics/cuda_panel_fused.py", "dynamics/cuda_raster.py",
+                "parallel/partition.py", "parallel/sharded.py"):
         assert os.path.join("seaice_tpu_torch", new) in names
     for path in files:
         with open(path) as f:
@@ -88,6 +91,7 @@ def _public_constructors():
     from seaice_tpu_torch.mesh import icosahedral_mesh
     from seaice_tpu_torch.model import SeaIceModel
     from seaice_tpu_torch.ops.basis import compute_variational_basis
+    from seaice_tpu_torch.parallel import ShardedSeaIceModel
     from seaice_tpu_torch.testcases import box
     from seaice_tpu_torch.transport.geometry import build_remap_geometry
     from seaice_tpu_torch.transport.tracers import (init_tracer_state,
@@ -107,6 +111,10 @@ def _public_constructors():
     return {
         "SeaIceModel": with_device(
             lambda **kw: SeaIceModel(mesh, cfg, **kw).tensors.area_cell),
+        "ShardedSeaIceModel": with_device(
+            lambda **kw: ShardedSeaIceModel(
+                mesh, cfg, 2, f64, **({"devices": kw["device"]} if kw else {})
+            ).tensors[1].area_cell),
         "Mesh.tensors": with_device(
             lambda **kw: mesh.tensors(f64, **kw).area_cell),
         "build_dynamics_tensors": with_device(
@@ -133,8 +141,8 @@ def _public_constructors():
     }
 
 
-CONSTRUCTORS = ["SeaIceModel", "Mesh.tensors", "build_dynamics_tensors",
-            "init_velocity_state", "zero_forcing", "build_fast_tensors",
+CONSTRUCTORS = ["SeaIceModel", "ShardedSeaIceModel", "Mesh.tensors",
+            "build_dynamics_tensors", "init_velocity_state", "zero_forcing", "build_fast_tensors",
             "build_panel_tensors", "RemapGeometry.tensors",
             "init_tracer_state", "box_forcing"]
 
@@ -205,6 +213,18 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
             K1.evp_subcycle_loop.inner_launches) == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    # and the one-subcycle wrapper (K6): three calls are the loop's three
+    kw1 = dict(kw)
+    del kw1["n_subcycles"]
+    before = (K1.evp_subcycle_step.launches,
+              K1.evp_subcycle_step.inner_launches)
+    loop = K1.evp_subcycle_prepare(*args, **kw1)
+    for _ in range(3):
+        K1.evp_subcycle_step(loop)
+    assert (K1.evp_subcycle_step.launches,
+            K1.evp_subcycle_step.inner_launches) == before
+    for g, w in zip(K1.evp_subcycle_finish(loop), want):
+        assert torch.equal(g, w)
 
 
 def test_kernel_sources_and_work_counts():
@@ -218,12 +238,13 @@ def test_kernel_sources_and_work_counts():
                      "evp_panel_cell", "evp_raster"}
     assert set(wrappers()) == {"evp_subcycle_loop", "integrate_fluxes_cuda",
                                "evp_panel_loop", "panel_cell_step",
-                               "evp_raster_loop"}
+                               "evp_raster_loop", "evp_subcycle_step"}
     # each source says which TPU kernel it replaces and has both types
     for name, sym in (("evp_panel_fused", "evp_panel_loop"),
                       ("evp_panel_cell", "panel_cell"),
                       ("evp_raster", "evp_raster_loop"),
-                      ("evp_unstructured", "evp_subcycle_loop")):
+                      ("evp_unstructured", "evp_subcycle_loop"),
+                      ("evp_unstructured", "evp_subcycle_step")):
         with open(os.path.join(build.CSRC, name + ".cu")) as f:
             text = f.read()
         assert "Replaces the TPU kernel" in text, name

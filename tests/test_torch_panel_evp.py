@@ -192,8 +192,9 @@ def test_panel_route_errors():
     with pytest.raises(NotImplementedError, match="use_pallas=False"):
         tevp.make_velocity_solver(_cfg(tconfig, False), panel_n=p["lt"].N,
                                   use_pallas=False)
-    with pytest.raises(NotImplementedError, match="halo_exchange_vertex"):
-        tevp.make_velocity_solver(_cfg(tconfig, False),
+    # the panel loop runs on a whole mesh: no halo exchange with it
+    with pytest.raises(ValueError, match="halo exchange"):
+        tevp.make_velocity_solver(_cfg(tconfig, False), panel_n=p["lt"].N,
                                   halo_exchange_vertex=lambda u, v: (u, v))
     # panel_n on tensors without panel layout
     mt = tmesh.icosahedral_mesh(1)
