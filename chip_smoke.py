@@ -25,9 +25,12 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
                     the raster loop K4;
   3. holds each kernel against its plain PyTorch version on the card, on
      the very tensors the step hands it (float32, and the same tensors
-     cast to float64), and times both with CUDA events; runs K1 on K3's
-     inputs (two kernels, one function) and reports their times and
-     their distance; holds the sharded step against the unsharded one;
+     cast to float64), and times both with CUDA events; reports K3's
+     launches per call and the share of its basis held in shared memory,
+     K2's kernel-alone time and its CUDA kernels per call (torch.profiler;
+     more than 3 fails); runs K1 on K3's inputs (two kernels, one
+     function) and reports their times and their distance; holds the
+     sharded step against the unsharded one;
   4. for each path sets the launch counts to 0, takes a few steps, reads
      the counts and checks the state (finite, |u| bounded, every tracer
      product conserved);
@@ -103,6 +106,27 @@ def time_ms(fn, reps, warmup=1):
         torch.cuda.synchronize()
         ts.append(a.elapsed_time(b))
     return float(np.median(ts))
+
+
+def device_profile(fn, n=3):
+    """torch.profiler over n calls of fn() after one warm-up: (CUDA
+    kernels per call, {kernel name: device ms per call})."""
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    count, ms = 0, {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) is None or \
+                "CUDA" not in str(e.device_type):
+            continue
+        count += e.count
+        ms[e.key[:60]] = getattr(e, "device_time_total",
+                                 getattr(e, "cuda_time_total", 0.0)) / 1e3 / n
+    return count / n, ms
 
 
 def rel_err(a, b):
@@ -411,7 +435,50 @@ def check_loop(name, call, reps):
     out["ms"] = time_ms(lambda: kernel(*a32, **kw), reps)
     out["plain_ms"] = time_ms(lambda: plain(*a32, **kw), max(2, reps // 3))
     out["ms_f64"] = time_ms(lambda: kernel(*a[torch.float64], **kw), reps)
+    n0 = (kernel.launches, kernel.inner_launches)
+    kernel(*a32, **kw)
+    out["inner_launches_per_call"] = (
+        (kernel.inner_launches - n0[1]) / (kernel.launches - n0[0]))
+    if name == "evp_panel_loop":
+        out["launch_f32"] = kernel.last_launch
+        kernel(*a[torch.float64], **kw)
+        out["launch_f64"] = kernel.last_launch
+        out["kernel_ms"] = time_ms(k3_c_call(a32, kw), reps)
+        out["kernel_ms_f64"] = time_ms(k3_c_call(a[torch.float64], kw), reps)
     return out
+
+
+def k3_phase_cycles(args, kw):
+    """K3 once with its phase timer on: SM cycles per subcycle in each
+    block's cell work, wait at the first barrier, vertex work and wait at
+    the second, as the mean, least and largest over the blocks."""
+    from seaice_tpu_torch.dynamics.cuda_panel_fused import (_bind,
+                                                            evp_panel_loop)
+    evp_panel_loop(*args, **kw)
+    grid = evp_panel_loop.last_launch["grid"]
+    timer = torch.zeros((grid, 4), dtype=torch.int64, device="cuda")
+    call, _ = _bind(*args, **kw, phase_timer=timer)
+    if call()[0] != 0:
+        fail("K3 with its phase timer: the C call returned an error")
+    torch.cuda.synchronize()
+    per = timer.double() / kw["n_subcycles"]
+    return {name: {"mean": float(per[:, i].mean()),
+                   "min": float(per[:, i].min()),
+                   "max": float(per[:, i].max())}
+            for i, name in enumerate(("cell_work", "cell_barrier",
+                                      "vertex_work", "vertex_barrier"))}
+
+
+def k3_c_call(args, kw):
+    """The C call of K3 alone (checks and outputs made beforehand by the
+    wrapper's `_bind`), for CUDA events around the kernel."""
+    from seaice_tpu_torch.dynamics.cuda_panel_fused import _bind
+    c_call, _ = _bind(*args, **kw)
+
+    def call():
+        if c_call()[0] != 0:
+            fail("K3: the C call returned an error")
+    return call
 
 
 def check_k5(call, reps):
@@ -508,8 +575,27 @@ def k3_against_k1(call, dyn, reps, limit64):
          time_ms(lambda: evp_panel_loop(*a32, **kw), reps),
          time_ms(lambda: evp_panel_loop(*a32, **kw), reps),
          time_ms(lambda: evp_subcycle_loop(ft32, *a32[1:], **kw), reps)]
+    # the kernels alone, in turns: K1's C call (its loop state fixed by
+    # `evp_subcycle_prepare`), K3's (`k3_c_call`)
+    from seaice_tpu_torch.dynamics import cuda_unstructured as K1
+    loop = K1.evp_subcycle_prepare(ft32, *a32[1:], **{
+        k: v for k, v in kw.items() if k != "n_subcycles"})
+    fn1 = K1._c_function(torch.float32)
+    k1_call = (lambda: fn1(*loop.shape, int(kw["n_subcycles"]),
+                           int(loop.include_metric), *loop.c_tail))
+    k3_call = k3_c_call(a32, kw)
+    tk = [time_ms(k1_call, reps), time_ms(k3_call, reps),
+          time_ms(k3_call, reps), time_ms(k1_call, reps)]
+    sweep = {n: time_ms(k3_c_call(a32, dict(kw, n_subcycles=n)), reps)
+             for n in (0, 1, 10, 60, 120)}
+    phases = k3_phase_cycles(a32, kw)
     out = {"mesh": "panel-reordered icos", "n_subcycles": kw["n_subcycles"],
            "k1_ms": [t[0], t[3]], "k3_ms": [t[1], t[2]],
+           "k3_over_k1": (t[1] + t[2]) / (t[0] + t[3]),
+           "k1_kernel_ms": [tk[0], tk[3]], "k3_kernel_ms": [tk[1], tk[2]],
+           "k3_kernel_ms_by_n_subcycles": sweep,
+           "k3_kernel_us_per_subcycle": 1e3 * (sweep[120] - sweep[10]) / 110,
+           "k3_phase_cycles_per_subcycle": phases,
            "whole_loop_limit": limit64,
            "rel_diff_f64_one_subcycle": e1, "rel_diff_f64_whole_loop": e}
     emit({"k3_against_k1": out})
@@ -520,53 +606,94 @@ def k3_against_k1(call, dyn, reps, limit64):
     return out
 
 
-def check_k2(call, reps):
-    from seaice_tpu_torch.transport.cuda_flux import (flux_work,
-                                                      integrate_fluxes_cuda)
+def k2_against_plain(call):
+    """K2 on one captured call against `remap.integrate_fluxes` on the same
+    tensors, float32 and float64, each field held to TOL of its max.
+    Returns {tag: (max rel err, rel err by field, max abs err)}."""
+    from seaice_tpu_torch.transport.cuda_flux import integrate_fluxes_cuda
     from seaice_tpu_torch.transport.remap import integrate_fluxes
     args, kw = call
-    out = {"name": "integrate_fluxes_cuda", "route": "cuda",
-           "source": "seaice_tpu_torch/csrc/ir_flux.cu",
-           "replaces": "seaice_tpu/transport/pallas_flux.py:263",
-           "library_ms": None}
-    for dtype in (torch.float32, torch.float64):
+    res = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
         a = cast(args, dtype)
         got = integrate_fluxes_cuda(*a, **kw)
         torch.cuda.synchronize()
         want = integrate_fluxes(*a, **kw)
         torch.cuda.synchronize()
-        errs = {n: rel_err(got[n], want[n]) for n in want}
-        err = max(errs.values())
-        tag = "f32" if dtype == torch.float32 else "f64"
-        out["max_rel_err_" + tag] = err
-        out["rel_err_by_field_" + tag] = errs
         if set(got) != set(want) or any(
                 got[n].shape != want[n].shape for n in want):
             fail("K2 " + tag + ": result names or shapes differ")
         if not all(bool(torch.isfinite(g).all()) for g in got.values()):
             fail("K2 " + tag + ": non-finite output")
+        errs = {n: rel_err(got[n], want[n]) for n in want}
+        err = max(errs.values())
         if not err <= TOL[dtype]:
             fail(f"K2 {tag}: kernel and plain version disagree, "
                  f"{errs} > {TOL[dtype]}")
-        if dtype == torch.float32:
-            out["max_abs_err"] = max(
-                float((got[n] - want[n]).abs().max()) for n in want)
-            tree, recon, _rt, cell, _xq, _yq, area, mask_edge = a
-            byts, flops, n_active = flux_work(tree, recon, cell, area,
-                                              mask_edge, 4)
-            t_b, t_f = byts / PEAK_BYTES_PER_S, flops / PEAK_FLOPS_F32
-            out["bound_ms"] = 1e3 * max(t_b, t_f)
-            out["bound_by"] = "bytes" if t_b >= t_f else "operations"
-            out["bytes"], out["flops"] = byts, flops
-            n_e, n_s = cell.shape
-            out["shapes"] = {
-                "nE": n_e, "S": n_s, "active_slots": n_active,
-                "unmasked_edges": int((mask_edge != 0).sum())}
-            out["ms"] = time_ms(lambda: integrate_fluxes_cuda(*a, **kw),
-                                reps)
-            out["plain_ms"] = time_ms(lambda: integrate_fluxes(*a, **kw),
-                                      reps)
+        res[tag] = (err, errs, max(float((got[n] - want[n]).abs().max())
+                                   for n in want))
+    return res
+
+
+def k2_on_path(label, calls):
+    """K2 against its plain version on every captured call of a path."""
+    rows = [k2_against_plain(call) for call in calls]
+    emit({"k2_against_plain": {
+        "path": label, "calls": len(rows),
+        "max_rel_err_f32": max(r["f32"][0] for r in rows),
+        "max_rel_err_f64": max(r["f64"][0] for r in rows)}})
+
+
+def check_k2(call, reps):
+    """K2 against its plain version (`k2_against_plain`), its bound, and
+    its times: the wrapper's and the plain version's by CUDA events, the
+    C call alone (`kernel_ms`), and the CUDA kernels per wrapper call by
+    torch.profiler (more than 3 fails)."""
+    from seaice_tpu_torch.transport.cuda_flux import (flux_work,
+                                                      integrate_fluxes_cuda)
+    from seaice_tpu_torch.transport.remap import integrate_fluxes
+    out = {"name": "integrate_fluxes_cuda", "route": "cuda",
+           "source": "seaice_tpu_torch/csrc/ir_flux.cu",
+           "replaces": "seaice_tpu/transport/pallas_flux.py:263",
+           "library_ms": None}
+    res = k2_against_plain(call)
+    for tag, (err, errs, _) in res.items():
+        out["max_rel_err_" + tag] = err
+        out["rel_err_by_field_" + tag] = errs
+    out["max_abs_err"] = res["f32"][2]
+    a, kw = cast(call[0], torch.float32), call[1]
+    tree, recon, _rt, cell, _xq, _yq, area, mask_edge = a
+    byts, flops, n_active = flux_work(tree, recon, cell, area, mask_edge, 4)
+    t_b, t_f = byts / PEAK_BYTES_PER_S, flops / PEAK_FLOPS_F32
+    out["bound_ms"] = 1e3 * max(t_b, t_f)
+    out["bound_by"] = "bytes" if t_b >= t_f else "operations"
+    out["bytes"], out["flops"] = byts, flops
+    n_e, n_s = cell.shape
+    out["shapes"] = {"nE": n_e, "S": n_s, "active_slots": n_active,
+                     "unmasked_edges": int((mask_edge != 0).sum())}
+    out["ms"] = time_ms(lambda: integrate_fluxes_cuda(*a, **kw), reps)
+    out["plain_ms"] = time_ms(lambda: integrate_fluxes(*a, **kw), reps)
+    out["kernel_ms"] = time_ms(k2_c_call(a), reps)
+    per_call, dev_ms = device_profile(lambda: integrate_fluxes_cuda(*a, **kw))
+    out["device_kernels_per_call"] = per_call
+    out["device_ms_by_kernel"] = dev_ms
+    if per_call > 3:
+        fail(f"K2: {per_call} CUDA kernels per integrate_fluxes_cuda call, "
+             "more than 3")
     return out
+
+
+def k2_c_call(args):
+    """The C call of K2 alone on these inputs (its table and outputs made
+    beforehand by the wrapper's `_bind`), for CUDA events around the
+    kernel without the wrapper."""
+    from seaice_tpu_torch.transport.cuda_flux import _bind
+    c_call, _ = _bind(*args)
+
+    def call():
+        if c_call() != 0:
+            fail("K2: the C call returned an error")
+    return call
 
 
 def sharded_loops(model, calls, dtype):
@@ -864,6 +991,10 @@ def main_path(label, model, state, forcing, n_steps, expect):
             fail(f"{label}: {name} launched {n} times in {n_steps} "
                  f"steps, expected {want}: the step did not go through "
                  "the kernels of its path")
+    if counts["evp_panel_loop"] and \
+            inner.get("evp_panel_loop") != counts["evp_panel_loop"]:
+        fail(f"{label}: K3 made {inner.get('evp_panel_loop')} kernel "
+             f"launches in {counts['evp_panel_loop']} calls, not one each")
     return state, counts, out["ms_per_step_median"]
 
 
@@ -942,8 +1073,7 @@ def profile(model, state, forcing, step_ms):
     own = {}
     for key, ms, count in rows:
         for name in ("evp_cell_kernel", "evp_vertex_kernel",
-                     "panel_cell_exc_kernel", "panel_vertex_kernel",
-                     "ir_flux_kernel"):
+                     "panel_loop_kernel", "ir_flux_kernel"):
             if name in key:
                 own[name] = [ms / n, count / n]
     emit({"profile": {
@@ -1026,8 +1156,9 @@ def main():
     build.get_native_stencil_lib()
     emit({"build": {"seconds": time.perf_counter() - t0,
                     "sources": sorted(build.build_log),
-                    "ptxas": {k: [ln for ln in v.splitlines()
-                                  if "registers" in ln or "spill" in ln][:40]
+                    "ptxas": {k: [ln.strip() for ln in v.splitlines()
+                                  if "registers" in ln or "spill" in ln
+                                  or "Function properties" in ln][:80]
                               for k, v in build.build_log.items()}}})
     kernels = {}
 
@@ -1092,6 +1223,7 @@ def main():
              f"{ {k: len(v) for k, v in calls.items()} }")
     kernels["evp_subcycle_step"] = check_k6(
         smodel, calls["evp_subcycle_prepare"], args.reps)
+    k2_on_path("sharded sphere", calls["integrate_fluxes_cuda"])
     del calls
     sstate, counts, _ = main_path(
         "sharded sphere", smodel, sstate, sforcing, 1,
@@ -1118,6 +1250,7 @@ def main():
         "evp_panel_loop", calls["evp_panel_loop"][0], args.reps)
     k3_against_k1(calls["evp_panel_loop"][0], model.tensors.dynamics, args.reps,
                   kernels["evp_panel_loop"]["loop_rel_err_f64_limit"])
+    k2_on_path("panel sphere", calls["integrate_fluxes_cuda"])
     del calls
     state, counts, step_ms = main_path(
         "panel sphere", model, state, forcing, args.steps,

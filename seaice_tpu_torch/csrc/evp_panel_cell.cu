@@ -12,8 +12,8 @@
 // The TPU kernel is handed six pre-shifted copies of the vertex planes,
 // because its compiler takes no load at an unaligned offset.  A GPU thread
 // reads the two vertex planes at the six static offsets itself: the kernel
-// is `panel_cell_kernel` of evp_panel_common.cuh, the cell side that the
-// whole-loop route (evp_panel_fused.cu) runs too.  Here the planes come with
+// is `panel_cell_kernel` of evp_panel_common.cuh, whose arithmetic
+// (`panel_cell_math`) the whole-loop route (evp_panel_fused.cu) runs too.  Here the planes come with
 // their seam ghosts filled by the caller, so no ghost map is passed.
 //
 // What bounds it: bytes.  One launch reads the three basis tensors (30.4 MB

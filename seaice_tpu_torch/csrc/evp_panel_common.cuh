@@ -1,6 +1,7 @@
 // Shared by the two panel EVP kernels (evp_panel_fused.cu, evp_panel_cell.cu):
 // the EVP constants, the stress relaxation of one corner, and the cell side
-// of one elastic subcycle on the 10-panel padded lattice.
+// of one elastic subcycle on the 10-panel padded lattice (corner reads, the
+// arithmetic on a column's stresses, and both on global arrays).
 //
 // Layout (seaice_tpu_torch/dynamics/variational_panel.py): one flat padded
 // index q = (p*(N+1) + a)*(N+1) + b per panel position, npp = 10*(N+1)^2 of
@@ -109,12 +110,104 @@ __device__ __forceinline__ int corner_position(int k, int q, int p, int a, int b
   return t * npp + q + da * R + db;
 }
 
-// ---- cell side of one subcycle, for padded column q < npp ----
-// Six corner reads from the vertex planes at static offsets, Wachspress
-// strain (+ tan(lat)/r metric), EVP stress relaxation in place where ss > 0,
-// divergence partials pu, pv (mu, mv with metric) per dual slot into
-// part[f][j][q].  Pad, ghost and exception columns carry a zero basis and
-// ss == 0: their stress stays as it is and their partials come out as zero.
+// ---- cell side of one subcycle, split in three ----
+// panel_corner_values: the six corner reads of the cell at padded column q
+// from the vertex planes at static offsets; panel_cell_math: Wachspress
+// strain (+ tan(lat)/r metric), EVP stress relaxation where ss (the
+// stresses updated in place in the caller's registers), divergence
+// partials pu, pv (mu, mv with metric) per dual slot; panel_cell_body: both
+// on the stresses and partials of global arrays (the per-subcycle route).
+// The whole-loop route (evp_panel_fused.cu) keeps a column's stresses in
+// registers across subcycles and its basis in shared memory where it fits,
+// so the basis comes as three base pointers and one stride: basis value k
+// of the column is bg[k * stride] (k = (b*2 + d)*6 + g), bi[k * stride]
+// (k = (s*2 + d)*6 + j) and bm[k * stride] (k = s*6 + j).
+template <typename T>
+__device__ __forceinline__ void panel_corner_values(
+    int q, int N, int npp, int metric,
+    const T* pl_u, const T* pl_v, const T* pl_t,   // [2, npp] vertex planes
+    const int* __restrict__ row_pos, const int* __restrict__ col_pos,
+    T uc[6], T vc[6], T tl[6])
+{
+  const int R = N + 1;
+  const int b_q = q % R, pa = q / R;
+  const int a_q = pa % R, p_q = pa / R;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const int at = corner_position(k, q, p_q, a_q, b_q, N, npp, row_pos, col_pos);
+    uc[k] = at >= 0 ? pl_u[at] : T(0);
+    vc[k] = at >= 0 ? pl_v[at] : T(0);
+    tl[k] = (metric && at >= 0) ? pl_t[at] : T(0);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void panel_cell_math(
+    const T uc[6], const T vc[6], const T tl[6], int metric,
+    const T* bg, const T* bi, const T* bm, int stride,
+    T press, bool ss,
+    T s11[6], T s22[6], T s12[6],          // in: old stresses; out: new
+    T pu[6], T pv[6], T mu[6], T mv[6],    // out: partials per dual slot
+    const EvpParams<T>& P)
+{
+  // strain at corner g: e[g] = sum_b vel[b] * grad[b, d, g]
+  T e11[6], e22[6], eA[6], eB[6];
+#pragma unroll
+  for (int g = 0; g < 6; ++g) { e11[g] = T(0); e22[g] = T(0); eA[g] = T(0); eB[g] = T(0); }
+#pragma unroll
+  for (int b = 0; b < 6; ++b) {
+#pragma unroll
+    for (int g = 0; g < 6; ++g) {
+      const T gx = bg[((b * 2 + 0) * 6 + g) * stride];
+      const T gy = bg[((b * 2 + 1) * 6 + g) * stride];
+      e11[g] += uc[b] * gx;
+      e22[g] += vc[b] * gy;
+      eA[g] += uc[b] * gy;
+      eB[g] += vc[b] * gx;
+    }
+  }
+
+#pragma unroll
+  for (int g = 0; g < 6; ++g) {
+    T x11 = e11[g], x22 = e22[g], x12 = T(0.5) * (eA[g] + eB[g]);
+    if (metric) {
+      x11 = x11 - vc[g] * tl[g];
+      x12 = x12 + T(0.5) * uc[g] * tl[g];
+    }
+    T n11, n22, n12;
+    evp_relax<T>(x11, x22, x12, press, s11[g], s22[g], s12[g], P, n11, n22, n12);
+    if (ss) { s11[g] = n11; s22[g] = n22; s12[g] = n12; }
+  }
+
+  // divergence partials per dual slot j
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    T a = T(0), b2 = T(0), c2 = T(0), d2 = T(0), m1 = T(0), m2 = T(0);
+#pragma unroll
+    for (int s = 0; s < 6; ++s) {
+      const T bu = bi[((s * 2 + 0) * 6 + j) * stride];
+      const T bv = bi[((s * 2 + 1) * 6 + j) * stride];
+      a += s11[s] * bu;
+      b2 += s12[s] * bv;
+      c2 += s22[s] * bv;
+      d2 += s12[s] * bu;
+      if (metric) {
+        const T w = bm[(s * 6 + j) * stride];
+        m1 += s12[s] * w;
+        m2 += s11[s] * w;
+      }
+    }
+    pu[j] = a + b2;
+    pv[j] = c2 + d2;
+    mu[j] = m1;
+    mv[j] = m2;
+  }
+}
+
+// The cell side for padded column q < npp on global arrays: stresses
+// [6, npc] updated in place where ss > 0, partials into part[f][j][q].  Pad,
+// ghost and exception columns carry a zero basis and ss == 0: their stress
+// stays as it is and their partials come out as zero.
 template <typename T>
 __device__ __forceinline__ void panel_cell_body(
     int q, int N, int npp, int npc, int metric,
@@ -132,82 +225,34 @@ __device__ __forceinline__ void panel_cell_body(
     const EvpParams<T>& P)
 {
   const size_t n = (size_t)npc;
-
-  const int R = N + 1;
-  const int b_q = q % R, pa = q / R;
-  const int a_q = pa % R, p_q = pa / R;
   T uc[6], vc[6], tl[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    const int at = corner_position(k, q, p_q, a_q, b_q, N, npp, row_pos, col_pos);
-    uc[k] = at >= 0 ? pl_u[at] : T(0);
-    vc[k] = at >= 0 ? pl_v[at] : T(0);
-    tl[k] = (metric && at >= 0) ? pl_t[at] : T(0);
-  }
-
-  // strain at corner g: e[g] = sum_b vel[b] * grad[b, d, g]
-  T e11[6], e22[6], eA[6], eB[6];
-#pragma unroll
-  for (int g = 0; g < 6; ++g) { e11[g] = T(0); e22[g] = T(0); eA[g] = T(0); eB[g] = T(0); }
-#pragma unroll
-  for (int b = 0; b < 6; ++b) {
-#pragma unroll
-    for (int g = 0; g < 6; ++g) {
-      const T gx = bgrad[((size_t)(b * 2 + 0) * 6 + g) * n + q];
-      const T gy = bgrad[((size_t)(b * 2 + 1) * 6 + g) * n + q];
-      e11[g] += uc[b] * gx;
-      e22[g] += vc[b] * gy;
-      eA[g] += uc[b] * gy;
-      eB[g] += vc[b] * gx;
-    }
-  }
-
-  const T press = pressure[q];
+  panel_corner_values<T>(q, N, npp, metric, pl_u, pl_v, pl_t, row_pos, col_pos, uc, vc, tl);
   const bool ss = ss_mask[q] > T(0);
   T r11[6], r22[6], r12[6];
 #pragma unroll
   for (int g = 0; g < 6; ++g) {
-    T x11 = e11[g], x22 = e22[g], x12 = T(0.5) * (eA[g] + eB[g]);
-    if (metric) {
-      x11 = x11 - vc[g] * tl[g];
-      x12 = x12 + T(0.5) * uc[g] * tl[g];
-    }
-    const T o11 = s11[g * n + q], o22 = s22[g * n + q], o12 = s12[g * n + q];
-    T n11, n22, n12;
-    evp_relax<T>(x11, x22, x12, press, o11, o22, o12, P, n11, n22, n12);
-    r11[g] = ss ? n11 : o11;
-    r22[g] = ss ? n22 : o22;
-    r12[g] = ss ? n12 : o12;
-    if (ss) {
-      s11[g * n + q] = n11;
-      s22[g * n + q] = n22;
-      s12[g * n + q] = n12;
+    r11[g] = s11[g * n + q];
+    r22[g] = s22[g * n + q];
+    r12[g] = s12[g * n + q];
+  }
+  T pu[6], pv[6], mu[6], mv[6];
+  panel_cell_math<T>(uc, vc, tl, metric, bgrad + q, bint + q, bmet + q, npc, pressure[q],
+                     ss, r11, r22, r12, pu, pv, mu, mv, P);
+  if (ss) {
+#pragma unroll
+    for (int g = 0; g < 6; ++g) {
+      s11[g * n + q] = r11[g];
+      s22[g * n + q] = r22[g];
+      s12[g * n + q] = r12[g];
     }
   }
-
-  // divergence partials per dual slot j
 #pragma unroll
   for (int j = 0; j < 6; ++j) {
-    T a = T(0), b2 = T(0), c2 = T(0), d2 = T(0), mu = T(0), mv = T(0);
-#pragma unroll
-    for (int s = 0; s < 6; ++s) {
-      const T bu = bint[((size_t)(s * 2 + 0) * 6 + j) * n + q];
-      const T bv = bint[((size_t)(s * 2 + 1) * 6 + j) * n + q];
-      a += r11[s] * bu;
-      b2 += r12[s] * bv;
-      c2 += r22[s] * bv;
-      d2 += r12[s] * bu;
-      if (metric) {
-        const T bm = bmet[((size_t)s * 6 + j) * n + q];
-        mu += r12[s] * bm;
-        mv += r11[s] * bm;
-      }
-    }
-    part[((size_t)0 * 6 + j) * n + q] = a + b2;
-    part[((size_t)1 * 6 + j) * n + q] = c2 + d2;
+    part[((size_t)0 * 6 + j) * n + q] = pu[j];
+    part[((size_t)1 * 6 + j) * n + q] = pv[j];
     if (metric) {
-      part[((size_t)2 * 6 + j) * n + q] = mu;
-      part[((size_t)3 * 6 + j) * n + q] = mv;
+      part[((size_t)2 * 6 + j) * n + q] = mu[j];
+      part[((size_t)3 * 6 + j) * n + q] = mv[j];
     }
   }
 }

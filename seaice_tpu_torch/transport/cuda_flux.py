@@ -3,22 +3,29 @@ between it and its plain PyTorch version (`remap.integrate_fluxes`).
 
 Replaces the TPU kernel `_build_kernel` of
 `seaice_tpu/transport/pallas_flux.py` (reached through
-`integrate_fluxes_fused`).  For each edge the kernel gathers, for every
-non-empty departure-triangle slot, the source cell's row of ONE packed
-polynomial-coefficient table [nCells, F] (all tracers of the tree; the
-polynomial products are built cell-wise here, before the kernel, as the
-TPU wrapper did), contracts it with the triangle's monomial integrals,
-forms the layered tracers as c3*P0 + gx3*Px + gy3*Py from the parent's
-partials, multiplies by the signed area, sums the slots and masks the
-edge.  The CUDA source is `csrc/ir_flux.cu` (one warp per edge, a lane
-per output column, column metadata as small int32 arrays).
+`integrate_fluxes_fused`).  The plain version, like the TPU wrapper,
+multiplies each tracer product's linear factors out into monomial
+coefficients cell by cell and contracts them with the triangles' monomial
+integrals.  The kernel (`csrc/ir_flux.cu`, one warp per edge) does the same
+sum pointwise instead: by linearity, sum_m coeff_m * mom_m = sum_q w_q *
+poly(x_q, y_q), and each product polynomial is a chain of linear factors
+c + gx*x + gy*y from the mass down the tracer tree, so it evaluates the
+chains at the triangle's six quadrature points (a 3D tracer: its 2D
+parent's six values times its own factor), weights them, multiplies by the
+signed area, sums the slots and masks the edge.  So the wrapper hands it
+the reconstruction's LINEAR coefficients as one table `[nCells, 3W]` (one
+`torch.cat`, `linear_table`), the quadrature points and weights, the areas,
+the int64 cell indices and the edge mask as they come, and one small int32
+column table built once per tree (`flux_layout`): a call is that
+concatenation, two `torch.empty` and the launch, with no monomial
+integrals and no product table before it.
 
-Its bound on an H100 (`flux_work`) is bytes: the reconstruction
-coefficients in, the fluxes out; the arithmetic is three orders of
-magnitude below the f32 peak.  The design therefore reads each table row
-with a warp's lanes on neighbouring columns, skips empty slots and masked
-edges, and keeps every intermediate in registers.  All arithmetic is
-plain FMA in the working type; no tensor-core or reduced-precision path.
+Its bound on an H100 (`flux_work`) is bytes: the table rows that non-empty
+slots of unmasked edges touch, the points, the fluxes out; the arithmetic
+is three orders of magnitude below the f32 peak.  The design reads each
+table row once per non-empty slot, skips empty slots and masked edges, and
+keeps every intermediate on chip.  All arithmetic is plain FMA in the
+working type; no tensor-core or reduced-precision path.
 
 `integrate_fluxes_cuda` takes the plain version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.
@@ -32,76 +39,56 @@ import numpy as np
 import torch
 
 from .geometry import RemapTensors
-from .remap import (_poly_mul_linear, integrate_fluxes,
-                    triangle_monomial_integrals)
+from .remap import integrate_fluxes
 from .tracers import TracerTree
 
 
-def pack_coefficients(tree: TracerTree, recon, term_idx):
-    """Pack every tracer's cellwise polynomial coefficients into one table
-    [nCells, F] (the column order of `remap.integrate_fluxes`) and build
-    the column metadata the kernel reads.
+def linear_table(tree: TracerTree, recon):
+    """Every tracer's reconstruction (center, gx, gy), flattened per cell
+    and concatenated: [nCells, 3W], per tracer a c block, a gx block and a
+    gy block of W_t = nCat (2D) or nCat*nL (3D) columns each."""
+    nc = recon[tree.root.name]["center"].shape[0]
+    return torch.cat([recon[s.name][k].reshape(nc, -1) for s in tree.specs
+                      for k in ("center", "gx", "gy")], dim=1)
 
-    Returns (table, meta, out2d, out3d): meta is a dict of int32 numpy
-    arrays; out2d = [(name, nCat, out_off)], out3d = [(name, nCat, nL,
-    out_off)]."""
-    polys = {}
-    cat = []
-    col_mono, col_mono_x, col_mono_y = [], [], []
-    o2_off, o2_n = [], []
-    o3_col, o3_stride, o3_poff, o3_pn = [], [], [], []
+
+def flux_layout(tree: TracerTree, recon):
+    """The kernel's column table for `linear_table`'s layout.
+
+    Returns (meta, out2d, out3d): meta int32 [3, T2 + T3], for each 2D
+    output column (tracer, category) and then each 3D one (tracer,
+    category, layer): the table column of its c, the distance from c to
+    gx (and from gx to gy), and the 2D output column of its parent in the
+    same category (-1 for the root); out2d = [(name, nCat, out_off)],
+    out3d = [(name, nCat, nL, out_off)]."""
+    col, stride, parent = [], [], []
+    c3, s3, p3 = [], [], []
     out2d, out3d = [], []
-    block_off, keys_of = {}, {}
+    first2d = {}                     # 2D tracer -> its first output column
     off = 0
     for spec in tree.specs:
-        r = recon[spec.name]
-        c0, gx, gy = r["center"], r["gx"], r["gy"]
-        if c0.ndim == 2:
-            if spec.parent is None:
-                poly = {(0, 0): c0, (1, 0): gx, (0, 1): gy}
-            else:
-                poly = _poly_mul_linear(polys[spec.parent], c0, gx, gy)
-            polys[spec.name] = poly
-            keys = sorted(poly.keys(), key=lambda m: term_idx[m])
-            keys_of[spec.name] = keys
-            nCat = c0.shape[1]
-            coeff = torch.stack([poly[k] for k in keys], dim=-1)
-            cat.append(coeff.reshape(coeff.shape[0], -1))
-            block_off[spec.name] = off
-            out2d.append((spec.name, nCat, len(o2_off)))
+        shp = tuple(recon[spec.name]["center"].shape[1:])
+        w = int(np.prod(shp))
+        nCat = shp[0]
+        if len(shp) == 1:
+            first2d[spec.name] = len(col)
+            out2d.append((spec.name, nCat, len(col)))
             for cc in range(nCat):
-                o2_off.append(off + cc * len(keys))
-                o2_n.append(len(keys))
-                for k in keys:
-                    col_mono.append(term_idx[k])
-                    # x/y shifts exist for every parent of a layered
-                    # tracer; a column without them is never asked
-                    col_mono_x.append(term_idx.get((k[0] + 1, k[1]), 0))
-                    col_mono_y.append(term_idx.get((k[0], k[1] + 1), 0))
-            off += nCat * len(keys)
+                col.append(off + cc)
+                stride.append(w)
+                parent.append(-1 if spec.parent is None
+                              else first2d[spec.parent] + cc)
         else:
-            nCat, nL = c0.shape[1], c0.shape[2]
-            pkeys = keys_of[spec.parent]
-            poff = block_off[spec.parent]
-            out3d.append((spec.name, nCat, nL, len(o3_col)))
-            for a in (c0, gx, gy):
-                cat.append(a.reshape(a.shape[0], -1))
+            nL = shp[1]
+            out3d.append((spec.name, nCat, nL, len(c3)))
             for cc in range(nCat):
                 for ll in range(nL):
-                    o3_col.append(off + cc * nL + ll)
-                    o3_stride.append(nCat * nL)
-                    o3_poff.append(poff + cc * len(pkeys))
-                    o3_pn.append(len(pkeys))
-            col_mono += [0] * (3 * nCat * nL)
-            col_mono_x += [0] * (3 * nCat * nL)
-            col_mono_y += [0] * (3 * nCat * nL)
-            off += 3 * nCat * nL
-    table = torch.cat(cat, dim=1).contiguous()
-    meta = {k: np.asarray(v, np.int32) for k, v in dict(
-        col_mono=col_mono, col_mono_x=col_mono_x, col_mono_y=col_mono_y,
-        o2_off=o2_off, o2_n=o2_n, o3_col=o3_col, o3_stride=o3_stride,
-        o3_poff=o3_poff, o3_pn=o3_pn).items()}
-    return table, meta, out2d, out3d
+                    c3.append(off + cc * nL + ll)
+                    s3.append(w)
+                    p3.append(first2d[spec.parent] + cc)
+        off += 3 * w
+    meta = np.asarray([col + c3, stride + s3, parent + p3], np.int32)
+    return meta, out2d, out3d
 
 
 def flux_work(tree: TracerTree, recon, cell, area, mask_edge,
@@ -110,37 +97,35 @@ def flux_work(tree: TracerTree, recon, cell, area, mask_edge,
     coefficients of the cells that non-empty slots of unmasked edges
     touch, the quadrature points of those slots, the per-slot area and
     cell index and the edge mask read once; the fluxes written once;
-    flops of the monomial integrals and the contractions those slots
-    need."""
+    flops of the pointwise evaluation those slots need (per 2D column and
+    point 4 flops a linear factor of its chain and 1 a product, per 3D
+    column and point 6, then 2 a point for the weights and 2 for the
+    area)."""
     nE, S = cell.shape
     active = (area != 0) & (mask_edge[:, None] != 0)
     n_active = int(active.sum())
     n_cells = int(torch.unique(cell[active]).numel()) if n_active else 0
-    max_depth = max(tree.depth(s.name) for s in tree.specs)
-    n_terms = (max_depth + 2) * (max_depth + 3) // 2
     n_coef = 0      # reconstruction values per cell
     n_out = 0
-    fl = 6 * (2 * n_terms + 4 * max_depth)     # monomial integrals
-    n2 = {}
+    fl = 0
     for spec in tree.specs:
         shp = recon[spec.name]["center"].shape[1:]
         n = int(np.prod(shp))
         n_coef += 3 * n
         n_out += n
         if len(shp) == 1:
-            d = tree.depth(spec.name)
-            n2[spec.name] = (d + 2) * (d + 3) // 2
-            fl += shp[0] * (2 * n2[spec.name] + 2)
+            chain = tree.depth(spec.name) + 1
+            fl += n * (6 * (5 * chain) + 12 + 2)
         else:
-            fl += shp[0] * 6 * n2[spec.parent] + n * 8
+            fl += n * (6 * 6 + 12 + 2)
     byts = itemsize * (n_cells * n_coef + n_active * 12 + nE * S
-                       + nE + nE * n_out) + 4 * nE * S
+                       + nE + nE * n_out) + 8 * nE * S
     return byts, n_active * fl, n_active
 
 
-_meta_cache = {}
+_layout_cache = {}
 
-_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 17
+_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 11
 
 
 def _c_function(dtype):
@@ -167,63 +152,74 @@ def integrate_fluxes_cuda(tree: TracerTree, recon, rt: RemapTensors,
                                 mask_edge)
     if xq.device.type != "cuda":
         raise ValueError(f"unsupported device {xq.device}")
+    return _launch(tree, recon, rt, cell, xq, yq, area, mask_edge)
+
+
+def _launch(tree, recon, rt, cell, xq, yq, area, mask_edge):
+    """Checks, the table, the two outputs, and the call of the C
+    function."""
+    call, fluxes = _bind(tree, recon, rt, cell, xq, yq, area, mask_edge)
+    err = call()
+    if err != 0:
+        raise RuntimeError(f"integrate_fluxes_cuda: CUDA error {err}")
+    _COUNTS.launches += 1
+    return fluxes
+
+
+def _bind(tree, recon, rt, cell, xq, yq, area, mask_edge):
+    """Check every argument, build the table and allocate the outputs;
+    returns (call, fluxes): call() makes the C call on the current stream
+    and returns its error, writing into the outputs that `fluxes` (name ->
+    view) shows."""
     dt, dev = xq.dtype, xq.device
     if dt not in (torch.float32, torch.float64):
         raise ValueError(f"unsupported dtype {dt}")
     nE, S = cell.shape
     for name, t, shape in (("xq", xq, (nE, S, 6)), ("yq", yq, (nE, S, 6)),
                            ("area", area, (nE, S)),
-                           ("mask_edge", mask_edge, (nE,))):
+                           ("mask_edge", mask_edge, (nE,)),
+                           ("qp_weights", rt.qp_weights, (6,))):
         if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(
                 f"{name}: expected {shape} {dt} on {dev}, got "
                 f"{tuple(t.shape)} {t.dtype} on {t.device}")
-    if cell.device != dev or cell.dtype not in (torch.int32, torch.int64):
-        raise ValueError("cell: expected an integer tensor on " + str(dev))
+    if cell.device != dev or cell.dtype != torch.int64:
+        raise ValueError("cell: expected an int64 tensor on " + str(dev))
 
-    max_depth = max(tree.depth(s.name) for s in tree.specs)
-    mom, terms = triangle_monomial_integrals(rt, xq, yq,
-                                             max_degree=max_depth + 1)
-    term_idx = {m: i for i, m in enumerate(terms)}
-    M = len(terms)
-    table, meta, out2d, out3d = pack_coefficients(tree, recon, term_idx)
+    key = (tree, tuple(tuple(recon[s.name]["center"].shape[1:])
+                       for s in tree.specs), str(dev))
+    if key not in _layout_cache:
+        meta, out2d, out3d = flux_layout(tree, recon)
+        _layout_cache[key] = (torch.as_tensor(meta).to(dev), out2d, out3d)
+    meta, out2d, out3d = _layout_cache[key]
+    T2 = sum(n for _, n, _ in out2d)
+    T3 = sum(n * nl for _, n, nl, _ in out3d)
+    table = linear_table(tree, recon)
     if table.dtype != dt or table.device != dev:
         raise ValueError("recon: dtype/device differ from xq's")
-    F = table.shape[1]
-    T2, T3 = len(meta["o2_off"]), len(meta["o3_col"])
-    key = (tree, F, T2, T3, M, str(dev))
-    if key not in _meta_cache:
-        _meta_cache[key] = {k: torch.as_tensor(v).to(dev)
-                            for k, v in meta.items()}
-    md = _meta_cache[key]
-
-    mom = mom.contiguous()
-    area_c = area.contiguous()
-    cell32 = cell.to(torch.int32).contiguous()
-    mask_c = mask_edge.contiguous()
+    xq, yq, area, mask_edge, cell = (t.contiguous() for t in (
+        xq, yq, area, mask_edge, cell))
+    wq = rt.qp_weights.contiguous()
     out2 = torch.empty((nE, T2), dtype=dt, device=dev)
     out3 = torch.empty((nE, T3), dtype=dt, device=dev)
     fn = _c_function(dt)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(nE, S, M, F, T2, T3, table.data_ptr(), mom.data_ptr(),
-                 area_c.data_ptr(), cell32.data_ptr(), mask_c.data_ptr(),
-                 md["col_mono"].data_ptr(), md["col_mono_x"].data_ptr(),
-                 md["col_mono_y"].data_ptr(), md["o2_off"].data_ptr(),
-                 md["o2_n"].data_ptr(), md["o3_col"].data_ptr(),
-                 md["o3_stride"].data_ptr(), md["o3_poff"].data_ptr(),
-                 md["o3_pn"].data_ptr(), out2.data_ptr(), out3.data_ptr(),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"integrate_fluxes_cuda: CUDA error {err}")
-    _COUNTS.launches += 1
+    c_args = (nE, S, table.shape[1], T2, T3, table.data_ptr(), xq.data_ptr(),
+              yq.data_ptr(), wq.data_ptr(), area.data_ptr(), cell.data_ptr(),
+              mask_edge.data_ptr(), meta.data_ptr(), out2.data_ptr(),
+              out3.data_ptr(), stream)
 
+    def call():
+        return fn(*c_args)
+    # the tensors behind the pointers live as long as the call
+    call.held = (table, xq, yq, wq, area, cell, mask_edge, meta, out2, out3)
     fluxes = {}
     for (name, nCat, o) in out2d:
         fluxes[name] = out2[:, o:o + nCat]
     for (name, nCat, nL, o) in out3d:
         fluxes[name] = out3[:, o:o + nCat * nL].reshape(nE, nCat, nL)
-    return fluxes
+    return call, fluxes
 
 
 integrate_fluxes_cuda.launches = 0

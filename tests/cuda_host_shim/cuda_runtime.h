@@ -1,13 +1,32 @@
 // Host stand-in for <cuda_runtime.h>, for tests on a machine without a GPU:
 // a kernel's source is compiled as plain C++ and every launch runs here,
-// block after block, each block's threads as host threads, so that
-// __syncthreads() and __shared__ keep their meaning.  Launch sites
-// `k<<<grid, block, smem, stream>>>(args)` are rewritten by the test into
-// `shim_launch(grid, block, [&] { k(args); })` before compiling.
+// each block's threads as host threads, so that __syncthreads(),
+// __syncwarp() and shared memory keep their meaning.
+//
+//   * `k<<<grid, block, smem, stream>>>(args)` is rewritten by the test into
+//     `shim_launch(grid, block, smem, [&] { k(args); })`: blocks run one
+//     after another, as any launch may run them.
+//   * `cudaLaunchKernelEx` (used with `cudaLaunchAttributeCooperative`) runs
+//     ALL blocks' threads at once, so that a grid-wide barrier
+//     (`cooperative_groups::this_grid().sync()`, <cooperative_groups.h>
+//     beside this file) can be met.
+//   * `extern __shared__ T name[];` is rewritten by the test into a pointer
+//     to the block's own dynamic shared memory (`shim_dyn_smem`, per
+//     thread).  `__shared__` arrays with a static size are `static` here:
+//     shared by every block, so they are right only for blocks run one
+//     after another.
+//   * The device queries report a small card: $SHIM_SMS multiprocessors
+//     (3 if unset), one co-resident block each, and kShimSmemOptin bytes of
+//     shared memory per block, so that a small mesh already exercises both
+//     sides of a kernel's shared-memory budget and, on one multiprocessor,
+//     blocks that own more columns than threads.
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdlib>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -15,31 +34,130 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __restrict__
 #define __shared__ static
+#define __align__(n) alignas(n)
+#define __launch_bounds__(...)
+using std::max;
+using std::min;
 
-struct dim3 { unsigned x = 1, y = 1, z = 1; };
-inline thread_local dim3 threadIdx;
-inline dim3 blockIdx, blockDim, gridDim;
-inline std::barrier<>* shim_barrier = nullptr;
-inline void __syncthreads() { shim_barrier->arrive_and_wait(); }
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+
+// per thread: its block's barrier, its warp's barrier, its block's
+// dynamic shared memory; per launch: the grid's barrier
+inline thread_local std::barrier<>* shim_block_barrier = nullptr;
+inline thread_local std::barrier<>* shim_warp_barrier = nullptr;
+inline thread_local unsigned char* shim_dyn_smem = nullptr;
+inline std::barrier<>* shim_grid_barrier = nullptr;
+
+inline void __syncthreads() { shim_block_barrier->arrive_and_wait(); }
+inline long long clock64() { return 0; }
+// every lane of the warp must arrive, as the kernels here use it
+inline void __syncwarp(unsigned = 0xffffffffu) { shim_warp_barrier->arrive_and_wait(); }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorCooperativeLaunchTooLarge = 720,
+};
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
+constexpr int kShimSmemOptin = 32768;
+inline int shim_sms() {
+  const char* s = std::getenv("SHIM_SMS");
+  return s ? std::atoi(s) : 3;
+}
+
+enum cudaDeviceAttr {
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrMaxSharedMemoryPerBlockOptin = 97,
+};
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaLaunchAttributeID { cudaLaunchAttributeCooperative = 2 };
+
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrMultiProcessorCount ? shim_sms() : kShimSmemOptin;
+  return cudaSuccess;
+}
 template <class F>
-void shim_launch(int grid, int block, F kernel_call) {
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
+  return bytes <= kShimSmemOptin ? cudaSuccess : cudaErrorInvalidValue;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t smem) {
+  *n = smem <= (size_t)kShimSmemOptin ? 1 : 0;
+  return cudaSuccess;
+}
+
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  union { int cooperative; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes = 0;
+  cudaStream_t stream = nullptr;
+  cudaLaunchAttribute* attrs = nullptr;
+  unsigned numAttrs = 0;
+};
+
+// Runs `grid` blocks of `block` threads; all at once if `together`.
+template <class F>
+void shim_run(int grid, int block, size_t smem, bool together, F kernel_call) {
   gridDim.x = grid;
   blockDim.x = block;
-  for (int b = 0; b < grid; ++b) {
-    blockIdx.x = b;
-    std::barrier<> bar(block);
-    shim_barrier = &bar;
+  const int nw = (block + 31) / 32;
+  auto run_blocks = [&](int b0, int b1) {
+    std::vector<std::unique_ptr<std::barrier<>>> bars, warps;
+    std::vector<std::vector<unsigned char>> mem;
+    for (int b = b0; b < b1; ++b) {
+      bars.emplace_back(new std::barrier<>(block));
+      for (int w = 0; w < nw; ++w)
+        warps.emplace_back(new std::barrier<>(std::min(32, block - 32 * w)));
+      mem.emplace_back(smem + 16);
+    }
     std::vector<std::thread> threads;
-    for (int t = 0; t < block; ++t)
-      threads.emplace_back([&kernel_call, t] { threadIdx.x = t; kernel_call(); });
+    for (int b = b0; b < b1; ++b)
+      for (int t = 0; t < block; ++t)
+        threads.emplace_back([&, b, t] {
+          threadIdx.x = t;
+          blockIdx.x = b;
+          shim_block_barrier = bars[b - b0].get();
+          shim_warp_barrier = warps[(b - b0) * nw + t / 32].get();
+          shim_dyn_smem = mem[b - b0].data();
+          kernel_call();
+        });
     for (auto& th : threads) th.join();
+  };
+  if (together) {
+    std::barrier<> grid_bar(grid * block);
+    shim_grid_barrier = &grid_bar;
+    run_blocks(0, grid);
+    shim_grid_barrier = nullptr;
+  } else {
+    for (int b = 0; b < grid; ++b) run_blocks(b, b + 1);
   }
+}
+
+template <class F>
+void shim_launch(int grid, int block, size_t smem, F kernel_call) {
+  shim_run(grid, block, smem, false, kernel_call);
+}
+
+template <class... Exp, class... Act>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Exp...),
+                               Act&&... args) {
+  if (cfg->dynamicSmemBytes > (size_t)kShimSmemOptin ||
+      cfg->gridDim.x > (unsigned)shim_sms())
+    return cudaErrorCooperativeLaunchTooLarge;
+  shim_run(cfg->gridDim.x, cfg->blockDim.x, cfg->dynamicSmemBytes, true,
+           [&] { kernel(args...); });
+  return cudaSuccess;
 }

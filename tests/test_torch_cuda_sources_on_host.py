@@ -1,14 +1,17 @@
-"""The CUDA sources of the EVP kernels, run on the CPU.
+"""The CUDA sources of the EVP and flux kernels, run on the CPU.
 
 A CUDA kernel has no interpret mode, so its arithmetic is only ever held
 against the plain version on the card (`chip_smoke.py`).  What CAN be run
 here is the source itself: compiled as C++ against a host stand-in for the
-CUDA runtime (`tests/cuda_host_shim/cuda_runtime.h`: a block's threads are
-host threads), loaded through the wrappers' own ctypes binding, and
-compared with the plain versions, float64 to 1e-12 and float32 to 1e-5 of
-each field's max.  This checks indexing, offsets, ghost lists, exception
-cells, argument order and the wrappers' layout work; it says nothing of
-what nvcc accepts or of the card.  Needs g++ with C++20; skips without.
+CUDA runtime (`tests/cuda_host_shim/`: a block's threads are host threads;
+a cooperative launch runs every block's threads at once, with a grid-wide
+barrier; the card it reports is small, so that a small mesh exercises both
+sides of a shared-memory budget), loaded through the wrappers' own ctypes
+binding, and compared with the plain versions, float64 to 1e-12 and
+float32 to 1e-5 of each field's max.  This checks indexing, offsets, ghost
+lists, exception cells, argument order, grid and shared-memory sizing and
+the kernels' own layout work; it says nothing of what nvcc accepts or of
+the card.  Needs g++ with C++20; skips without.
 """
 
 import contextlib
@@ -33,24 +36,35 @@ from seaice_tpu_torch.kernels import build
 from seaice_tpu_torch.mesh.panels import panel_reorder
 from seaice_tpu_torch.mesh.structured import (detect_raster_quad,
                                               raster_reorder)
+from seaice_tpu_torch.transport import cuda_flux
+from seaice_tpu_torch.transport.remap import (
+    integrate_fluxes as remap_integrate_fluxes)
 
 torch.set_num_threads(1)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SHIM = os.path.join(HERE, "cuda_host_shim")
 SOURCES = ("evp_unstructured", "evp_panel_fused", "evp_panel_cell",
-           "evp_raster")
+           "evp_raster", "ir_flux")
 LAUNCH = re.compile(
     r"([A-Za-z_]\w*(?:<[^<>;()]*>)?)<<<(.*?)>>>\((.*?)\);", re.S)
+DYN_SMEM = re.compile(
+    r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) (\w+)\[\];")
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 
 
 def _to_host_source(text):
+    """Launch sites -> `shim_launch`, dynamic shared memory -> the block's
+    own buffer; returns (text, number of kernel launch sites)."""
     def conv(m):
-        grid, block = [x.strip() for x in m.group(2).split(",")][:2]
-        return (f"shim_launch({grid}, {block}, "
+        cfg = [x.strip() for x in m.group(2).split(",")]
+        smem = cfg[2] if len(cfg) > 2 else "0"
+        return (f"shim_launch({cfg[0]}, {cfg[1]}, {smem}, "
                 f"[&] {{ {m.group(1)}({m.group(3)}); }});")
-    return LAUNCH.subn(conv, text)
+    text, n = LAUNCH.subn(conv, text)
+    text = DYN_SMEM.sub(r"\1* const \2 = reinterpret_cast<\1*>(shim_dyn_smem);",
+                        text)
+    return text, n + text.count("cudaLaunchKernelEx(&")
 
 
 @pytest.fixture(scope="module")
@@ -93,14 +107,14 @@ def on_host(host_libs, monkeypatch):
                         lambda: types.SimpleNamespace(cuda_stream=0))
     counts = {}
     for fn in (cuda_panel_fused.evp_panel_loop, cuda_panel.panel_cell_step,
-               cuda_raster.evp_raster_loop):
-        counts[fn] = (fn.launches, getattr(fn, "inner_launches", 0))
+               cuda_raster.evp_raster_loop, cuda_flux.integrate_fluxes_cuda):
+        counts[fn] = {k: getattr(fn, k) for k in (
+            "launches", "inner_launches", "last_launch") if hasattr(fn, k)}
     yield
     # launches made here are no launches on a card: restore the counts
-    for fn, (n, inner) in counts.items():
-        fn.launches = n
-        if hasattr(fn, "inner_launches"):
-            fn.inner_launches = inner
+    for fn, saved in counts.items():
+        for k, val in saved.items():
+            setattr(fn, k, val)
 
 
 def _cfg(metric):
@@ -151,13 +165,31 @@ def _assert_close(got, want, dtype, what):
 _PANEL = {}
 
 
-def _panel_problem(metric, dtype):
-    key = (metric, dtype)
+def _panel_problem(metric, dtype, subdiv=2):
+    key = (metric, dtype, subdiv)
     if key not in _PANEL:
-        mesh, lay = panel_reorder(tmesh.icosahedral_mesh(2), 2)
+        mesh, lay = panel_reorder(tmesh.icosahedral_mesh(subdiv), subdiv)
         dyn = tevp.build_dynamics_tensors(mesh, _cfg(metric), dtype, "cpu")
         _PANEL[key] = (mesh, lay, dyn)
     return _PANEL[key]
+
+
+def _panel_loop_on_host(mesh, dyn, metric, dtype, seed):
+    """K3's source against its plain version: one launch per call, the
+    inputs left as they were; returns (args, kw, result, launch shape)."""
+    args = _loop_args(_loop_inputs(mesh, np.random.default_rng(seed), dtype))
+    kw = dict(dt_elastic=15.0, damping_timescale=648.0, n_subcycles=5,
+              include_metric=metric)
+    want = cuda_panel_fused.evp_panel_loop_plain(dyn.panel, *args, **kw)
+    before = [a.clone() for a in args]
+    k3 = cuda_panel_fused.evp_panel_loop
+    n0 = (k3.launches, k3.inner_launches)
+    got = cuda_panel_fused._launch(dyn.panel, *args, **kw)
+    _assert_close(got, want, dtype, "K3")
+    assert (k3.launches, k3.inner_launches) == (n0[0] + 1, n0[1] + 1)
+    for a, b in zip(args, before):
+        assert torch.equal(a, b)
+    return args, kw, got, k3.last_launch
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
@@ -165,17 +197,12 @@ def _panel_problem(metric, dtype):
 @pytest.mark.parametrize("metric", [False, True])
 def test_panel_loop_source_matches_plain(on_host, metric, dtype):
     mesh, _, dyn = _panel_problem(metric, dtype)
-    args = _loop_args(_loop_inputs(mesh, np.random.default_rng(7), dtype))
-    kw = dict(dt_elastic=15.0, damping_timescale=648.0, n_subcycles=5,
-              include_metric=metric)
-    want = cuda_panel_fused.evp_panel_loop_plain(dyn.panel, *args, **kw)
-    before = [a.clone() for a in args]
-    got = cuda_panel_fused._launch(dyn.panel, *args, **kw)
-    _assert_close(got, want, dtype, "K3")
-    # two launches per subcycle, and the inputs are left as they were
-    assert cuda_panel_fused.evp_panel_loop.inner_launches % 10 == 0
-    for a, b in zip(args, before):
-        assert torch.equal(a, b)
+    args, kw, got, shape = _panel_loop_on_host(mesh, dyn, metric, dtype, 7)
+    # three blocks at once; with metric terms the stand-in's 32 KB hold
+    # part of each block's basis, the rest is read from global memory
+    assert shape["grid"] == 3
+    if metric:
+        assert 0.0 < shape["basis_share_in_smem"] < 1.0
     # and the any-connectivity loop (its plain version) gives the same
     got1 = cuda_unstructured.evp_subcycle_loop_plain(dyn.fast, *args, **kw)
     valid = torch.as_tensor(
@@ -183,6 +210,28 @@ def test_panel_loop_source_matches_plain(on_host, metric, dtype):
     _assert_close([g * valid if g.dim() == 2 else g for g in got],
                   [g * valid if g.dim() == 2 else g for g in got1],
                   dtype, "K3 against K1's plain version")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_panel_loop_source_one_block_many_columns(on_host, monkeypatch,
+                                                  dtype):
+    """On a card of one multiprocessor the one block owns 640 columns and
+    1,280 vertices with 320 threads: the columns and vertices beyond the
+    first per thread keep their state in global memory between subcycles,
+    and the exception threads own columns too."""
+    monkeypatch.setenv("SHIM_SMS", "1")
+    mesh, _, dyn = _panel_problem(True, dtype, subdiv=3)
+    args, kw, got, shape = _panel_loop_on_host(mesh, dyn, True, dtype, 12)
+    assert shape["grid"] == 1 and shape["columns_per_block"] == 640
+    assert 0.0 < shape["basis_share_in_smem"] < 1.0
+    # the phase timer's barriers leave the result as it was
+    timer = torch.zeros((1, 4), dtype=torch.int64)
+    call, timed = cuda_panel_fused._bind(dyn.panel, *args, **kw,
+                                         phase_timer=timer)
+    assert call()[0] == 0
+    assert all(torch.equal(a, b) for a, b in zip(timed, got))
+    assert bool((timer >= 0).all())
 
 
 @pytest.mark.parametrize("name", ["k_pu_row_src", "k_pu_col_src",
@@ -310,3 +359,67 @@ def test_raster_loop_source_matches_plain(on_host, nx, ny, dtype):
                   cuda_raster.evp_raster_loop_plain(*args, **kw), dtype,
                   "K4")
     assert cuda_raster.evp_raster_loop.inner_launches % 10 == 0
+
+
+def _flux_problem(dtype):
+    """The IR flux stage's inputs on the subdiv-2 sphere: 3 categories,
+    4 ice + 1 snow layers (2D and 3D tracers, chains of up to 3 factors),
+    random ice and velocities, and a fifth of the edges masked."""
+    from seaice_tpu_torch.model import SeaIceModel
+    from seaice_tpu_torch.transport import remap as R
+    from seaice_tpu_torch.transport.tracers import standard_tracer_tree
+    from seaice_tpu_torch.utils.containers import to_device
+    mesh = tmesh.icosahedral_mesh(2)
+    cfg = tconfig.Config(
+        run=tconfig.RunConfig(dt=1800.0, n_categories=3, n_ice_layers=4),
+        velocity=tconfig.VelocitySolverConfig(elastic_subcycle_number=2),
+        advection=tconfig.AdvectionConfig(),
+        column=tconfig.ColumnConfig(use_column_package=False))
+    model = SeaIceModel(mesh, cfg, dtype=torch.float64, device="cpu",
+                        tracer_tree=standard_tracer_tree(n_ice_layers=4,
+                                                         n_snow_layers=1))
+    rng = np.random.default_rng(5)
+    nc, nv = mesh.n_cells, mesh.n_vertices
+    area = rng.uniform(0.0, 0.3, (nc, 3)) * (rng.uniform(size=(nc, 1)) > 0.3)
+    state = model.init_state(area, area * rng.uniform(0.5, 3.0, (nc, 3)),
+                             area * 0.1)
+    tree, rt = model.tree, model.tensors.remap
+    coc = model.tensors.mesh.cells_on_cell
+    cocm = model.tensors.mesh.cells_on_cell_mask
+    fields = R.to_transport_fields(tree, dict(state.tracers))
+    mask_cell, masks = R.make_masks(tree, fields)
+    recon = R.reconstruct_fields(tree, fields, masks, mask_cell, rt, coc,
+                                 cocm, monotonic=True)
+    uv, vv = (torch.as_tensor(60.0 * rng.standard_normal(nv))
+              for _ in range(2))
+    dpx, dpy = R.departure_points(uv, vv, 1800.0)
+    tris = R.find_departure_triangles(rt, dpx, dpy, mesh.vertex_degree)
+    cell, xq, yq, tarea = R.triangles_to_cell_coords(rt, tris)
+    mask_edge = tris["mask_edge"] * torch.as_tensor(
+        rng.uniform(size=mesh.n_edges) > 0.2)
+    args = (tree, recon, rt, cell, xq, yq, tarea, mask_edge)
+    return args if dtype == torch.float64 else to_device(
+        args, torch.device("cpu"), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_flux_source_matches_plain(on_host, dtype):
+    """K2's source (pointwise chains of linear factors) against
+    `remap.integrate_fluxes` (monomial coefficients and integrals)."""
+    args = _flux_problem(dtype)
+    tree, _, _, cell, _, _, area, mask_edge = args
+    active = (area != 0) & (mask_edge[:, None] != 0)
+    # the case covers empty slots, masked edges with non-empty slots, and
+    # edges with more than one non-empty slot
+    assert 0 < int(active.sum()) < active.numel()
+    assert bool(((mask_edge == 0) & (area != 0).any(1)).any())
+    assert int(active.sum(1).max()) > 1
+    want = remap_integrate_fluxes(*args)
+    before = cuda_flux.integrate_fluxes_cuda.launches
+    got = cuda_flux._launch(*args)
+    assert cuda_flux.integrate_fluxes_cuda.launches == before + 1
+    assert set(got) == set(want) == set(tree.names)
+    assert any(g.dim() == 3 for g in got.values())
+    _assert_close([got[k] for k in tree.names], [want[k] for k in tree.names],
+                  dtype, "K2")

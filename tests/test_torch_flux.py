@@ -134,49 +134,48 @@ def test_flux_integration_matches_reference_and_pallas_interpret():
 
 
 def test_packed_table_reproduces_fluxes():
-    """What the CUDA kernel does with the packed table and the column
-    metadata, replayed in numpy, gives the plain version's fluxes:
-    1e-12 of each field's max."""
+    """What the CUDA kernel does with the packed table of linear
+    coefficients and its column table (each tracer product evaluated as a
+    chain of linear factors at the six quadrature points), replayed in
+    numpy, gives the plain version's fluxes: 1e-12 of each field's max."""
     from seaice_tpu_torch.transport import remap as R
-    from seaice_tpu_torch.transport.cuda_flux import pack_coefficients
+    from seaice_tpu_torch.transport.cuda_flux import flux_layout, linear_table
     _, args = _port()
     tree, recon, rt, cell, xq, yq, area, mask_edge = args
     want = R.integrate_fluxes(*args)
-    max_depth = max(tree.depth(s.name) for s in tree.specs)
-    mom, terms = R.triangle_monomial_integrals(rt, xq, yq, max_depth + 1)
-    term_idx = {m: i for i, m in enumerate(terms)}
-    table, meta, out2d, out3d = pack_coefficients(tree, recon, term_idx)
-    table, mom = table.numpy(), mom.numpy()
+    meta, out2d, out3d = flux_layout(tree, recon)
+    table = linear_table(tree, recon).numpy()
+    assert meta.dtype == np.int32
+    col, st, par = meta
+    T2 = sum(n for _, n, _ in out2d)
     cell, area, me = cell.numpy(), area.numpy(), mask_edge.numpy()
+    xq, yq, w = xq.numpy(), yq.numpy(), rt.qp_weights.numpy()
     nE, S = cell.shape
-    assert all(v.dtype == np.int32 for v in meta.values())
-    out2 = np.zeros((nE, len(meta["o2_off"])))
-    out3 = np.zeros((nE, len(meta["o3_col"])))
+    out = np.zeros((nE, meta.shape[1]))
     for e in range(nE):
         if me[e] == 0:
             continue
         for s in range(S):
             if area[e, s] == 0:
                 continue
-            row, w = table[cell[e, s]], mom[e, s]
-            for o, (off, n) in enumerate(zip(meta["o2_off"], meta["o2_n"])):
-                cols = np.arange(off, off + n)
-                out2[e, o] += (row[cols] * w[meta["col_mono"][cols]]).sum() \
-                    * area[e, s]
-            for o in range(out3.shape[1]):
-                cols = np.arange(meta["o3_poff"][o],
-                                 meta["o3_poff"][o] + meta["o3_pn"][o])
-                g = row[cols]
-                p0 = (g * w[meta["col_mono"][cols]]).sum()
-                px = (g * w[meta["col_mono_x"][cols]]).sum()
-                py = (g * w[meta["col_mono_y"][cols]]).sum()
-                c, st = meta["o3_col"][o], meta["o3_stride"][o]
-                out3[e, o] += (row[c] * p0 + row[c + st] * px +
-                               row[c + 2 * st] * py) * area[e, s]
-    out2 *= me[:, None]
-    out3 *= me[:, None]
+            row, x, y = table[cell[e, s]], xq[e, s], yq[e, s]
+
+            def factor(k):
+                return row[col[k]] + row[col[k] + st[k]] * x + \
+                    row[col[k] + 2 * st[k]] * y
+
+            v = np.ones((T2, 6))
+            for o in range(T2):
+                k = o
+                while k >= 0:
+                    v[o] *= factor(k)
+                    k = par[k]
+            for m in range(meta.shape[1]):
+                vals = v[m] if m < T2 else v[par[m]] * factor(m)
+                out[e, m] += (w * vals).sum() * area[e, s]
+    out *= me[:, None]
     for name, ncat, o in out2d:
-        _close(out2[:, o:o + ncat], want[name].numpy(), 1e-12, name)
+        _close(out[:, o:o + ncat], want[name].numpy(), 1e-12, name)
     for name, ncat, nl, o in out3d:
-        _close(out3[:, o:o + ncat * nl].reshape(nE, ncat, nl),
+        _close(out[:, T2 + o:T2 + o + ncat * nl].reshape(nE, ncat, nl),
                want[name].numpy(), 1e-12, name)
