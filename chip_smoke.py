@@ -16,21 +16,22 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
        panel sphere the same model on the panel-reordered mesh: the
                     whole-loop panel kernel K3 + K2, and with
                     `use_fused_panel_loop=False` the per-subcycle cell
-                    kernel K5 (120 launches per solve);
+                    kernel K5 (bound once per solve, 120 launches);
        sharded sphere the raw sphere split into 4 blocks on the one card,
                     stepped in lockstep: the one-subcycle kernel K6 (one
-                    call per block and subcycle, the vertex halo exchanged
-                    between calls) + K2 per block;
+                    call per subcycle for all 4 blocks, two launches, the
+                    vertex halo exchanged between calls) + K2 per block;
        raster box   the 168 x 168 box test, raster-ordered, one category:
                     the raster loop K4;
   3. holds each kernel against its plain PyTorch version on the card, on
      the very tensors the step hands it (float32, and the same tensors
      cast to float64), and times both with CUDA events; reports K3's
      launches per call and the share of its basis held in shared memory,
-     K2's kernel-alone time and its CUDA kernels per call (torch.profiler;
-     more than 3 fails); runs K1 on K3's inputs (two kernels, one
-     function) and reports their times and their distance; holds the
-     sharded step against the unsharded one;
+     the C call alone (`kernel_ms`) of every kernel, the CUDA kernels per
+     call of K2, K5 and K6 (torch.profiler; more than 3, 1 and 2 fail),
+     K5's registers and spills, K6's host time per call; runs K1 on K3's
+     inputs (two kernels, one function) and reports their times and their
+     distance; holds the sharded step against the unsharded one;
   4. for each path sets the launch counts to 0, takes a few steps, reads
      the counts and checks the state (finite, |u| bounded, every tracer
      product conserved);
@@ -108,16 +109,45 @@ def time_ms(fn, reps, warmup=1):
     return float(np.median(ts))
 
 
-def device_profile(fn, n=3):
-    """torch.profiler over n calls of fn() after one warm-up: (CUDA
-    kernels per call, {kernel name: device ms per call})."""
-    from torch.profiler import ProfilerActivity
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+def time_ms_per_call(fn, reps, n=20):
+    """Median milliseconds per call of fn() over runs of n calls back to
+    back, by CUDA events: the device time of a short kernel without the
+    host's gap before a single launch."""
+    def run():
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
+    return time_ms(run, reps) / n
+
+
+def ptxas_of(source, kernel):
+    """The lines `nvcc -Xptxas -v` printed for the entry functions of
+    `source` whose names contain `kernel`: registers, spills, stack."""
+    from seaice_tpu_torch.kernels import build
+    out, name = {}, None
+    for ln in build.build_log.get(source, "").splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if kernel in ln else None
+        elif name is not None and ("spill" in ln or "registers" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    return out
+
+
+def device_profile(fn, n=3):
+    """torch.profiler over n calls of fn() after one warm-up call and one
+    profiled warm-up round whose records are dropped (the tracer misses
+    kernels launched right after it starts): (CUDA kernels per call,
+    {kernel name: device ms per call})."""
+    from torch.profiler import ProfilerActivity, schedule
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA],
+                                schedule=schedule(wait=0, warmup=1, active=1,
+                                                  repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     count, ms = 0, {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) is None or \
@@ -254,7 +284,15 @@ def capture_kernel_inputs(model, state, forcing):
 
     def recorder(name, fn):
         def wrapped(*a, **kw):
-            rec.setdefault(name, []).append((a, kw))
+            if name != "panel_cell_step":
+                rec.setdefault(name, []).append((a, kw))
+            elif name not in rec:
+                # K5's loop: the inputs of its first step, as the plain
+                # version takes them (the loop's buffers change later)
+                lp = a[0]
+                rec[name] = [((lp.pt, lp.planes.clone(),
+                               *(t.clone() for t in lp.current),
+                               lp.pressure, lp.ss_mask), dict(lp.kw))]
             return fn(*a, **kw)
         return wrapped
 
@@ -445,7 +483,39 @@ def check_loop(name, call, reps):
         out["launch_f64"] = kernel.last_launch
         out["kernel_ms"] = time_ms(k3_c_call(a32, kw), reps)
         out["kernel_ms_f64"] = time_ms(k3_c_call(a[torch.float64], kw), reps)
+    if name == "evp_raster_loop":
+        out["kernel_ms"] = time_ms(k4_c_call(a32, kw), reps)
+    if name == "evp_subcycle_loop":
+        out["kernel_ms"] = time_ms(k1_c_call(a32, kw), reps)
     return out
+
+
+def k1_c_call(args, kw):
+    """The C call of K1 alone (its loop state, checks and scratch fixed
+    beforehand by `evp_subcycle_prepare`; each call carries the loop
+    further)."""
+    from seaice_tpu_torch.dynamics import cuda_unstructured as K1
+    loop = K1.evp_subcycle_prepare(*args, **{
+        k: v for k, v in kw.items() if k != "n_subcycles"})
+    fn = K1._c_function(args[1].dtype)
+
+    def call():
+        if fn(*loop.shape, int(kw["n_subcycles"]), int(loop.include_metric),
+              *loop.c_tail) != 0:
+            fail("K1: the C call returned an error")
+    return call
+
+
+def k4_c_call(args, kw):
+    """The C call of K4 alone (checks, copies and scratch made beforehand
+    by the wrapper's `_bind`; each call carries the copies further)."""
+    from seaice_tpu_torch.dynamics.cuda_raster import _bind
+    c_call, _ = _bind(*args, **kw)
+
+    def call():
+        if c_call()[0] != 0:
+            fail("K4: the C call returned an error")
+    return call
 
 
 def k3_phase_cycles(args, kw):
@@ -483,7 +553,8 @@ def k3_c_call(args, kw):
 
 def check_k5(call, reps):
     """K5, one launch: the cell side of one subcycle against its plain
-    version.
+    version, through the loop form the route uses (`panel_cell_prepare`,
+    the planes written into `loop.planes`, `panel_cell_step`).
 
     float64: held to TOL.  float32: where the strain rate is small against
     its own terms the stress update divides by a difference of nearly
@@ -494,9 +565,13 @@ def check_k5(call, reps):
     distance to the float64 plain version is held to twice the float32
     plain version's own distance to it, and the float32 pair itself to
     SHORT_LOOP_TOL.  `max_abs_err` and `max_rel_err_f32` are those of the
-    float32 pair."""
+    float32 pair.  Times: the wrapper (`ms`, one call; `ms_per_call_in_a_run`,
+    20 back to back), the C call alone (`kernel_ms`, 20 back to back), the
+    plain version; the CUDA kernels per wrapper call (torch.profiler; more
+    than 1 fails); the kernel's registers and spills (ptxas)."""
     from seaice_tpu_torch.dynamics.cuda_panel import (
-        panel_cell_plain, panel_cell_step, panel_cell_work)
+        panel_cell_plain, panel_cell_prepare, panel_cell_step,
+        panel_cell_work)
     from seaice_tpu_torch.dynamics.variational_panel import panel_n_of
     args, kw = call
     out = {"name": "panel_cell_step", "route": "cuda",
@@ -504,9 +579,17 @@ def check_k5(call, reps):
            "replaces": "seaice_tpu/dynamics/pallas_panel.py:175",
            "library_ms": None}
     names = ("t11", "t22", "t12", "partials")
+
+    def kernel(a):
+        pt, planes, t11, t22, t12, pressure, ss_mask = a
+        loop = panel_cell_prepare(pt, pressure, ss_mask, t11, t22, t12, **kw)
+        loop.planes.copy_(planes)
+        panel_cell_step(loop)
+        return loop.current + (loop.partials,), loop
+
     a32, a64 = cast(args, torch.float32), cast(args, torch.float64)
-    k32, p32 = panel_cell_step(*a32, **kw), panel_cell_plain(*a32, **kw)
-    k64, p64 = panel_cell_step(*a64, **kw), panel_cell_plain(*a64, **kw)
+    (k32, loop32), p32 = kernel(a32), panel_cell_plain(*a32, **kw)
+    (k64, _), p64 = kernel(a64), panel_cell_plain(*a64, **kw)
     torch.cuda.synchronize()
     for got, want in ((k32, p32), (k64, p64)):
         if any(g.shape != w.shape for g, w in zip(got, want)):
@@ -545,8 +628,23 @@ def check_k5(call, reps):
     out["bytes"], out["flops"] = byts, flops
     out["shapes"] = {"N": N, "npc": 10 * (N + 1) ** 2 + 2,
                      "planes": list(a32[1].shape)}
-    out["ms"] = time_ms(lambda: panel_cell_step(*a32, **kw), reps)
+    out["ms"] = time_ms(lambda: panel_cell_step(loop32), reps)
+    out["ms_per_call_in_a_run"] = time_ms_per_call(
+        lambda: panel_cell_step(loop32), reps)
+    c_call = loop32.calls[0]
+
+    def alone():
+        if c_call() != 0:
+            fail("K5: the C call returned an error")
+    out["kernel_ms"] = time_ms_per_call(alone, reps)
     out["plain_ms"] = time_ms(lambda: panel_cell_plain(*a32, **kw), reps)
+    per_call, dev_ms = device_profile(lambda: panel_cell_step(loop32))
+    out["device_kernels_per_call"] = per_call
+    out["device_ms_by_kernel"] = dev_ms
+    out["ptxas"] = ptxas_of("evp_panel_cell", "panel_cell_kernel")
+    if per_call > 1:
+        fail(f"K5: {per_call} CUDA kernels per panel_cell_step call, "
+             "more than 1")
     return out
 
 
@@ -575,14 +673,8 @@ def k3_against_k1(call, dyn, reps, limit64):
          time_ms(lambda: evp_panel_loop(*a32, **kw), reps),
          time_ms(lambda: evp_panel_loop(*a32, **kw), reps),
          time_ms(lambda: evp_subcycle_loop(ft32, *a32[1:], **kw), reps)]
-    # the kernels alone, in turns: K1's C call (its loop state fixed by
-    # `evp_subcycle_prepare`), K3's (`k3_c_call`)
-    from seaice_tpu_torch.dynamics import cuda_unstructured as K1
-    loop = K1.evp_subcycle_prepare(ft32, *a32[1:], **{
-        k: v for k, v in kw.items() if k != "n_subcycles"})
-    fn1 = K1._c_function(torch.float32)
-    k1_call = (lambda: fn1(*loop.shape, int(kw["n_subcycles"]),
-                           int(loop.include_metric), *loop.c_tail))
+    # the kernels alone, in turns: K1's C call, K3's
+    k1_call = k1_c_call((ft32,) + tuple(a32[1:]), kw)
     k3_call = k3_c_call(a32, kw)
     tk = [time_ms(k1_call, reps), time_ms(k3_call, reps),
           time_ms(k3_call, reps), time_ms(k1_call, reps)]
@@ -704,33 +796,45 @@ def sharded_loops(model, calls, dtype):
     return [evp_subcycle_prepare(*cast(a, dtype), **kw) for a, kw in calls]
 
 
+def plain_steps(*loops):
+    """The batched K6 call's plain version: `evp_subcycle_step_plain`
+    block after block."""
+    from seaice_tpu_torch.dynamics.cuda_unstructured import (
+        evp_subcycle_step_plain)
+    for lp in loops:
+        evp_subcycle_step_plain(lp)
+
+
 def run_sharded_loops(model, loops, step, n):
-    """n subcycles of every block's loop, the vertex halo exchanged after
-    each, as the sharded step does; returns every block's state."""
+    """n subcycles of every block's loop, step(*loops) for all blocks, the
+    vertex halo exchanged after each, as the sharded step does; returns
+    every block's state."""
     from seaice_tpu_torch.dynamics.cuda_unstructured import (
         evp_subcycle_finish)
     for _ in range(n):
-        for lp in loops:
-            step(lp)
+        step(*loops)
         model.exchange("vertex_uv", [(lp.u, lp.v) for lp in loops])
     return [evp_subcycle_finish(lp) for lp in loops]
 
 
 def check_k6(model, calls, reps):
     """K6, the one-subcycle EVP kernel, on the captured inputs of every
-    block of the sharded sphere.
+    block of the sharded sphere: one call advances all the blocks.
 
-    One call (block 0) against `evp_subcycle_step_plain` on the same
-    tensors, float32 and float64: held to TOL.  SHORT_LOOP subcycles of all
-    blocks with the exchange after each, float32 kernel against float32
-    plain: SHORT_LOOP_TOL.  The whole loop (N_SUBCYCLES) with exchanges in
-    float64: the larger of 1e-7 and ten times the plain loop's response to
-    a one-ulp perturbation of every block's u, v and stresses (ROADMAP
-    Queue 3, fault 4).  Distances are relative to each field's max |value|
-    over the blocks."""
+    One call on all blocks against `evp_subcycle_step_plain` block by
+    block on the same tensors, float32 and float64: held to TOL.
+    SHORT_LOOP subcycles of all blocks with the exchange after each,
+    float32 kernel against float32 plain: SHORT_LOOP_TOL.  The whole loop
+    (N_SUBCYCLES) with exchanges in float64: the larger of 1e-7 and ten
+    times the plain loop's response to a one-ulp perturbation of every
+    block's u, v and stresses (ROADMAP Queue 3, fault 4).  Distances are
+    relative to each field's max |value| over the blocks.  Times per call
+    (all blocks): the wrapper (`ms`, over runs of N_SUBCYCLES calls), the C
+    call alone (`kernel_ms`), the plain version, the host time
+    (`host_us_per_call`), the CUDA kernels per call (torch.profiler)."""
     from seaice_tpu_torch.dynamics.cuda_unstructured import (
-        evp_loop_work, evp_subcycle_finish, evp_subcycle_step,
-        evp_subcycle_step_plain)
+        evp_loop_work, evp_subcycle_finish, evp_subcycle_share_uv,
+        evp_subcycle_step)
     names = ("u", "v", "s11", "s22", "s12")
     out = {"name": "evp_subcycle_step", "route": "cuda",
            "source": "seaice_tpu_torch/csrc/evp_unstructured.cu",
@@ -744,20 +848,22 @@ def check_k6(model, calls, reps):
                 for i, n in enumerate(names)}
 
     for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
-        k, p = (sharded_loops(model, calls[:1], dtype)[0] for _ in range(2))
-        evp_subcycle_step(k)
-        evp_subcycle_step_plain(p)
+        k, p = (sharded_loops(model, calls, dtype) for _ in range(2))
+        evp_subcycle_step(*k)
+        plain_steps(*p)
         torch.cuda.synchronize()
-        got, want = evp_subcycle_finish(k), evp_subcycle_finish(p)
-        e = errs([got], [want])
-        out["one_subcycle_rel_err_" + tag] = e
+        got = [evp_subcycle_finish(lp) for lp in k]
+        want = [evp_subcycle_finish(lp) for lp in p]
+        e = errs(got, want)
+        out["one_call_rel_err_" + tag] = e
         if dtype == torch.float32:
             out["max_abs_err"] = max(float((a - b).abs().max())
-                                     for a, b in zip(got, want))
+                                     for g, w in zip(got, want)
+                                     for a, b in zip(g, w))
             out["max_rel_err_f32"] = max(e.values())
         if not max(e.values()) <= TOL[dtype]:
-            fail(f"K6 {tag}, one subcycle: kernel and plain version "
-                 f"disagree, {e} > {TOL[dtype]}")
+            fail(f"K6 {tag}, one call on {len(calls)} blocks: kernel and "
+                 f"plain version disagree, {e} > {TOL[dtype]}")
 
     def run(dtype, step, n, scale=None):
         loops = sharded_loops(model, calls, dtype)
@@ -767,21 +873,19 @@ def check_k6(model, calls, reps):
                     t.mul_(scale)
         return run_sharded_loops(model, loops, step, n)
 
-    p32 = run(torch.float32, evp_subcycle_step_plain, SHORT_LOOP)
+    p32 = run(torch.float32, plain_steps, SHORT_LOOP)
     e = errs(run(torch.float32, evp_subcycle_step, SHORT_LOOP), p32)
     out["short_loop_subcycles"] = SHORT_LOOP
     out["short_loop_rel_err_f32"] = e
     # for scale: the f32 plain loop's own response to one f32 ulp
     out["short_loop_rel_err_f32_plain_one_ulp"] = errs(run(
-        torch.float32, evp_subcycle_step_plain, SHORT_LOOP, 1.0 + 2.0 ** -23),
-        p32)
+        torch.float32, plain_steps, SHORT_LOOP, 1.0 + 2.0 ** -23), p32)
     if not max(e.values()) <= SHORT_LOOP_TOL:
         fail(f"K6 f32, {SHORT_LOOP} subcycles with exchanges: kernel and "
              f"plain version disagree, {e} > {SHORT_LOOP_TOL}")
     k64 = run(torch.float64, evp_subcycle_step, N_SUBCYCLES)
-    p64 = run(torch.float64, evp_subcycle_step_plain, N_SUBCYCLES)
-    pu = run(torch.float64, evp_subcycle_step_plain, N_SUBCYCLES,
-             1.0 + 2.0 ** -52)
+    p64 = run(torch.float64, plain_steps, N_SUBCYCLES)
+    pu = run(torch.float64, plain_steps, N_SUBCYCLES, 1.0 + 2.0 ** -52)
     torch.cuda.synchronize()
     if not all(bool(torch.isfinite(t).all()) for b in k64 for t in b):
         fail("K6: non-finite output")
@@ -795,40 +899,59 @@ def check_k6(model, calls, reps):
         fail(f"K6 f64, {N_SUBCYCLES} subcycles with exchanges: kernel and "
              f"plain version disagree, {e64} > {limit64}")
 
-    ft = calls[0][0][0]
-    me, nc = ft.voc_T.shape
-    vd, nv = ft.flat_corner_idx.shape
-    byts, flops = evp_loop_work(nc, nv, me, vd, 1,
-                                calls[0][1]["include_metric"], 4)
+    # the bound of one call: every block's inputs read and outputs written
+    byts = flops = 0
+    blocks = []
+    for args, kw in calls:
+        ft = args[0]
+        me, nc = ft.voc_T.shape
+        vd, nv = ft.flat_corner_idx.shape
+        b, f = evp_loop_work(nc, nv, me, vd, 1, kw["include_metric"], 4)
+        byts, flops = byts + b, flops + f
+        blocks.append({"nc": nc, "nv": nv, "me": me, "vd": vd})
     t_b, t_f = byts / PEAK_BYTES_PER_S, flops / PEAK_FLOPS_F32
     out["bound_ms"] = 1e3 * max(t_b, t_f)
     out["bound_by"] = "bytes" if t_b >= t_f else "operations"
     out["bytes"], out["flops"] = byts, flops
-    out["shapes"] = {"nc": nc, "nv": nv, "me": me, "vd": vd,
-                     "blocks": len(calls), "n_subcycles": 1}
-    # per call, over runs of N_SUBCYCLES calls on block 0
-    k = sharded_loops(model, calls[:1], torch.float32)[0]
-    p = sharded_loops(model, calls[:1], torch.float32)[0]
+    out["shapes"] = {"blocks": blocks, "n_subcycles": 1}
+    # per call (all blocks), over runs of N_SUBCYCLES calls
+    k = sharded_loops(model, calls, torch.float32)
+    p = sharded_loops(model, calls, torch.float32)
 
-    def calls_of(step):
+    def calls_of(step, loops):
         def run_n():
             for _ in range(N_SUBCYCLES):
-                step(k if step is evp_subcycle_step else p)
+                step(*loops)
         return run_n
 
-    out["ms"] = time_ms(calls_of(evp_subcycle_step), reps) / N_SUBCYCLES
-    out["plain_ms"] = time_ms(calls_of(evp_subcycle_step_plain),
+    out["ms"] = time_ms(calls_of(evp_subcycle_step, k), reps) / N_SUBCYCLES
+    out["plain_ms"] = time_ms(calls_of(plain_steps, p),
                               max(2, reps // 3)) / N_SUBCYCLES
+    c_call, count = k[0].blocks.call, k[0].blocks.count
+
+    def alone():
+        if c_call() != 0 or count.value != 2:
+            fail("K6: the C call returned an error")
+    out["kernel_ms"] = time_ms_per_call(alone, reps, N_SUBCYCLES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    calls_of(evp_subcycle_step)()
+    calls_of(evp_subcycle_step, k)()
     out["host_us_per_call"] = 1e6 * (time.perf_counter() - t0) / N_SUBCYCLES
     torch.cuda.synchronize()
-    # the exchange alone, per subcycle
-    loops = sharded_loops(model, calls, torch.float32)
-    fields = [(lp.u, lp.v) for lp in loops]
-    out["exchange_ms_per_subcycle"] = time_ms(
+    per_call, dev_ms = device_profile(lambda: evp_subcycle_step(*k))
+    out["device_kernels_per_call"] = per_call
+    out["device_ms_by_kernel"] = dev_ms
+    if per_call > 2:
+        fail(f"K6: {per_call} CUDA kernels per call, more than 2")
+    # the exchange alone, per subcycle: block by block, and as the step
+    # makes it, on the loops' shared velocity buffer
+    fields = [(lp.u, lp.v) for lp in k]
+    out["exchange_ms_per_subcycle_by_block"] = time_ms(
         lambda: model.exchange("vertex_uv", fields), reps)
+    solve = {"loops": tuple(k), "uv": evp_subcycle_share_uv(k)}
+    fields = [(lp.u, lp.v) for lp in k]
+    out["exchange_ms_per_subcycle"] = time_ms(
+        lambda: model.exchange("vertex_uv", fields, solve=solve), reps)
     return out
 
 
@@ -995,17 +1118,17 @@ def main_path(label, model, state, forcing, n_steps, expect):
             inner.get("evp_panel_loop") != counts["evp_panel_loop"]:
         fail(f"{label}: K3 made {inner.get('evp_panel_loop')} kernel "
              f"launches in {counts['evp_panel_loop']} calls, not one each")
+    if counts["evp_subcycle_step"] and \
+            inner.get("evp_subcycle_step") != 2 * counts["evp_subcycle_step"]:
+        fail(f"{label}: K6 made {inner.get('evp_subcycle_step')} kernel "
+             f"launches in {counts['evp_subcycle_step']} calls, not two each")
     return state, counts, out["ms_per_step_median"]
 
 
 def profile(model, state, forcing, step_ms):
-    """Where a step's time goes (--profile): host-clock milliseconds of
-    each phase with a synchronise after it, then a torch.profiler trace of
-    two whole steps for the device-busy time and the top device kernels.
-    The device's idle share is 1 - device-busy ms (from the trace) over
-    `step_ms`, the main path's UNTRACED median ms per step of this run:
-    tracing slows the host severalfold, so the traced wall time would
-    overstate the idle share."""
+    """Where a panel-sphere step's time goes (--profile): host-clock
+    milliseconds of each phase with a synchronise after it, then
+    `trace_steps`."""
     from seaice_tpu_torch.dynamics import evp
     from seaice_tpu_torch.transport import remap as R
     from seaice_tpu_torch.transport.cuda_flux import integrate_fluxes_cuda
@@ -1051,14 +1174,23 @@ def profile(model, state, forcing, step_ms):
         tree, R.update_mass_and_tracers(tree, fields, fluxes, t.remap,
                                         t.area_cell)))
 
+    trace_steps("panel sphere", model, state, forcing, step_ms, phases)
+
+
+def trace_steps(label, model, state, forcing, step_ms, phases=None, n=2):
+    """A torch.profiler trace of n whole steps of a path: device-busy ms
+    and CUDA kernels per step, the device's idle share (1 - busy over
+    `step_ms`, the path's UNTRACED median ms per step of this run: tracing
+    slows the host severalfold, so the traced wall time would overstate
+    the idle share), the package's own kernels and the top device
+    kernels."""
     from torch.profiler import ProfilerActivity
-    step = model.make_step()
-    n = 2
+    step = stepper(model)
     with torch.profiler.profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            state, _ = step(t, state, forcing)
+            state, _ = step(state, forcing)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     rows = [(e.key, getattr(e, "device_time_total",
@@ -1073,11 +1205,13 @@ def profile(model, state, forcing, step_ms):
     own = {}
     for key, ms, count in rows:
         for name in ("evp_cell_kernel", "evp_vertex_kernel",
-                     "panel_loop_kernel", "ir_flux_kernel"):
-            if name in key:
+                     "evp_cell_blocks_kernel", "evp_vertex_blocks_kernel",
+                     "panel_loop_kernel", "panel_cell_kernel",
+                     "ir_flux_kernel"):
+            if name + "<" in key:
                 own[name] = [ms / n, count / n]
     emit({"profile": {
-        "phase_ms": phases, "traced_steps": n,
+        "path": label, "phase_ms": phases, "traced_steps": n,
         "wall_ms_per_step_traced": wall / n,
         "wall_ms_per_step_untraced": step_ms,
         "device_busy_ms_per_step": busy / n,
@@ -1137,7 +1271,8 @@ def main():
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--profile", action="store_true",
-                    help="also print where a panel-sphere step's time goes")
+                    help="also print where a panel-sphere step's time goes "
+                    "and trace a sharded-sphere step")
     ap.add_argument("--drift", action="store_true",
                     help="also print how far float64 evaluations of the "
                     "EVP loop drift apart on the panel sphere")
@@ -1225,11 +1360,12 @@ def main():
         smodel, calls["evp_subcycle_prepare"], args.reps)
     k2_on_path("sharded sphere", calls["integrate_fluxes_cuda"])
     del calls
-    sstate, counts, _ = main_path(
+    sstate, counts, sharded_ms = main_path(
         "sharded sphere", smodel, sstate, sforcing, 1,
-        {"evp_subcycle_step": SHARDS * N_SUBCYCLES,
-         "integrate_fluxes_cuda": SHARDS})
+        {"evp_subcycle_step": N_SUBCYCLES, "integrate_fluxes_cuda": SHARDS})
     kernels["evp_subcycle_step"]["launches"] = counts["evp_subcycle_step"]
+    if args.profile:
+        trace_steps("sharded sphere", smodel, sstate, sforcing, sharded_ms)
     del smodel, sstate, sforcing
     torch.cuda.empty_cache()
 
@@ -1273,10 +1409,11 @@ def main():
     kernels["panel_cell_step"] = check_k5(calls["panel_cell_step"][0],
                                           args.reps)
     del calls, state5
-    _, counts, _ = main_path(
+    _, counts, route_ms = main_path(
         "panel sphere, per-subcycle route", model5, state, forcing, 1,
         {"panel_cell_step": N_SUBCYCLES, "integrate_fluxes_cuda": 1})
     kernels["panel_cell_step"]["launches"] = counts["panel_cell_step"]
+    kernels["panel_cell_step"]["route_ms_per_step"] = route_ms
     del model, model5, state, forcing, step
     torch.cuda.empty_cache()
 

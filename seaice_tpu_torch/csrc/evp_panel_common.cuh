@@ -1,7 +1,7 @@
 // Shared by the two panel EVP kernels (evp_panel_fused.cu, evp_panel_cell.cu):
-// the EVP constants, the stress relaxation of one corner, and the cell side
-// of one elastic subcycle on the 10-panel padded lattice (corner reads, the
-// arithmetic on a column's stresses, and both on global arrays).
+// the EVP constants, the stress relaxation of one corner, the corner
+// positions on the 10-panel padded lattice, and the arithmetic of the cell
+// side of one elastic subcycle on a column's stresses.
 //
 // Layout (seaice_tpu_torch/dynamics/variational_panel.py): one flat padded
 // index q = (p*(N+1) + a)*(N+1) + b per panel position, npp = 10*(N+1)^2 of
@@ -110,37 +110,17 @@ __device__ __forceinline__ int corner_position(int k, int q, int p, int a, int b
   return t * npp + q + da * R + db;
 }
 
-// ---- cell side of one subcycle, split in three ----
-// panel_corner_values: the six corner reads of the cell at padded column q
-// from the vertex planes at static offsets; panel_cell_math: Wachspress
-// strain (+ tan(lat)/r metric), EVP stress relaxation where ss (the
-// stresses updated in place in the caller's registers), divergence
-// partials pu, pv (mu, mv with metric) per dual slot; panel_cell_body: both
-// on the stresses and partials of global arrays (the per-subcycle route).
-// The whole-loop route (evp_panel_fused.cu) keeps a column's stresses in
-// registers across subcycles and its basis in shared memory where it fits,
-// so the basis comes as three base pointers and one stride: basis value k
-// of the column is bg[k * stride] (k = (b*2 + d)*6 + g), bi[k * stride]
-// (k = (s*2 + d)*6 + j) and bm[k * stride] (k = s*6 + j).
-template <typename T>
-__device__ __forceinline__ void panel_corner_values(
-    int q, int N, int npp, int metric,
-    const T* pl_u, const T* pl_v, const T* pl_t,   // [2, npp] vertex planes
-    const int* __restrict__ row_pos, const int* __restrict__ col_pos,
-    T uc[6], T vc[6], T tl[6])
-{
-  const int R = N + 1;
-  const int b_q = q % R, pa = q / R;
-  const int a_q = pa % R, p_q = pa / R;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    const int at = corner_position(k, q, p_q, a_q, b_q, N, npp, row_pos, col_pos);
-    uc[k] = at >= 0 ? pl_u[at] : T(0);
-    vc[k] = at >= 0 ? pl_v[at] : T(0);
-    tl[k] = (metric && at >= 0) ? pl_t[at] : T(0);
-  }
-}
-
+// ---- the arithmetic of the cell side of one subcycle ----
+// panel_cell_math: Wachspress strain (+ tan(lat)/r metric) from a column's
+// six corner values, EVP stress relaxation where ss (the stresses updated
+// in place in the caller's registers), divergence partials pu, pv (mu, mv
+// with metric) per dual slot.  The whole-loop route (evp_panel_fused.cu)
+// keeps a column's stresses in registers across subcycles and its basis in
+// shared memory where it fits, so the basis comes as three base pointers
+// and one stride: basis value k of the column is bg[k * stride]
+// (k = (b*2 + d)*6 + g), bi[k * stride] (k = (s*2 + d)*6 + j) and
+// bm[k * stride] (k = s*6 + j).  The per-subcycle route (evp_panel_cell.cu)
+// spreads a column over six threads and sums in the same order.
 template <typename T>
 __device__ __forceinline__ void panel_cell_math(
     const T uc[6], const T vc[6], const T tl[6], int metric,
@@ -202,76 +182,6 @@ __device__ __forceinline__ void panel_cell_math(
     mu[j] = m1;
     mv[j] = m2;
   }
-}
-
-// The cell side for padded column q < npp on global arrays: stresses
-// [6, npc] updated in place where ss > 0, partials into part[f][j][q].  Pad,
-// ghost and exception columns carry a zero basis and ss == 0: their stress
-// stays as it is and their partials come out as zero.
-template <typename T>
-__device__ __forceinline__ void panel_cell_body(
-    int q, int N, int npp, int npc, int metric,
-    const T* __restrict__ pl_u,        // [2, npp] vertex planes
-    const T* __restrict__ pl_v,        // [2, npp]
-    const T* __restrict__ pl_t,        // [2, npp] tan(lat)/r (read with metric)
-    const int* __restrict__ row_pos, const int* __restrict__ col_pos,
-    const T* __restrict__ bgrad,       // [6(b), 2, 6(g), npc]
-    const T* __restrict__ bint,        // [6(s), 2, 6(j), npc]
-    const T* __restrict__ bmet,        // [6(s), 6(j), npc]
-    const T* __restrict__ pressure,    // [npc]
-    const T* __restrict__ ss_mask,     // [npc], exception columns zeroed
-    T* __restrict__ s11, T* __restrict__ s22, T* __restrict__ s12,   // [6, npc]
-    T* __restrict__ part,              // [2 or 4, 6, npc]
-    const EvpParams<T>& P)
-{
-  const size_t n = (size_t)npc;
-  T uc[6], vc[6], tl[6];
-  panel_corner_values<T>(q, N, npp, metric, pl_u, pl_v, pl_t, row_pos, col_pos, uc, vc, tl);
-  const bool ss = ss_mask[q] > T(0);
-  T r11[6], r22[6], r12[6];
-#pragma unroll
-  for (int g = 0; g < 6; ++g) {
-    r11[g] = s11[g * n + q];
-    r22[g] = s22[g * n + q];
-    r12[g] = s12[g * n + q];
-  }
-  T pu[6], pv[6], mu[6], mv[6];
-  panel_cell_math<T>(uc, vc, tl, metric, bgrad + q, bint + q, bmet + q, npc, pressure[q],
-                     ss, r11, r22, r12, pu, pv, mu, mv, P);
-  if (ss) {
-#pragma unroll
-    for (int g = 0; g < 6; ++g) {
-      s11[g * n + q] = r11[g];
-      s22[g * n + q] = r22[g];
-      s12[g * n + q] = r12[g];
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    part[((size_t)0 * 6 + j) * n + q] = pu[j];
-    part[((size_t)1 * 6 + j) * n + q] = pv[j];
-    if (metric) {
-      part[((size_t)2 * 6 + j) * n + q] = mu[j];
-      part[((size_t)3 * 6 + j) * n + q] = mv[j];
-    }
-  }
-}
-
-// The cell side alone, one thread per padded column: the per-subcycle route.
-template <typename T>
-__global__ void panel_cell_kernel(
-    int N, int npp, int npc, int metric,
-    const T* __restrict__ pl_u, const T* __restrict__ pl_v, const T* __restrict__ pl_t,
-    const int* __restrict__ row_pos, const int* __restrict__ col_pos,
-    const T* __restrict__ bgrad, const T* __restrict__ bint, const T* __restrict__ bmet,
-    const T* __restrict__ pressure, const T* __restrict__ ss_mask,
-    T* __restrict__ s11, T* __restrict__ s22, T* __restrict__ s12,
-    T* __restrict__ part, EvpParams<T> P)
-{
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= npp) return;
-  panel_cell_body<T>(q, N, npp, npc, metric, pl_u, pl_v, pl_t, row_pos, col_pos,
-                     bgrad, bint, bmet, pressure, ss_mask, s11, s22, s12, part, P);
 }
 
 }  // namespace

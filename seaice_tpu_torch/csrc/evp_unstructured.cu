@@ -7,11 +7,12 @@
 //     -> vertex-side gather-sum -> ocean drag -> 2x2 momentum solve
 //   run inside ONE call of evp_subcycle_loop_* below;
 //   build_unstructured_loop_solver (K6): the same body one subcycle per
-//   call, evp_subcycle_step_*, so that the caller refreshes the vertex
-//   velocity halo of a partitioned mesh between calls (the reference
-//   exchanges it after every subcycle, mpas_seaice_velocity_solver.F:
-//   2546-2584).  Both entries launch the same two kernels, as the TPU K6
-//   runs K1's pallas_call with n_subcycles=1.
+//   call, evp_subcycle_step_*, for every block of a partitioned mesh at
+//   once, so that the caller refreshes the vertex velocity halo between
+//   calls (the reference exchanges it after every subcycle,
+//   mpas_seaice_velocity_solver.F:2546-2584).  Both entries run the same
+//   two kernel bodies, as the TPU K6 runs K1's pallas_call with
+//   n_subcycles=1.
 //
 // The TPU kernel is one sequential program.  Here the vertex phase of
 // subcycle k needs every cell's partials and the cell phase of k+1 needs
@@ -33,8 +34,17 @@
 // ~0.01 ms, the flops ~0.08 ms at the f32 peak: the loop is bound by L2
 // bandwidth and by 2*n_sub launch latencies, not by either roofline term.
 // One cooperative launch with a grid-wide barrier per phase is the later
-// optimisation; for the one-subcycle entry, one launch covering every
-// block of a partitioned mesh (a pointer table, the block as blockIdx.y).
+// optimisation of the whole loop.
+//
+// K6 on a partitioned mesh: every block of the card in one call.  A block
+// of a sphere in four is a quarter of the mesh, so one launch per block
+// fills under one wave of the 132 SMs and four blocks cost four launch
+// latencies and four host calls a phase.  evp_subcycle_step_* takes a
+// device table of the blocks' sizes and pointers (`BlockArgs`, one row a
+// block, built once per solve by the wrapper) and launches each phase once
+// with the block as blockIdx.y: two launches per subcycle whatever the
+// number of blocks.  Each block's arithmetic is K1's (`evp_cell_body`,
+// `evp_vertex_body`), so a block's result is bitwise what it is alone.
 
 #include <cuda_runtime.h>
 
@@ -59,8 +69,8 @@ template <typename T> __device__ __forceinline__ T t_max(T a, T b) { return a > 
 
 // ---- cell phase: strain, stress update (in place), divergence partials ----
 template <typename T, int ME>
-__global__ void evp_cell_kernel(
-    int nc, int metric,
+__device__ __forceinline__ void evp_cell_body(
+    int c, int nc, int metric,
     const T* __restrict__ u, const T* __restrict__ v,
     const int* __restrict__ voc,        // [ME, nc]
     const T* __restrict__ vmask,        // [ME, nc]
@@ -72,10 +82,8 @@ __global__ void evp_cell_kernel(
     const T* __restrict__ solve_stress, // [nc]
     T* __restrict__ s11, T* __restrict__ s22, T* __restrict__ s12,  // [ME, nc]
     T* __restrict__ pu_out, T* __restrict__ pv_out,                 // [nc*ME]
-    EvpParams<T> P)
+    const EvpParams<T>& P)
 {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= nc) return;
   const size_t n = (size_t)nc;
 
   T uc[ME], vc[ME], tl[ME];
@@ -171,10 +179,28 @@ __global__ void evp_cell_kernel(
   }
 }
 
+template <typename T, int ME>
+__global__ void evp_cell_kernel(
+    int nc, int metric,
+    const T* __restrict__ u, const T* __restrict__ v,
+    const int* __restrict__ voc, const T* __restrict__ vmask,
+    const T* __restrict__ bgrad, const T* __restrict__ bint,
+    const T* __restrict__ bmet, const T* __restrict__ tanlat,
+    const T* __restrict__ pressure, const T* __restrict__ solve_stress,
+    T* __restrict__ s11, T* __restrict__ s22, T* __restrict__ s12,
+    T* __restrict__ pu_out, T* __restrict__ pv_out,
+    EvpParams<T> P)
+{
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= nc) return;
+  evp_cell_body<T, ME>(c, nc, metric, u, v, voc, vmask, bgrad, bint, bmet, tanlat,
+                       pressure, solve_stress, s11, s22, s12, pu_out, pv_out, P);
+}
+
 // ---- vertex phase: gather-sum of partials, drag, 2x2 momentum solve ----
 template <typename T>
-__global__ void evp_vertex_kernel(
-    int nv, int vd,
+__device__ __forceinline__ void evp_vertex_body(
+    int i, int nv, int vd,
     const int* __restrict__ fci,     // [vd, nv] flat corner index cell*me + slot
     const T* __restrict__ cmask,     // [vd, nv]
     const T* __restrict__ pu, const T* __restrict__ pv,
@@ -185,10 +211,8 @@ __global__ void evp_vertex_kernel(
     const T* __restrict__ ocn_u, const T* __restrict__ ocn_v,
     const T* __restrict__ solve_velocity, const T* __restrict__ area_v,
     T* __restrict__ u, T* __restrict__ v,
-    EvpParams<T> P)
+    const EvpParams<T>& P)
 {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nv) return;
   const size_t n = (size_t)nv;
   T du = T(0), dv = T(0);
   for (int d = 0; d < vd; ++d) {
@@ -216,6 +240,89 @@ __global__ void evp_vertex_kernel(
   if (det == T(0)) det = T(1);
   u[i] = (a11 * rhs1 - a12 * rhs2) / det;
   v[i] = (a11 * rhs2 - a21 * rhs1) / det;
+}
+
+template <typename T>
+__global__ void evp_vertex_kernel(
+    int nv, int vd,
+    const int* __restrict__ fci, const T* __restrict__ cmask,
+    const T* __restrict__ pu, const T* __restrict__ pv,
+    const T* __restrict__ denom,
+    const T* __restrict__ uo, const T* __restrict__ vo,
+    const T* __restrict__ mass_v, const T* __restrict__ mass_f,
+    const T* __restrict__ rhs_u0, const T* __restrict__ rhs_v0,
+    const T* __restrict__ ocn_u, const T* __restrict__ ocn_v,
+    const T* __restrict__ solve_velocity, const T* __restrict__ area_v,
+    T* __restrict__ u, T* __restrict__ v,
+    EvpParams<T> P)
+{
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nv) return;
+  evp_vertex_body<T>(i, nv, vd, fci, cmask, pu, pv, denom, uo, vo, mass_v, mass_f,
+                     rhs_u0, rhs_v0, ocn_u, ocn_v, solve_velocity, area_v, u, v, P);
+}
+
+// ---- K6: one subcycle of every block of the card, the block as blockIdx.y ----
+// One row of the wrapper's int64 table [B, 30]: the block's sizes, then its
+// 28 pointers in the order of the C entries' arguments.  Every field is 8
+// bytes, so the struct has no padding and a row maps onto it as it is.
+struct BlockArgs {
+  long long nc, nv;
+  const int* voc; const void* vmask; const void* bgrad; const void* bint;
+  const void* bmet; const int* fci; const void* cmask; const void* denom;
+  const void* tanlat; void* u; void* v; void* s11; void* s22; void* s12;
+  const void* pressure; const void* solve_stress; const void* uo; const void* vo;
+  const void* mass_v; const void* mass_f; const void* rhs_u0; const void* rhs_v0;
+  const void* ocn_u; const void* ocn_v; const void* solve_velocity;
+  const void* area_v; void* pu; void* pv;
+};
+static_assert(sizeof(BlockArgs) == 30 * 8, "BlockArgs is a row of 30 int64");
+
+template <typename T, int ME>
+__global__ void evp_cell_blocks_kernel(const BlockArgs* __restrict__ tab, int metric,
+                                       EvpParams<T> P)
+{
+  const BlockArgs& A = tab[blockIdx.y];
+  const int nc = (int)A.nc;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= nc) return;
+  evp_cell_body<T, ME>(c, nc, metric, (const T*)A.u, (const T*)A.v, A.voc,
+                       (const T*)A.vmask, (const T*)A.bgrad, (const T*)A.bint,
+                       (const T*)A.bmet, (const T*)A.tanlat, (const T*)A.pressure,
+                       (const T*)A.solve_stress, (T*)A.s11, (T*)A.s22, (T*)A.s12,
+                       (T*)A.pu, (T*)A.pv, P);
+}
+
+template <typename T>
+__global__ void evp_vertex_blocks_kernel(const BlockArgs* __restrict__ tab, int vd,
+                                         EvpParams<T> P)
+{
+  const BlockArgs& A = tab[blockIdx.y];
+  const int nv = (int)A.nv;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= nv) return;
+  evp_vertex_body<T>(i, nv, vd, A.fci, (const T*)A.cmask, (const T*)A.pu,
+                     (const T*)A.pv, (const T*)A.denom, (const T*)A.uo,
+                     (const T*)A.vo, (const T*)A.mass_v, (const T*)A.mass_f,
+                     (const T*)A.rhs_u0, (const T*)A.rhs_v0, (const T*)A.ocn_u,
+                     (const T*)A.ocn_v, (const T*)A.solve_velocity,
+                     (const T*)A.area_v, (T*)A.u, (T*)A.v, P);
+}
+
+template <typename T>
+EvpParams<T> make_params(double dte, double damping, double ecc2, double puny,
+                         double cosw, double sinw, double drag)
+{
+  EvpParams<T> P;
+  P.dte = (T)dte;
+  P.two_damp = (T)(2.0 * damping);
+  P.denom = (T)(1.0 + (0.5 * dte) / damping);
+  P.ecc2 = (T)ecc2;
+  P.puny = (T)puny;
+  P.cosw = (T)cosw;
+  P.sinw = (T)sinw;
+  P.drag = (T)drag;
+  return P;
 }
 
 template <typename T, int ME>
@@ -246,15 +353,7 @@ int run_loop(int nc, int nv, int me, int vd, int n_sub, int metric,
              double sinw, double drag, void* stream_v, int* n_launches)
 {
   cudaStream_t stream = (cudaStream_t)stream_v;
-  EvpParams<T> P;
-  P.dte = (T)dte;
-  P.two_damp = (T)(2.0 * damping);
-  P.denom = (T)(1.0 + (0.5 * dte) / damping);
-  P.ecc2 = (T)ecc2;
-  P.puny = (T)puny;
-  P.cosw = (T)cosw;
-  P.sinw = (T)sinw;
-  P.drag = (T)drag;
+  const EvpParams<T> P = make_params<T>(dte, damping, ecc2, puny, cosw, sinw, drag);
   *n_launches = 0;
   const int vthreads = 128;
   const int vblocks = (nv + vthreads - 1) / vthreads;
@@ -288,6 +387,41 @@ int run_loop(int nc, int nv, int me, int vd, int n_sub, int metric,
   return 0;
 }
 
+// K6: one subcycle of n_blocks blocks, two launches (cells, then vertices),
+// each over the largest block with the block as blockIdx.y.
+template <typename T>
+int run_blocks(int n_blocks, int max_nc, int max_nv, int me, int vd, int metric,
+               const void* table, double dte, double damping, double ecc2,
+               double puny, double cosw, double sinw, double drag, void* stream_v,
+               int* n_launches)
+{
+  cudaStream_t stream = (cudaStream_t)stream_v;
+  const EvpParams<T> P = make_params<T>(dte, damping, ecc2, puny, cosw, sinw, drag);
+  const BlockArgs* tab = (const BlockArgs*)table;
+  *n_launches = 0;
+  const int threads = 128;
+  const dim3 cgrid((max_nc + threads - 1) / threads, n_blocks);
+  const dim3 vgrid((max_nv + threads - 1) / threads, n_blocks);
+  switch (me) {
+#define EVP_CELL_BLOCKS(MEV)                                                       \
+  case MEV:                                                                        \
+    evp_cell_blocks_kernel<T, MEV><<<cgrid, threads, 0, stream>>>(tab, metric, P); \
+    break;
+    EVP_CELL_BLOCKS(3) EVP_CELL_BLOCKS(4) EVP_CELL_BLOCKS(5) EVP_CELL_BLOCKS(6)
+    EVP_CELL_BLOCKS(7) EVP_CELL_BLOCKS(8) EVP_CELL_BLOCKS(9) EVP_CELL_BLOCKS(10)
+#undef EVP_CELL_BLOCKS
+    default: return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ++*n_launches;
+  evp_vertex_blocks_kernel<T><<<vgrid, threads, 0, stream>>>(tab, vd, P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ++*n_launches;
+  return 0;
+}
+
 }  // namespace
 
 #define EVP_TAIL_ARGS                                                               \
@@ -316,12 +450,21 @@ extern "C" int evp_subcycle_loop_f64(int nc, int nv, int me, int vd, int n_sub,
                                      int metric, EVP_TAIL_ARGS) {
   return run_loop<double>(nc, nv, me, vd, n_sub, metric, EVP_TAIL_PASS);
 }
-// K6: one subcycle, the same two launches, on the same arguments.
-extern "C" int evp_subcycle_step_f32(int nc, int nv, int me, int vd, int metric,
-                                     EVP_TAIL_ARGS) {
-  return run_loop<float>(nc, nv, me, vd, 1, metric, EVP_TAIL_PASS);
+#define EVP_BLOCKS_ARGS                                                             \
+  int n_blocks, int max_nc, int max_nv, int me, int vd, int metric,                 \
+  const void* table, double dte, double damping, double ecc2, double puny,          \
+  double cosw, double sinw, double drag, void* stream, int* n_launches
+#define EVP_BLOCKS_PASS                                                             \
+  n_blocks, max_nc, max_nv, me, vd, metric, table, dte, damping, ecc2, puny, cosw,  \
+  sinw, drag, stream, n_launches
+
+// K6: one subcycle of every block in `table` (device memory, [n_blocks, 30]
+// int64: nc, nv and the 28 pointers of EVP_TAIL_ARGS from voc to pv, each
+// block's u, v and stresses updated in place, pu, pv its scratch); max_nc,
+// max_nv the largest block's sizes.  Two launches whatever n_blocks is.
+extern "C" int evp_subcycle_step_f32(EVP_BLOCKS_ARGS) {
+  return run_blocks<float>(EVP_BLOCKS_PASS);
 }
-extern "C" int evp_subcycle_step_f64(int nc, int nv, int me, int vd, int metric,
-                                     EVP_TAIL_ARGS) {
-  return run_loop<double>(nc, nv, me, vd, 1, metric, EVP_TAIL_PASS);
+extern "C" int evp_subcycle_step_f64(EVP_BLOCKS_ARGS) {
+  return run_blocks<double>(EVP_BLOCKS_PASS);
 }

@@ -183,11 +183,26 @@ def evp_raster_loop(raster, gx, gy, bu, bv, u, v, t11, t22, t12, pressure,
     return _launch(raster, *args, **kw)
 
 
-def _launch(raster, gx, gy, bu, bv, u, v, t11, t22, t12, pressure,
-            solve_stress, uo_v, vo_v, mass_vertex, mass_f, air_u, air_v,
-            tilt_u, tilt_v, ocean_u, ocean_v, solve_velocity, area_vertex,
-            denominator, *, dt_elastic, damping_timescale, n_subcycles):
+def _launch(*args, **kw):
     """Checks, copies and the call of the C function."""
+    call, outputs = _bind(*args, **kw)
+    err, n_inner = call()
+    _COUNTS.inner_launches += n_inner
+    if err != 0:
+        raise RuntimeError(
+            f"evp_raster_loop: CUDA error {err} after {n_inner} launches")
+    _COUNTS.launches += 1
+    return outputs
+
+
+def _bind(raster, gx, gy, bu, bv, u, v, t11, t22, t12, pressure,
+          solve_stress, uo_v, vo_v, mass_vertex, mass_f, air_u, air_v,
+          tilt_u, tilt_v, ocean_u, ocean_v, solve_velocity, area_vertex,
+          denominator, *, dt_elastic, damping_timescale, n_subcycles):
+    """Check every argument, copy the five tensors the kernel updates in
+    place and allocate its scratch; returns (call, (u, v, t11, t22,
+    t12)): call() makes the C call on the current stream, which carries
+    the copies n_subcycles further, and returns (error, launches)."""
     dt, dev = u.dtype, u.device
     if dt not in (torch.float32, torch.float64):
         raise ValueError(f"unsupported dtype {dt}")
@@ -225,24 +240,27 @@ def _launch(raster, gx, gy, bu, bv, u, v, t11, t22, t12, pressure,
     n_inner = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        ptr = [t.data_ptr() for t in (
-            u, v, t11, t22, t12, pressure, solve_stress,
-            *vertex_in.values(), scratch[0], scratch[1])]
-        err = fn(nxc, nyc, int(n_subcycles),
-                 ctypes.cast(offsets, ctypes.c_void_p), tables.data_ptr(),
-                 *ptr, float(dt_elastic), float(damping_timescale),
-                 float(c.EVP_ECCENTRICITY_SQ), float(c.PUNY),
-                 float(c.COS_OCEAN_TURNING_ANGLE),
-                 float(c.SIN_OCEAN_TURNING_ANGLE),
-                 float(c.ICE_OCEAN_DRAG * c.DENSITY_SEAWATER),
-                 stream, ctypes.byref(n_inner))
-    _COUNTS.inner_launches += n_inner.value
-    if err != 0:
-        raise RuntimeError(
-            f"evp_raster_loop: CUDA error {err} after "
-            f"{n_inner.value} launches")
-    _COUNTS.launches += 1
-    return u, v, t11, t22, t12
+    ptr = [t.data_ptr() for t in (
+        u, v, t11, t22, t12, pressure, solve_stress,
+        *vertex_in.values(), scratch[0], scratch[1])]
+    args = (nxc, nyc, int(n_subcycles),
+            ctypes.cast(offsets, ctypes.c_void_p), tables.data_ptr(),
+            *ptr, float(dt_elastic), float(damping_timescale),
+            float(c.EVP_ECCENTRICITY_SQ), float(c.PUNY),
+            float(c.COS_OCEAN_TURNING_ANGLE),
+            float(c.SIN_OCEAN_TURNING_ANGLE),
+            float(c.ICE_OCEAN_DRAG * c.DENSITY_SEAWATER),
+            stream, ctypes.byref(n_inner))
+
+    outputs = (u, v, t11, t22, t12)
+
+    def call():
+        return fn(*args), n_inner.value
+
+    # what the pointers address lives as long as the call
+    call.keep = (tables, offsets, scratch, pressure, solve_stress,
+                 vertex_in, outputs)
+    return call, outputs
 
 
 evp_raster_loop.launches = 0

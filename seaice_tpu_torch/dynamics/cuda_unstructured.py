@@ -14,17 +14,21 @@ Replaces two TPU kernels of `seaice_tpu/dynamics/pallas_unstructured.py`:
     the same body one subcycle per call, so that the caller refreshes the
     vertex-velocity halo of a partitioned mesh between calls (the
     reference exchanges it after every subcycle, :2546-2584).  `prepare`
-    does the checks, the copies and the scratch allocation once per
-    solve; `evp_subcycle_step` is one C call; the caller's exchange writes
-    the halo entries of `loop.u`, `loop.v` in place.
+    does the checks, the copies and the scratch allocation of one block
+    once per solve; `evp_subcycle_step(*loops)` advances every given
+    block (all the blocks of a card) by one subcycle in one C call, whose
+    table of the blocks' pointers is built at the first call of a solve;
+    the caller's exchange writes the halo entries of `loop.u`, `loop.v`
+    in place.
 
 The CUDA source is `csrc/evp_unstructured.cu`: a cell kernel and a vertex
 kernel launched alternately from a host loop inside one C function,
-`2*n_subcycles` launches on the current stream with no synchronisation
-(two for the one-subcycle entry).  Its bound on an H100 (`evp_loop_work`):
-the inputs read once take about 0.01 ms and the ~1,100 flops per cell and
-subcycle about 0.08 ms at the f32 peak, so neither roofline term limits
-it; what does is streaming the five basis tensors (29.5 MB in f32 at
+`2*n_subcycles` launches on the current stream with no synchronisation;
+K6's entry launches each once over all the blocks (the block as
+`blockIdx.y`), two launches per subcycle.  Its bound on an H100
+(`evp_loop_work`): the inputs read once take about 0.01 ms and the ~1,100
+flops per cell and subcycle about 0.08 ms at the f32 peak, so neither
+roofline term limits it; what does is streaming the five basis tensors (29.5 MB in f32 at
 40,962 cells, resident in the 50 MB L2) once per subcycle, and the launch
 latencies.  The kernels therefore keep every corner array in the
 [maxEdges, nCells] layout (contiguous loads across a warp) and keep the
@@ -37,6 +41,8 @@ tensors they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
+import weakref
 
 import torch
 
@@ -117,13 +123,13 @@ _TAIL_ARGTYPES = ([ctypes.c_void_p] * 28 + [ctypes.c_double] * 7 +
 
 
 def _c_function(dtype, entry="evp_subcycle_loop"):
-    """The C entry `evp_subcycle_loop_*` (n_subcycles before the metric
-    flag) or `evp_subcycle_step_*` (one subcycle)."""
+    """The C entry `evp_subcycle_loop_*` (the whole loop of one block) or
+    `evp_subcycle_step_*` (one subcycle of a table of blocks)."""
     from ..kernels.build import get_cuda_lib
     lib = get_cuda_lib("evp_unstructured")
     fn = getattr(lib, entry + ("_f32" if dtype == torch.float32 else "_f64"))
-    n_int = 6 if entry == "evp_subcycle_loop" else 5
-    fn.argtypes = [ctypes.c_int] * n_int + _TAIL_ARGTYPES
+    fn.argtypes = ([ctypes.c_int] * 6 + _TAIL_ARGTYPES
+                   if entry == "evp_subcycle_loop" else _BLOCKS_ARGTYPES)
     fn.restype = ctypes.c_int
     return fn
 
@@ -141,13 +147,13 @@ def _check(name, t, shape, dtype, device):
 
 
 class SubcycleLoop:
-    """One solve's loop state between `evp_subcycle_prepare` and
-    `evp_subcycle_finish`: the working tensors u, v [nVertices] and t11,
-    t22, t12 [maxEdges, nCells] (private copies, updated in place by the
-    kernel and by the plain version alike, so their addresses hold for
+    """One solve's loop state of one block between `evp_subcycle_prepare`
+    and `evp_subcycle_finish`: the working tensors u, v [nVertices] and
+    t11, t22, t12 [maxEdges, nCells] (private copies, updated in place by
+    the kernel and by the plain version alike, so their addresses hold for
     the kernel's argument list and for the caller's halo exchange), the
-    loop invariants, and for CUDA tensors the kernel's argument list,
-    fixed at `prepare`."""
+    loop invariants, and for CUDA tensors the kernel's arguments, fixed at
+    `prepare`, and the batched call that `evp_subcycle_step` binds."""
 
     def __init__(self, ft, u, v, t11, t22, t12, pressure, solve_stress,
                  vertex, dt_elastic, damping_timescale, include_metric):
@@ -160,9 +166,9 @@ class SubcycleLoop:
         self.include_metric = bool(include_metric)
         self.scratch = None        # the kernel's [2, nc*me] partials
         self.shape = None          # (nc, nv, me, vd) for the C entries
-        self.c_tail = None         # pointers, constants, stream, &count
+        self.c_tail = None         # 28 pointers, 7 constants, stream, &count
         self.c_count = None
-        self.c_step = None         # (C function, its full argument tuple)
+        self.blocks = None         # SubcycleBlocks of the last batched call
 
 
 def evp_subcycle_prepare(ft: FastTensors, u, v, s11T, s22T, s12T, pressure,
@@ -226,10 +232,17 @@ def _bind_kernel(loop: SubcycleLoop):
     _check("tan_lat_vertex", ft.tan_lat_vertex, (nv,), dt, dev)
 
     loop.scratch = torch.empty((2, nc * me), dtype=dt, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
     loop.c_count = ctypes.c_int(0)
     loop.shape = (nc, nv, me, vd)
+    _bind_pointers(loop)
+
+
+def _bind_pointers(loop: SubcycleLoop):
+    """The C entries' pointers, constants, stream and count of a bound
+    loop, from its tensors as they are now (`c_tail`)."""
+    ft = loop.ft
+    with torch.cuda.device(loop.u.device):
+        stream = torch.cuda.current_stream().cuda_stream
     loop.c_tail = tuple(t.data_ptr() for t in (
         ft.voc_T_i32, ft.voc_mask_T, ft.basis_grad_T, ft.basis_int_T,
         ft.basis_metric_T, ft.flat_corner_idx_i32, ft.cov_mask_T,
@@ -241,8 +254,85 @@ def _bind_kernel(loop: SubcycleLoop):
         float(c.COS_OCEAN_TURNING_ANGLE), float(c.SIN_OCEAN_TURNING_ANGLE),
         float(c.ICE_OCEAN_DRAG * c.DENSITY_SEAWATER), stream,
         ctypes.byref(loop.c_count))
-    loop.c_step = (_c_function(dt, "evp_subcycle_step"),
-                   loop.shape + (int(loop.include_metric),) + loop.c_tail)
+
+
+class SubcycleBlocks:
+    """The batched K6 call for a tuple of blocks' loops: the device table
+    [B, 30] int64 (each block's nc, nv and its 28 pointers) and the C call
+    with its argument list fixed; `count` receives the launches made.  It
+    is kept on the first loop and refers to the loops weakly, so that no
+    cycle holds a finished solve's tensors."""
+
+    def __init__(self, loops, table, call, count):
+        self.refs = tuple(weakref.ref(lp) for lp in loops)
+        self.table, self.call, self.count = table, call, count
+
+    def serves(self, loops) -> bool:
+        return len(loops) == len(self.refs) and all(
+            r() is lp for r, lp in zip(self.refs, loops))
+
+
+_BLOCKS_ARGTYPES = ([ctypes.c_int] * 6 + [ctypes.c_void_p] +
+                    [ctypes.c_double] * 7 + [ctypes.c_void_p] * 2)
+
+
+def _bind_blocks(loops) -> SubcycleBlocks:
+    """The table and the C call of `evp_subcycle_step_*` for these loops,
+    each bound by `prepare` on one device, with one dtype, maxEdges,
+    vertex degree, metric flag, constants and stream."""
+    first = loops[0]
+    same = ("dtype", "device", "me", "vd", "metric", "constants")
+
+    def key(lp):
+        _, _, me, vd = lp.shape
+        return (lp.u.dtype, lp.u.device, me, vd, lp.include_metric,
+                lp.c_tail[28:36])
+
+    for s, lp in enumerate(loops):
+        if lp.c_tail is None:
+            raise ValueError(f"block {s}: its loop is not bound to the "
+                             "kernel (a loop on the CPU)")
+        for name, a, b in zip(same, key(lp), key(first)):
+            if a != b:
+                raise ValueError(f"block {s}: {name} {a} differs from block "
+                                 f"0's {b}; one call takes blocks alike")
+    rows = [list(lp.shape[:2]) + list(lp.c_tail[:28]) for lp in loops]
+    table = torch.tensor(rows, dtype=torch.int64).to(first.u.device)
+    _, _, me, vd = first.shape
+    count = ctypes.c_int(0)
+    fn = _c_function(first.u.dtype, "evp_subcycle_step")
+    call = functools.partial(
+        fn, len(loops), max(r[0] for r in rows), max(r[1] for r in rows), me,
+        vd, int(first.include_metric), table.data_ptr(),
+        *first.c_tail[28:36], ctypes.byref(count))
+    return SubcycleBlocks(loops, table, call, count)
+
+
+def evp_subcycle_share_uv(loops):
+    """Move the velocities of several blocks' loops (one device, one dtype,
+    equal nVertices) into one buffer uv [2, B*nv + 1]: block s's u and v
+    become the contiguous views uv[0, s*nv:(s+1)*nv] and uv[1, ...], and
+    the last entry is a zero that a halo gather can address.  The loops'
+    kernel arguments are fixed anew.  Returns uv.  A halo exchange of all
+    the blocks' velocities is then one gather and one scatter on uv."""
+    u0 = loops[0].u
+    nv = u0.shape[0]
+    uv = torch.empty((2, len(loops) * nv + 1), dtype=u0.dtype,
+                     device=u0.device)
+    uv[:, -1] = 0
+    for s, lp in enumerate(loops):
+        if lp.u.shape != (nv,) or lp.u.dtype != u0.dtype or \
+                lp.u.device != u0.device:
+            raise ValueError(f"block {s}: u {tuple(lp.u.shape)} "
+                             f"{lp.u.dtype} on {lp.u.device}, block 0's "
+                             f"({nv},) {u0.dtype} on {u0.device}")
+        u, v = uv[0, s * nv:(s + 1) * nv], uv[1, s * nv:(s + 1) * nv]
+        u.copy_(lp.u)
+        v.copy_(lp.v)
+        lp.u, lp.v, lp.blocks = u, v, None
+        if lp.c_tail is not None:
+            _bind_pointers(lp)
+    return uv
 
 
 def evp_subcycle_finish(loop: SubcycleLoop):
@@ -263,24 +353,30 @@ def evp_subcycle_step_plain(loop: SubcycleLoop):
         t.copy_(n)
 
 
-def evp_subcycle_step(loop: SubcycleLoop):
-    """One elastic subcycle of a loop begun by `evp_subcycle_prepare`.
+def evp_subcycle_step(*loops: SubcycleLoop):
+    """One elastic subcycle of each loop begun by `evp_subcycle_prepare`:
+    the blocks of one card, in a fixed order (one loop: a block alone).
 
-    CPU tensors take the plain version.  CUDA tensors make one call of
-    `evp_subcycle_step_*` in `csrc/evp_unstructured.cu` (a cell and a vertex
-    launch, in place, on the stream fixed at `prepare`) and add one to
+    CPU tensors take the plain version, block after block.  CUDA tensors
+    make one call of `evp_subcycle_step_*` in `csrc/evp_unstructured.cu`
+    for all the blocks (a cell and a vertex launch, each over every block,
+    in place, on the stream fixed at `prepare`) and add one to
     `evp_subcycle_step.launches`; `.inner_launches` accumulates the kernel
-    launches."""
-    if loop.u.device.type == "cpu":
-        evp_subcycle_step_plain(loop)
+    launches.  The blocks' table is built at the first call with a new
+    tuple of loops, so once per solve."""
+    if loops[0].u.device.type == "cpu":
+        for lp in loops:
+            evp_subcycle_step_plain(lp)
         return
-    fn, args = loop.c_step
-    err = fn(*args)
-    evp_subcycle_step.inner_launches += loop.c_count.value
+    blocks = loops[0].blocks
+    if blocks is None or not blocks.serves(loops):
+        blocks = loops[0].blocks = _bind_blocks(loops)
+    err = blocks.call()
+    evp_subcycle_step.inner_launches += blocks.count.value
     if err != 0:
         raise RuntimeError(
             f"evp_subcycle_step: CUDA error {err} after "
-            f"{loop.c_count.value} launches")
+            f"{blocks.count.value} launches")
     evp_subcycle_step.launches += 1
 
 

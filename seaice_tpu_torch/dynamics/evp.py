@@ -16,8 +16,9 @@ PyTorch version on the CPU:
     (`mesh/structured.py`): one call of `cuda_raster.evp_raster_loop`;
   * any other mesh: one call of `cuda_unstructured.evp_subcycle_loop`;
     on a block of a partitioned mesh (a vertex halo exchange present),
-    one `cuda_unstructured.evp_subcycle_step` per subcycle with the
-    vertex-velocity halo refreshed between calls.
+    one subcycle at a time (`cuda_unstructured.evp_subcycle_step`, one
+    call for every block of the card) with the vertex-velocity halo
+    refreshed between calls.
 
 The solve is written as a generator (`velocity_solve_steps`) that stops
 at each halo exchange (`utils/lockstep.py`); `make_velocity_solver` runs
@@ -46,11 +47,11 @@ from ..utils.device import resolve_device
 from ..utils.lockstep import drive
 from . import constitutive, variational
 from . import variational_panel as vpn
-from .cuda_panel import panel_cell_step
+from .cuda_panel import panel_cell_prepare, panel_cell_step
 from .cuda_panel_fused import evp_panel_loop
 from .cuda_raster import basis_tables, build_raster_loop
 from .cuda_unstructured import (evp_subcycle_finish, evp_subcycle_loop,
-                                evp_subcycle_prepare, evp_subcycle_step)
+                                evp_subcycle_prepare)
 from .momentum import momentum_update
 from .variational_fast import build_fast_tensors, strain_tensor_T
 
@@ -322,9 +323,11 @@ def velocity_solve_steps(cfg: Config, *, halo: bool = False, raster=None,
 
     The subcycle loop goes through a kernel wrapper.
     halo: the solve runs on one block of a partitioned mesh: the loop is
-    `evp_subcycle_prepare`, then per subcycle `evp_subcycle_step` and a
-    ("vertex_uv", (u, v)) exchange, then `evp_subcycle_finish` (K6).  The
-    panel and raster routes take no halo: with either, ValueError.
+    `evp_subcycle_prepare`, then per subcycle ("evp_subcycle", (loop,)),
+    made `evp_subcycle_step` (one call for every block of the card) by
+    `drive` / `drive_lockstep`, and a ("vertex_uv", (u, v)) exchange, then
+    `evp_subcycle_finish` (K6).  The panel and raster routes take no
+    halo: with either, ValueError.
     raster: optional mesh.structured.RasterQuad layout; the loop is then
     `evp_raster_loop` (planar raster quad mesh, cell-constant basis, no
     metric terms; the caller asserts the basis, as `SeaIceModel` does).
@@ -519,37 +522,42 @@ def velocity_solve_steps(cfg: Config, *, halo: bool = False, raster=None,
             ss_exc = (ss_pad[exc_cols] > 0)[None, :]
             ss_kernel = ss_pad.clone()
             ss_kernel[exc_cols] = 0      # the kernel leaves those columns
-            t11, t22, t12 = (vpn.stress_ring_to_slot(pt, s) for s in sT)
+            # the kernel's buffers and arguments, once per solve
+            cell_loop = panel_cell_prepare(
+                pt, p_pad, ss_kernel,
+                *(vpn.stress_ring_to_slot(pt, s) for s in sT),
+                dt_elastic=dt_e, damping_timescale=damping_t,
+                include_metric=metric)
             rhs_u0, rhs_v0 = air_u + tilt_u, air_v + tilt_v
             for _ in range(n_sub):
-                planes = vpn.velocity_planes(pt, panel_n, u, v, metric)
-                n11, n22, n12, stacked = panel_cell_step(
-                    pt, planes, t11, t22, t12, p_pad, ss_kernel,
-                    dt_elastic=dt_e, damping_timescale=damping_t,
-                    include_metric=metric)
+                vpn.velocity_planes(pt, panel_n, u, v, metric,
+                                    out=cell_loop.planes)
+                panel_cell_step(cell_loop)
                 # 12-cell exception path: ring-indexed strain + stress
                 # update, written into the exception columns
                 x11, x22, x12 = vpn.exception_strain(pt, u, v, metric)
-                o11, o22, o12 = (t[:, exc_cols] for t in (t11, t22, t12))
+                o11, o22, o12 = (t[:, exc_cols] for t in cell_loop.previous)
                 e11, e22, e12, _ = constitutive.evp_stress_update(
                     o11, o22, o12, x11, x22, x12, p_exc, dt_e, damping_t)
-                n11[:, exc_cols] = torch.where(ss_exc, e11, o11)
-                n22[:, exc_cols] = torch.where(ss_exc, e22, o22)
-                n12[:, exc_cols] = torch.where(ss_exc, e12, o12)
-                t11, t22, t12 = n11, n22, n12
+                t11, t22, t12 = cell_loop.current
+                t11[:, exc_cols] = torch.where(ss_exc, e11, o11)
+                t22[:, exc_cols] = torch.where(ss_exc, e22, o22)
+                t12[:, exc_cols] = torch.where(ss_exc, e12, o12)
                 div_u, div_v = vpn.divergence_finish(
-                    pt, panel_n, stacked, t11, t22, t12, solve_velocity,
-                    metric)
+                    pt, panel_n, cell_loop.partials, t11, t22, t12,
+                    solve_velocity, metric)
                 u, v = momentum_update(
                     u, v, div_u, div_v, uo_v, vo_v, mass_vertex, mass_f,
                     rhs_u0, rhs_v0, ocean_u, ocean_v, solve_velocity,
                     area_vertex, dt_e)
             t11, t22, t12 = (vpn.stress_slot_to_ring(pt, t)
-                             for t in (t11, t22, t12))
+                             for t in cell_loop.current)
         elif halo:
-            # a block of a partitioned mesh: one kernel call per subcycle,
-            # the vertex halo refreshed between calls (in place); the
-            # copies, checks and scratch once per solve
+            # a block of a partitioned mesh: one subcycle at a time, the
+            # vertex halo refreshed between subcycles (in place); the
+            # copies, checks and scratch once per solve.  The subcycle of
+            # every block of the card is one kernel call
+            # (`utils/lockstep.py`, "evp_subcycle")
             loop = evp_subcycle_prepare(
                 dyn.fast, u, v, *sT, pressure, solve_stress, uo_v, vo_v,
                 mass_vertex, mass_f, air_u + tilt_u, air_v + tilt_v,
@@ -557,7 +565,7 @@ def velocity_solve_steps(cfg: Config, *, halo: bool = False, raster=None,
                 include_metric=metric, dt_elastic=dt_e,
                 damping_timescale=damping_t)
             for _ in range(n_sub):
-                evp_subcycle_step(loop)
+                yield "evp_subcycle", (loop,)
                 yield "vertex_uv", (loop.u, loop.v)
             u, v, t11, t22, t12 = evp_subcycle_finish(loop)
         elif raster_loop is not None:

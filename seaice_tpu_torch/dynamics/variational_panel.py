@@ -369,13 +369,13 @@ def cells_to_padded(pt: PanelTensors, x):
 
 # -- operators ----------------------------------------------------------------
 
-def _vertex_planes(pt, N, uv):
+def _vertex_planes(pt, N, uv, out=None):
     """Real [nv, F] vertex fields -> padded planes [2(t), npp, F] with
-    seam ghosts filled.  The panel-major vertex numbering makes the
-    plane interior a pure reshape of `uv` (vertex ((p*N+a)*N+(b-1))*2+t
-    sits at plane (t; p, a, b)); only the two pad strips per panel
-    (a = N row, b = 0 column) hold seam ghosts, gathered as small dense
-    edge strips and joined by concatenation."""
+    seam ghosts filled (written into `out` where given).  The panel-major
+    vertex numbering makes the plane interior a pure reshape of `uv`
+    (vertex ((p*N+a)*N+(b-1))*2+t sits at plane (t; p, a, b)); only the
+    two pad strips per panel (a = N row, b = 0 column) hold seam ghosts,
+    gathered as small dense edge strips and joined by concatenation."""
     npp = 10 * (N + 1) * (N + 1)
     F = uv.shape[-1]
     uv1 = torch.cat([torch.zeros((1, F), dtype=uv.dtype,
@@ -384,15 +384,20 @@ def _vertex_planes(pt, N, uv):
     gc = uv1[pt.plane_col_src]                   # [2, 10, N, F]
     gr = uv1[pt.plane_row_src]                   # [2, 10, N+1, F]
     body = torch.cat([gc[:, :, :, None], interior], dim=3)
+    if out is not None:
+        torch.cat([body, gr[:, :, None]], dim=2,
+                  out=out.view(2, 10, N + 1, N + 1, F))
+        return out
     planes = torch.cat([body, gr[:, :, None]], dim=2)
     return planes.reshape(2, npp, F)
 
 
 def velocity_planes(pt: PanelTensors, N: int, u, v,
-                    include_metric: bool = False):
-    """The padded vertex planes [2, npp, F] of (u, v[, tan(lat)/r])."""
+                    include_metric: bool = False, out=None):
+    """The padded vertex planes [2, npp, F] of (u, v[, tan(lat)/r]),
+    written into `out` (contiguous, [2, npp, F]) where given."""
     cols = [u, v] + ([pt.tan_lat_vertex] if include_metric else [])
-    return _vertex_planes(pt, N, torch.stack(cols, dim=-1))
+    return _vertex_planes(pt, N, torch.stack(cols, dim=-1), out)
 
 
 def corner_values(pt: PanelTensors, N: int, planes):

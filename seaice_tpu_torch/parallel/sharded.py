@@ -9,7 +9,8 @@ structure; `partition.py`), and the halos are refreshed inside the step:
   per elastic subcycle: the vertex-velocity halo (the reference exchanges
     uVelocity/vVelocity once per subcycle,
     mpas_seaice_velocity_solver.F:2546-2584), between calls of the
-    one-subcycle EVP kernel `evp_subcycle_step`;
+    one-subcycle EVP kernel `evp_subcycle_step`, one call for every block
+    of the card (`evp_subcycle`);
   before the loop: the solveStress / solveVelocity masks and (u, v);
   per dynamics subcycle: the 2-deep cell halo of every tracer after
     transport (reference ...incremental_remap.F:2429-2487).
@@ -48,6 +49,8 @@ import torch
 
 from ..config import AdvectionType, Config
 from ..dynamics import evp
+from ..dynamics.cuda_unstructured import (evp_subcycle_share_uv,
+                                          evp_subcycle_step)
 from ..mesh.core import Mesh
 from ..model import (SeaIceModel, State, check_kernel_options,
                      dynamics_transport_steps)
@@ -229,6 +232,24 @@ class ShardedSeaIceModel:
                     len(b.cell_export_idx), n_shards))))
         self.n_vertices_owned = self.part.blocks[0].n_vertices_owned
         self.n_cells_owned = self.part.blocks[0].n_cells_owned
+        # the vertex halo of every block as one gather and one scatter on
+        # the K6 loops' shared velocity buffer [2, B*nv + 1]
+        # (`evp_subcycle_share_uv`): the same tables composed with the
+        # export lists, the zero entry of the ring at B*nv
+        nv = self.part.blocks[0].mesh.n_vertices
+        if any(b.mesh.n_vertices != nv for b in self.part.blocks):
+            raise ValueError("blocks of unequal vertex counts")
+        exp = np.stack([b.vertex_export_idx for b in self.part.blocks])
+        n_exp = exp.shape[1]
+        src, dst = [], []
+        for s, h in enumerate(self.halo):
+            t = h.vertex_halo_gather.cpu().numpy()
+            r, j = np.divmod(np.minimum(t, n_shards * n_exp - 1), n_exp)
+            src.append(np.where(t == n_shards * n_exp, n_shards * nv,
+                                r * nv + exp[r, j]))
+            dst.append(s * nv + self.n_vertices_owned + np.arange(len(t)))
+        self.uv_halo_src = ix(np.concatenate(src))
+        self.uv_halo_dst = ix(np.concatenate(dst))
 
     # -- state scatter/gather ------------------------------------------------
 
@@ -286,13 +307,22 @@ class ShardedSeaIceModel:
 
     # -- halo exchange and step ---------------------------------------------
 
-    def exchange(self, kind: str, fields_per_block, halo=None):
+    def exchange(self, kind: str, fields_per_block, halo=None, solve=None):
         """Refresh, in place, the halo entries of every block's fields:
         fields_per_block[s] is a tuple of block s's cell fields
         (kind "cell_field") or vertex fields ("vertex_field",
         "vertex_uv"), each [nLocal, ...].  halo: the blocks' HaloMaps
-        (default: the model's)."""
+        (default: the model's).  solve: the velocity solve under way
+        (`evp_subcycle`); where the fields are its loops' velocities, held
+        in one buffer, the exchange is one gather and one scatter."""
         halo = self.halo if halo is None else halo
+        if kind == "vertex_uv" and solve and halo is self.halo and all(
+                f[0] is lp.u and f[1] is lp.v
+                for f, lp in zip(fields_per_block, solve["loops"])):
+            uv = solve["uv"]
+            uv.index_copy_(1, self.uv_halo_dst,
+                           uv.index_select(1, self.uv_halo_src))
+            return
         if kind == "cell_field":
             n_own = self.n_cells_owned
             export = [h.cell_export_idx for h in halo]
@@ -313,6 +343,17 @@ class ShardedSeaIceModel:
             for s, fields in enumerate(fields_per_block):
                 torch.index_select(buf, 0, table[s],
                                    out=fields[j][n_own:])
+
+    def evp_subcycle(self, loops, solve=None):
+        """One elastic subcycle of every block's velocity solve: the K6
+        loops of the blocks on the card, in block order, in one call.
+        solve: a dict for the solve under way; at its first subcycle the
+        loops' velocities move into one buffer (`evp_subcycle_share_uv`),
+        which `exchange` then refreshes in two operations."""
+        loops = tuple(loops)
+        if solve is not None and solve.get("loops") != loops:
+            solve["loops"], solve["uv"] = loops, evp_subcycle_share_uv(loops)
+        evp_subcycle_step(*loops)
 
     def make_step(self):
         """Build step(tensors, halo, state, forcing) -> (state, diags),
@@ -335,9 +376,17 @@ class ShardedSeaIceModel:
                                         remap_step, adv_checks=False)
 
         def step(tensors, halo, state, forcing):
+            solve = {}          # the K6 loops of the solve under way
+
+            def advance(kind, fields):
+                if kind == "evp_subcycle":
+                    self.evp_subcycle([f[0] for f in fields], solve)
+                else:
+                    self.exchange(kind, fields, halo, solve)
+
             outs = drive_lockstep(
                 [body(t, st, f) for t, st, f in zip(tensors, state, forcing)],
-                lambda kind, fields: self.exchange(kind, fields, halo))
+                advance)
             return [o[0] for o in outs], [o[1] for o in outs]
 
         return step

@@ -10,6 +10,13 @@ body is a Python generator: at each exchange point it yields
 (nothing else refers to them), and continues once their halo entries have
 been refreshed IN PLACE.
 
+One kind is not an exchange but a kernel call made once for all blocks:
+at "evp_subcycle" a block hands over its K6 loop
+(`dynamics/cuda_unstructured.py`), and every block's loop advances by one
+elastic subcycle in one call of `evp_subcycle_step`, two launches
+whatever the number of blocks.  The exchange of the new velocities
+follows as its own step.
+
 `drive` runs one generator (one block, or an unpartitioned mesh) to its
 end; `drive_lockstep` runs one generator per block, advancing all of them
 to the same exchange point before each exchange.  All blocks issue their
@@ -22,9 +29,12 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional
 
+from ..dynamics.cuda_unstructured import evp_subcycle_step
+
 # "cell_field": cell fields [nCells, ...];  "vertex_field": vertex fields
-# [nVertices];  "vertex_uv": the velocity pair (u, v), [nVertices] each
-KINDS = ("cell_field", "vertex_field", "vertex_uv")
+# [nVertices];  "vertex_uv": the velocity pair (u, v), [nVertices] each;
+# "evp_subcycle": (loop,), one subcycle of the block's velocity solve
+KINDS = ("cell_field", "vertex_field", "vertex_uv", "evp_subcycle")
 
 
 def drive(gen, exchanges: Optional[Dict[str, Callable]] = None):
@@ -34,12 +44,15 @@ def drive(gen, exchanges: Optional[Dict[str, Callable]] = None):
     one field, "vertex_uv" takes (u, v); each returns the refreshed
     field(s).  A returned tensor that is not the one handed over is copied
     into it, so both functional and in-place exchanges work.  A kind
-    without a function (or exchanges=None) is the identity: one block."""
+    without a function (or exchanges=None) is the identity: one block.
+    "evp_subcycle" is the K6 call for this one block."""
     try:
         kind, fields = gen.send(None)
         while True:
             fn = exchanges.get(kind) if exchanges else None
-            if fn is not None:
+            if kind == "evp_subcycle":
+                evp_subcycle_step(*fields)
+            elif fn is not None:
                 if kind == "vertex_uv":
                     new = fn(*fields)
                 else:
@@ -57,9 +70,9 @@ def drive_lockstep(gens: List, exchange: Callable):
     their values.
 
     exchange(kind, fields_per_block) refreshes the halo entries of every
-    block's fields in place; fields_per_block[s] is the tuple block s
-    yielded.  Every block must reach the same exchange points in the same
-    order."""
+    block's fields in place (for "evp_subcycle" it makes the blocks' K6
+    call); fields_per_block[s] is the tuple block s yielded.  Every block
+    must reach the same exchange points in the same order."""
     n = len(gens)
     out = [None] * n
     while True:

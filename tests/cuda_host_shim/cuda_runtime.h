@@ -5,7 +5,8 @@
 //
 //   * `k<<<grid, block, smem, stream>>>(args)` is rewritten by the test into
 //     `shim_launch(grid, block, smem, [&] { k(args); })`: blocks run one
-//     after another, as any launch may run them.
+//     after another, as any launch may run them; a dim3 grid runs its
+//     x blocks for each y in turn.
 //   * `cudaLaunchKernelEx` (used with `cudaLaunchAttributeCooperative`) runs
 //     ALL blocks' threads at once, so that a grid-wide barrier
 //     (`cooperative_groups::this_grid().sync()`, <cooperative_groups.h>
@@ -108,11 +109,14 @@ struct cudaLaunchConfig_t {
   unsigned numAttrs = 0;
 };
 
-// Runs `grid` blocks of `block` threads; all at once if `together`.
+// Runs `grid` blocks of `block` threads; all at once if `together` (a
+// one-dimensional grid).
 template <class F>
-void shim_run(int grid, int block, size_t smem, bool together, F kernel_call) {
-  gridDim.x = grid;
+void shim_run(dim3 grid3, int block, size_t smem, bool together, F kernel_call) {
+  gridDim = grid3;
   blockDim.x = block;
+  const int gx = grid3.x;
+  const int grid = grid3.x * grid3.y;
   const int nw = (block + 31) / 32;
   auto run_blocks = [&](int b0, int b1) {
     std::vector<std::unique_ptr<std::barrier<>>> bars, warps;
@@ -128,7 +132,8 @@ void shim_run(int grid, int block, size_t smem, bool together, F kernel_call) {
       for (int t = 0; t < block; ++t)
         threads.emplace_back([&, b, t] {
           threadIdx.x = t;
-          blockIdx.x = b;
+          blockIdx.x = b % gx;
+          blockIdx.y = b / gx;
           shim_block_barrier = bars[b - b0].get();
           shim_warp_barrier = warps[(b - b0) * nw + t / 32].get();
           shim_dyn_smem = mem[b - b0].data();
@@ -147,7 +152,7 @@ void shim_run(int grid, int block, size_t smem, bool together, F kernel_call) {
 }
 
 template <class F>
-void shim_launch(int grid, int block, size_t smem, F kernel_call) {
+void shim_launch(dim3 grid, int block, size_t smem, F kernel_call) {
   shim_run(grid, block, smem, false, kernel_call);
 }
 

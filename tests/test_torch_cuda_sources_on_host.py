@@ -259,18 +259,34 @@ def test_panel_loop_source_reads_every_index_list(on_host, name):
                          ids=["f64", "f32"])
 @pytest.mark.parametrize("metric", [False, True])
 def test_panel_cell_source_matches_plain(on_host, metric, dtype):
+    """K5's loop form: prepare, then two steps (the stresses from buffer 0
+    into 1, then back), each one launch, against the plain step on the
+    same planes; the pole columns' partials come out zero."""
     mesh, lay, dyn = _panel_problem(metric, dtype)
     pt = dyn.panel
     a = _loop_inputs(mesh, np.random.default_rng(8), dtype)
-    planes = vpn.velocity_planes(pt, lay.N, a["u"], a["v"], metric)
     t = [vpn.stress_ring_to_slot(pt, s) for s in a["s"]]
     ss = vpn.cells_to_padded(pt, a["ss"])
     ss[pt.exc_pad_cols] = 0
-    args = (pt, planes, *t, vpn.cells_to_padded(pt, a["pressure"]), ss)
+    args = (pt, vpn.cells_to_padded(pt, a["pressure"]), ss, *t)
     kw = dict(dt_elastic=15.0, damping_timescale=648.0,
               include_metric=metric)
-    _assert_close(cuda_panel._launch(*args, **kw),
-                  cuda_panel.panel_cell_plain(*args, **kw), dtype, "K5")
+    loops = [cuda_panel.panel_cell_prepare(*args, **kw) for _ in range(2)]
+    cuda_panel._bind(loops[1])
+    k5 = cuda_panel.panel_cell_step
+    for i, (u, v) in enumerate(((a["u"], a["v"]), (a["v"], -a["u"]))):
+        for lp in loops:
+            vpn.velocity_planes(pt, lay.N, u, v, metric, out=lp.planes)
+        cuda_panel.panel_cell_step_plain(loops[0])
+        n0 = k5.launches
+        cuda_panel._launch(loops[1])
+        assert k5.launches == n0 + 1 and loops[1].parity == (i + 1) % 2
+        # each field alone: the partials pu, pv (mu, mv) each to its max
+        _assert_close(loops[1].current + loops[1].partials.unbind(-1),
+                      loops[0].current + loops[0].partials.unbind(-1), dtype,
+                      "K5")
+        npp = 10 * (lay.N + 1) ** 2
+        assert not bool(loops[1].partials[:, npp:].any())
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
@@ -332,12 +348,90 @@ def test_unstructured_step_source_matches_plain(on_host, dtype):
     loop = cuda_unstructured.evp_subcycle_prepare(dyn.fast, *_loop_args(args),
                                                   **kw)
     cuda_unstructured._bind_kernel(loop)
-    fn, c_args = loop.c_step
+    blocks = cuda_unstructured._bind_blocks((loop,))
 
     def c_step(lp):
-        assert fn(*c_args) == 0 and lp.c_count.value == 2
+        assert blocks.call() == 0 and blocks.count.value == 2
 
     _assert_close(two_steps(c_step, loop), want, dtype, "K6")
+
+
+_SHARDED = {}
+
+
+def _sharded_blocks(dtype, n_shards):
+    """The dynamics tensors of the subdiv-2 sphere in n_shards blocks."""
+    from seaice_tpu_torch.parallel import ShardedSeaIceModel
+    key = (dtype, n_shards)
+    if key not in _SHARDED:
+        _SHARDED[key] = ShardedSeaIceModel(
+            tmesh.icosahedral_mesh(2), _cfg(True), n_shards, dtype,
+            devices="cpu")
+    return _SHARDED[key]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_unstructured_blocks_source_matches_plain(on_host, n_shards, dtype):
+    """K6's batched entry: one C call, two launches, advances every block
+    of a partitioned sphere (the block as blockIdx.y), three subcycles with
+    the model's own vertex exchange between calls, against the plain
+    version run block by block with the same exchanges, and bitwise equal
+    to the same entry called for each block alone; and a table of blocks
+    of unequal size (a block beside the whole mesh), each block bitwise as
+    it is alone."""
+    sm = _sharded_blocks(dtype, n_shards)
+    kw = dict(dt_elastic=15.0, damping_timescale=648.0, include_metric=True)
+
+    def loops(seed, tensors):
+        out = []
+        for s, ft in enumerate(tensors):
+            me, nc = ft.voc_T.shape
+            a = _loop_inputs(types.SimpleNamespace(
+                n_vertices=ft.flat_corner_idx.shape[1], n_cells=nc,
+                max_edges=me), np.random.default_rng(seed + s), dtype)
+            lp = cuda_unstructured.evp_subcycle_prepare(ft, *_loop_args(a),
+                                                        **kw)
+            cuda_unstructured._bind_kernel(lp)
+            out.append(lp)
+        return out
+
+    def c_call(lps):
+        blocks = cuda_unstructured._bind_blocks(tuple(lps))
+        assert tuple(blocks.table.shape) == (len(lps), 30)
+        assert blocks.call() == 0 and blocks.count.value == 2
+
+    def alone(lps):
+        for lp in lps:
+            c_call([lp])
+
+    def plain(lps):
+        for lp in lps:
+            cuda_unstructured.evp_subcycle_step_plain(lp)
+
+    def run(step, lps, exchange=True):
+        for _ in range(3):
+            step(lps)
+            if exchange:
+                sm.exchange("vertex_uv", [(lp.u, lp.v) for lp in lps])
+        return [cuda_unstructured.evp_subcycle_finish(lp) for lp in lps]
+
+    fts = [t.dynamics.fast for t in sm.tensors]
+    got = run(c_call, loops(20, fts))
+    for g, w, a in zip(got, run(plain, loops(20, fts)),
+                       run(alone, loops(20, fts))):
+        _assert_close(g, w, dtype, "K6 blocks")
+        assert all(torch.equal(x, y) for x, y in zip(g, a))
+
+    # unequal blocks: the grid spans the larger, the smaller stops at its
+    # own size
+    mesh, _, dyn = _panel_problem(True, dtype)
+    pair = [fts[0], dyn.fast]
+    assert fts[0].voc_T.shape[1] < dyn.fast.voc_T.shape[1]
+    for g, a in zip(run(c_call, loops(40, pair), False),
+                    run(alone, loops(40, pair), False)):
+        assert all(torch.equal(x, y) for x, y in zip(g, a))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],

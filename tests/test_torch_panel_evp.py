@@ -267,6 +267,7 @@ def test_panel_cell_plain_is_the_cell_side_of_the_loop(metric):
     from seaice_tpu_torch.dynamics import variational_panel as vpn
     from seaice_tpu_torch.dynamics import constitutive
     from seaice_tpu_torch.dynamics.cuda_panel import (panel_cell_plain,
+                                                      panel_cell_prepare,
                                                       panel_cell_step)
     p = _problem(metric)
     pt, N = p["dt"].panel, p["lt"].N
@@ -292,11 +293,20 @@ def test_panel_cell_plain_is_the_cell_side_of_the_loop(metric):
     assert torch.equal(part, vpn.divergence_partials(pt, n11, n22, n12,
                                                      metric))
     assert part.shape == (6, pt.basis_grad_S.shape[-1], 4 if metric else 2)
+    # the loop form on CPU tensors: the same, through the loop's buffers,
+    # and no launch counted; the inputs are left as they were
     before = panel_cell_step.launches
-    again = panel_cell_step(pt, planes, *t, p_pad, ss_k, **kw)
+    t_in = [x.clone() for x in t]
+    loop = panel_cell_prepare(pt, p_pad, ss_k, *t, **kw)
+    vpn.velocity_planes(pt, N, u, v, metric, out=loop.planes)
+    assert torch.equal(loop.planes, planes)
+    panel_cell_step(loop)
     assert panel_cell_step.launches == before
-    for x, y in zip(again, (n11, n22, n12, part)):
+    for x, y in zip(loop.current + (loop.partials,), (n11, n22, n12, part)):
         assert torch.equal(x, y)
+    for x, y in zip(loop.previous, t_in):
+        assert torch.equal(x, y)
+    assert all(torch.equal(x, y) for x, y in zip(t, t_in))
 
 
 def test_work_counts_of_the_panel_kernels():
@@ -327,6 +337,7 @@ def test_panel_kernels_match_plain_versions_on_the_card(metric):
                     "on a machine with one")
     from seaice_tpu_torch.dynamics import variational_panel as vpn
     from seaice_tpu_torch.dynamics.cuda_panel import (panel_cell_plain,
+                                                      panel_cell_prepare,
                                                       panel_cell_step)
     from seaice_tpu_torch.dynamics.cuda_panel_fused import (
         evp_panel_loop, evp_panel_loop_plain)
@@ -348,6 +359,10 @@ def test_panel_kernels_match_plain_versions_on_the_card(metric):
     planes = vpn.velocity_planes(pt, p["lt"].N, u, v, metric)
     kw = dict(dt_elastic=15.0, damping_timescale=648.0,
               include_metric=metric)
-    a5 = (pt, planes, *t, vpn.cells_to_padded(pt, pressure), ss_k)
-    for x, y in zip(panel_cell_step(*a5, **kw), panel_cell_plain(*a5, **kw)):
+    p_pad = vpn.cells_to_padded(pt, pressure)
+    loop = panel_cell_prepare(pt, p_pad, ss_k, *t, **kw)
+    loop.planes.copy_(planes)
+    panel_cell_step(loop)
+    want = panel_cell_plain(pt, planes, *t, p_pad, ss_k, **kw)
+    for x, y in zip(loop.current + (loop.partials,), want):
         assert float((x - y).abs().max()) <= 1e-12 * float(y.abs().max())

@@ -101,6 +101,65 @@ def test_sharded_step_matches_reference(n_shards):
                                    rtol=1e-9, err_msg=k)
 
 
+def test_lockstep_makes_one_k6_call_per_subcycle_for_all_blocks(
+        monkeypatch):
+    """The sharded step advances every block's velocity solve by one
+    subcycle in ONE call of the K6 wrapper, the loops in block order, once
+    per elastic subcycle, and exchanges their velocities on one shared
+    buffer bitwise as block by block; a block's solve driven alone
+    (`drive`, the same call with one loop) equals the whole-loop solve
+    bitwise."""
+    from seaice_tpu_torch.dynamics import evp as tevp
+    from seaice_tpu_torch.parallel import sharded
+    _, jstate, jforcing, _ = _jax_box(4)
+    sm = _port_box(4)
+    calls = []
+
+    def recording(*loops):
+        calls.append([lp.ft for lp in loops])
+        return K.evp_subcycle_step(*loops)
+
+    monkeypatch.setattr(sharded, "evp_subcycle_step", recording)
+    out, _ = _port_box_step(sm, jstate, jforcing)
+    n_sub = sm.cfg.velocity.elastic_subcycle_number
+    assert len(calls) == n_sub == 4
+    for c in calls:
+        assert len(c) == 4
+        assert all(ft is t.dynamics.fast for ft, t in zip(c, sm.tensors))
+    monkeypatch.undo()
+    ref, _ = _port_box_step(sm, jstate, jforcing)
+    for a, b in zip(sm.gather_velocity(out), sm.gather_velocity(ref)):
+        assert np.array_equal(a, b)
+    # the velocities' exchange on the loops' shared buffer (one gather, one
+    # scatter) gives every block, halo entries included, what the exchange
+    # block by block gives
+    exchange = sm.exchange
+    fast = []
+
+    def by_block(kind, fields, halo=None, solve=None):
+        fast.append(bool(solve))
+        return exchange(kind, fields, halo)
+
+    monkeypatch.setattr(sm, "exchange", by_block)
+    slow, _ = _port_box_step(sm, jstate, jforcing)
+    assert fast.count(True) >= n_sub
+    a, b = to_stacked_arrays(ref), to_stacked_arrays(slow)
+    for k in a:
+        assert np.array_equal(a[k], b[k]), k
+
+    states, forcings = from_sharded_reference_arrays(
+        flatten_arrays(jstate), "cpu", F64, flatten_arrays(jforcing))
+    tr, dyn = states[0].tracers, sm.tensors[0].dynamics
+    args = (dyn, states[0].velocity, forcings[0], tr["iceAreaCategory"],
+            tr["iceVolumeCategory"], tr["snowVolumeCategory"])
+    alone, _ = tevp.make_velocity_solver(
+        sm.cfg, halo_exchange_vertex=lambda u, v: (u, v))(*args)
+    whole, _ = tevp.make_velocity_solver(sm.cfg)(*args)
+    for k in ("u_velocity", "v_velocity", "stress11", "stress22",
+              "stress12"):
+        assert torch.equal(getattr(alone, k), getattr(whole, k)), k
+
+
 def test_ring_matches_allgather_bitwise():
     """On owned values: the modes differ only in padded halo slots (zero
     in the ring, export entry (0, 0) in the all-gather)."""
