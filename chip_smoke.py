@@ -25,13 +25,17 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
                     the raster loop K4;
   3. holds each kernel against its plain PyTorch version on the card, on
      the very tensors the step hands it (float32, and the same tensors
-     cast to float64), and times both with CUDA events; reports K3's
-     launches per call and the share of its basis held in shared memory,
-     the C call alone (`kernel_ms`) of every kernel, the CUDA kernels per
-     call of K2, K5 and K6 (torch.profiler; more than 3, 1 and 2 fail),
-     K5's registers and spills, K6's host time per call; runs K1 on K3's
-     inputs (two kernels, one function) and reports their times and their
-     distance; holds the sharded step against the unsharded one;
+     cast to float64), and times both with CUDA events; reports the
+     kernel launches per call of the three whole-loop kernels K1, K3 and
+     K4 (each one cooperative launch: anything else fails), their grid
+     and shared-memory shape (`launch_f32`, `launch_f64`), the C call
+     alone (`kernel_ms`) of every kernel, the CUDA kernels per call of K2,
+     K5 and K6 (torch.profiler; more than 3, 1 and 2 fail), the registers
+     and spills of K1, K4 (`build` line) and K5, K6's host time per call;
+     runs K1 against K6's per-subcycle calls on the raw sphere as one
+     block and on K3's inputs (two kernels, one function) and reports
+     their times and distances; holds the sharded step against the
+     unsharded one;
   4. for each path sets the launch counts to 0, takes a few steps, reads
      the counts and checks the state (finite, |u| bounded, every tracer
      product conserved);
@@ -477,16 +481,16 @@ def check_loop(name, call, reps):
     kernel(*a32, **kw)
     out["inner_launches_per_call"] = (
         (kernel.inner_launches - n0[1]) / (kernel.launches - n0[0]))
-    if name == "evp_panel_loop":
-        out["launch_f32"] = kernel.last_launch
-        kernel(*a[torch.float64], **kw)
-        out["launch_f64"] = kernel.last_launch
-        out["kernel_ms"] = time_ms(k3_c_call(a32, kw), reps)
-        out["kernel_ms_f64"] = time_ms(k3_c_call(a[torch.float64], kw), reps)
-    if name == "evp_raster_loop":
-        out["kernel_ms"] = time_ms(k4_c_call(a32, kw), reps)
-    if name == "evp_subcycle_loop":
-        out["kernel_ms"] = time_ms(k1_c_call(a32, kw), reps)
+    if out["inner_launches_per_call"] != 1:
+        fail(f"{tag0}: {out['inner_launches_per_call']} kernel launches per "
+             "call, not one")
+    out["launch_f32"] = kernel.last_launch
+    kernel(*a[torch.float64], **kw)
+    out["launch_f64"] = kernel.last_launch
+    c_call = {"evp_panel_loop": k3_c_call, "evp_raster_loop": k4_c_call,
+              "evp_subcycle_loop": k1_c_call}[name]
+    out["kernel_ms"] = time_ms(c_call(a32, kw), reps)
+    out["kernel_ms_f64"] = time_ms(c_call(a[torch.float64], kw), reps)
     return out
 
 
@@ -497,13 +501,52 @@ def k1_c_call(args, kw):
     from seaice_tpu_torch.dynamics import cuda_unstructured as K1
     loop = K1.evp_subcycle_prepare(*args, **{
         k: v for k, v in kw.items() if k != "n_subcycles"})
-    fn = K1._c_function(args[1].dtype)
+    c_call = K1.loop_call(loop, kw["n_subcycles"])
 
     def call():
-        if fn(*loop.shape, int(kw["n_subcycles"]), int(loop.include_metric),
-              *loop.c_tail) != 0:
+        if c_call() != 0:
             fail("K1: the C call returned an error")
     return call
+
+
+def k1_against_k6(call, reps):
+    """K1's whole loop against N_SUBCYCLES calls of K6's entry on the same
+    mesh as ONE block, float32 and float64, on the inputs K1 was handed: the
+    two share every sum's order, so they differ only where the compiler
+    contracts a multiply-add differently (bitwise on the host,
+    `tests/test_torch_cuda_sources_on_host.py`).  Not a gate: the distance
+    is printed; `check_loop` holds K1 to its plain version."""
+    from seaice_tpu_torch.dynamics import cuda_unstructured as K
+    args, kw = call
+    names = ("u", "v", "s11", "s22", "s12")
+    kw6 = {k: v for k, v in kw.items() if k != "n_subcycles"}
+    out = {"n_subcycles": kw["n_subcycles"]}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        a = cast(args, dtype)
+        k1 = K.evp_subcycle_loop(*a, **kw)
+        loop = K.evp_subcycle_prepare(*a, **kw6)
+        for _ in range(kw["n_subcycles"]):
+            K.evp_subcycle_step(loop)
+        k6 = K.evp_subcycle_finish(loop)
+        torch.cuda.synchronize()
+        out["max_rel_err_" + tag] = max(
+            rel_err(x.double(), y.double()) for x, y in zip(k1, k6))
+        out["bitwise_" + tag] = all(torch.equal(x, y) for x, y in zip(k1, k6))
+        out["rel_err_by_field_" + tag] = {
+            n: rel_err(x.double(), y.double()) for n, x, y in zip(names, k1, k6)}
+    a32 = cast(args, torch.float32)
+    loop = K.evp_subcycle_prepare(*a32, **kw6)
+
+    def k6_loop():
+        for _ in range(kw["n_subcycles"]):
+            K.evp_subcycle_step(loop)
+    # in turns: K1's call, K6's per-subcycle loop, K6, K1
+    k1c = k1_c_call(a32, kw)
+    t = [time_ms(k1c, reps), time_ms(k6_loop, reps), time_ms(k6_loop, reps),
+         time_ms(k1c, reps)]
+    out["k1_kernel_ms"], out["k6_loop_ms"] = [t[0], t[3]], [t[1], t[2]]
+    emit({"k1_against_k6_one_block": out})
+    return out
 
 
 def k4_c_call(args, kw):
@@ -998,6 +1041,8 @@ def sharded_against_unsharded(smodel, sstate, sforcing, model, state,
     out = {"blocks": smodel.n_shards, "dtype": str(model.dtype),
            "after_step": rows,
            "bitwise": all(r["equal"] for row in rows for r in row.values()),
+           "uv_bitwise": all(row[k]["equal"] for row in rows
+                             for k in ("u", "v")),
            "max_rel_diff": worst, "one_ulp_response": resp,
            "limit": limit, "unsharded_ms": [t[0], t[3]],
            "sharded_ms": [t[1], t[2]]}
@@ -1114,10 +1159,11 @@ def main_path(label, model, state, forcing, n_steps, expect):
             fail(f"{label}: {name} launched {n} times in {n_steps} "
                  f"steps, expected {want}: the step did not go through "
                  "the kernels of its path")
-    if counts["evp_panel_loop"] and \
-            inner.get("evp_panel_loop") != counts["evp_panel_loop"]:
-        fail(f"{label}: K3 made {inner.get('evp_panel_loop')} kernel "
-             f"launches in {counts['evp_panel_loop']} calls, not one each")
+    for name, tag in (("evp_panel_loop", "K3"), ("evp_subcycle_loop", "K1"),
+                      ("evp_raster_loop", "K4")):
+        if counts[name] and inner.get(name) != counts[name]:
+            fail(f"{label}: {tag} made {inner.get(name)} kernel launches in "
+                 f"{counts[name]} calls, not one each")
     if counts["evp_subcycle_step"] and \
             inner.get("evp_subcycle_step") != 2 * counts["evp_subcycle_step"]:
         fail(f"{label}: K6 made {inner.get('evp_subcycle_step')} kernel "
@@ -1204,7 +1250,7 @@ def trace_steps(label, model, state, forcing, step_ms, phases=None, n=2):
     # the package's own kernels: [device ms, launches] per step
     own = {}
     for key, ms, count in rows:
-        for name in ("evp_cell_kernel", "evp_vertex_kernel",
+        for name in ("evp_loop_kernel", "raster_loop_kernel",
                      "evp_cell_blocks_kernel", "evp_vertex_blocks_kernel",
                      "panel_loop_kernel", "panel_cell_kernel",
                      "ir_flux_kernel"):
@@ -1294,7 +1340,9 @@ def main():
                     "ptxas": {k: [ln.strip() for ln in v.splitlines()
                                   if "registers" in ln or "spill" in ln
                                   or "Function properties" in ln][:80]
-                              for k, v in build.build_log.items()}}})
+                              for k, v in build.build_log.items()},
+                    "ptxas_k1": ptxas_of("evp_unstructured", "evp_loop_kernel"),
+                    "ptxas_k4": ptxas_of("evp_raster", "raster_loop_kernel")}})
     kernels = {}
 
     def model_line(label, model, t0, **extra):
@@ -1318,6 +1366,7 @@ def main():
         fail(f"raw sphere: the step called {sorted(calls)}")
     kernels["evp_subcycle_loop"] = check_loop(
         "evp_subcycle_loop", calls["evp_subcycle_loop"][0], args.reps)
+    k1_against_k6(calls["evp_subcycle_loop"][0], min(args.reps, 3))
     kernels["integrate_fluxes_cuda"] = check_k2(
         calls["integrate_fluxes_cuda"][0], args.reps)
     del calls

@@ -1,7 +1,9 @@
-// Shared by the two panel EVP kernels (evp_panel_fused.cu, evp_panel_cell.cu):
-// the EVP constants, the stress relaxation of one corner, the corner
-// positions on the 10-panel padded lattice, and the arithmetic of the cell
-// side of one elastic subcycle on a column's stresses.
+// Shared by the EVP kernels: the EVP constants, the stress relaxation of one
+// corner and the drag and 2x2 momentum solve of one vertex (every EVP
+// kernel); the corner positions on the 10-panel padded lattice and the
+// arithmetic of the cell side of one elastic subcycle on a column's
+// stresses (the two panel kernels, evp_panel_fused.cu and
+// evp_panel_cell.cu).
 //
 // Layout (seaice_tpu_torch/dynamics/variational_panel.py): one flat padded
 // index q = (p*(N+1) + a)*(N+1) + b per panel position, npp = 10*(N+1)^2 of
@@ -70,6 +72,56 @@ __device__ __forceinline__ void evp_relax(T x11, T x22, T x12, T press,
   n11 = T(0.5) * (stress1 + stress2);
   n22 = T(0.5) * (stress1 - stress2);
 }
+
+// Ocean drag and the 2x2 momentum solve of one vertex whose velocity is
+// solved (the arithmetic of dynamics/momentum.py::momentum_update): du, dv
+// the stress-divergence sums, uu, vv the vertex's velocity; returns the new
+// velocity in u_new, v_new.
+template <typename T>
+__device__ __forceinline__ void evp_momentum(T du, T dv, T denom, T uu, T vv,
+                                             T uo, T vo, T mass_v, T mass_f,
+                                             T rhs_u0, T rhs_v0, T ocn_u, T ocn_v,
+                                             T area, const EvpParams<T>& P,
+                                             T& u_new, T& v_new)
+{
+  const T div_u = -du / denom;
+  const T div_v = -dv / denom;
+  const T dux = uo - uu, dvy = vo - vv;
+  const T oc = P.drag * area * t_sqrt<T>(dux * dux + dvy * dvy);
+  const T sgn = mass_f < T(0) ? T(-1) : T(1);          // sign(0) -> +1
+  const T a11 = mass_v / P.dte + oc * P.cosw;
+  const T a12 = -mass_f - oc * P.sinw * sgn;
+  const T a21 = mass_f + oc * P.sinw * sgn;
+  const T rhs1 = div_u + rhs_u0 + oc * ocn_u + mass_v * uu / P.dte;
+  const T rhs2 = div_v + rhs_v0 + oc * ocn_v + mass_v * vv / P.dte;
+  T det = a11 * a11 - a12 * a21;
+  if (det == T(0)) det = T(1);
+  u_new = (a11 * rhs1 - a12 * rhs2) / det;
+  v_new = (a11 * rhs2 - a21 * rhs1) / det;
+}
+
+// Dev builds only (nvcc -DEVP_PHASE_TIMER, dev/k1_k4_time.py): the SM
+// cycles of each phase of a whole-loop kernel, summed per block into
+// evp_phase_cycles[block][phase] by the block's thread 0 behind a block
+// barrier; evp_phase_cycles_read copies them to the host (and zeroes them).
+// Without the macro, mark() is nothing.
+#ifdef EVP_PHASE_TIMER
+__device__ long long evp_phase_cycles[2048 * 4];
+struct DevPhaseTimer {
+  long long last = 0;
+  __device__ __forceinline__ void mark(int p) {
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+    const long long now = clock64();
+    if (p >= 0) evp_phase_cycles[blockIdx.x * 4 + p] += now - last;
+    last = now;
+  }
+};
+#else
+struct DevPhaseTimer {
+  __device__ __forceinline__ void mark(int) {}
+};
+#endif
 
 // Corner slot k of the cell at padded position (p; a, b) is the vertex at
 // (a + da, b + db) of plane t (mesh/panels.py CORNER_OFFSETS moved to the
@@ -185,3 +237,13 @@ __device__ __forceinline__ void panel_cell_math(
 }
 
 }  // namespace
+
+#ifdef EVP_PHASE_TIMER
+extern "C" int evp_phase_cycles_read(long long* host, int n, int zero)
+{
+  cudaError_t e = cudaMemcpyFromSymbol(host, evp_phase_cycles, n * sizeof(long long));
+  if (e != cudaSuccess || !zero) return (int)e;
+  static long long z[2048 * 4] = {0};
+  return (int)cudaMemcpyToSymbol(evp_phase_cycles, z, sizeof z);
+}
+#endif

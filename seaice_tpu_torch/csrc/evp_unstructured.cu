@@ -10,31 +10,53 @@
 //   call, evp_subcycle_step_*, for every block of a partitioned mesh at
 //   once, so that the caller refreshes the vertex velocity halo between
 //   calls (the reference exchanges it after every subcycle,
-//   mpas_seaice_velocity_solver.F:2546-2584).  Both entries run the same
-//   two kernel bodies, as the TPU K6 runs K1's pallas_call with
-//   n_subcycles=1.
+//   mpas_seaice_velocity_solver.F:2546-2584), two launches a call.  Both
+//   entries do the same arithmetic in the same order, as the TPU K6 runs
+//   K1's pallas_call with n_subcycles=1.
 //
-// The TPU kernel is one sequential program.  Here the vertex phase of
-// subcycle k needs every cell's partials and the cell phase of k+1 needs
-// every vertex's new velocity, so a subcycle is two launches:
-//   evp_cell_kernel   one thread per cell
-//   evp_vertex_kernel one thread per vertex
-// launched alternately from a host loop on the caller's stream, 2*n_sub
-// launches, no synchronisation.  All corner arrays are [maxEdges, nCells]
-// (cell axis fastest), so a warp's loads of every basis and stress array
-// are contiguous; only the two index gathers (u,v by voc; partials by
-// flat_corner_idx) are scattered reads.  The divergence is a vertex-side
-// GATHER of the cells' partial sums, never an atomic scatter: the result
-// is deterministic and keeps the plain version's sum order.
+// The TPU kernel is one sequential program that holds the basis and the
+// state in its fast memory for the loop.  K1 here is ONE persistent,
+// cooperative launch per solve (the shape of evp_panel_fused.cu): a grid of
+// co-resident blocks (the occupancy query at the opt-in shared-memory
+// budget, times the SM count: 132 blocks of 768 threads on an H100), each
+// owning fixed cells and a fixed run of vertices for the whole loop.  Per
+// subcycle: cell phase -> grid barrier -> vertex phase -> grid barrier
+// (cooperative_groups::this_grid().sync()).  Only u, v and the partials
+// pu, pv go through global memory (L2) between phases; they are written
+// during the launch and read with plain loads, never through the
+// read-only path.
 //
-// What bounds it: each subcycle streams the five basis tensors
-// (5*me*me*nCells values; 29.5 MB in f32 at 40,962 cells, me=6, which the
-// 50 MB L2 holds) plus the stresses; the arithmetic is about 1,100 flops
-// per cell per subcycle.  Read once from device memory the inputs take
-// ~0.01 ms, the flops ~0.08 ms at the f32 peak: the loop is bound by L2
-// bandwidth and by 2*n_sub launch latencies, not by either roofline term.
-// One cooperative launch with a grid-wide barrier per phase is the later
-// optimisation of the whole loop.
+// Cell phase, spread over the corners (the design of evp_panel_cell.cu): a
+// cell belongs to maxEdges lanes of one warp (5 cells a warp at maxEdges 6,
+// the last two lanes idle), lane g owning corner g: its corner vertex, mask
+// and tan(lat)/r, its three stresses (in registers across subcycles for
+// the first passes, about 360 cells a block; in place in the caller's
+// stress arrays for the rest), and its 5*maxEdges basis values (strain
+// weights of corner g, divergence weights of dual slot g).  The corner
+// velocities and then the new stresses cross between a cell's lanes through
+// shared memory, ordered by __syncwarp.  The basis of the block's cells
+// sits in dynamic shared memory as far as the budget goes (310 of the 315
+// cell slots a block has at 40,962 cells, me = 6, f32 with metric: 180
+// values a cell), per corner, so that the lanes of a warp read neighbouring
+// words; the rest (f64, larger meshes) is read from global memory.  The
+// cells are dealt to the blocks in warp-sized runs, in turn, so that every
+// block takes cells from all over the mesh (contiguous runs left the
+// blocks' cell work 12k to 23k cycles apart on an H100, and the barrier
+// waited for the slowest).  A block takes its cells in passes of 24 warps'
+// worth (120 cells at maxEdges 6); a mesh larger than one resident grid
+// takes more passes.  Every sum keeps evp_cell_body's order (strain over
+// b, partials over s, the vertex gather over d), so a loop equals n calls
+// of K6 on the mesh as one block where the compiler contracts alike
+// (bitwise on the host; on the card a few f32 multiply-adds are contracted
+// differently).  The divergence is a vertex-side GATHER of the cells'
+// partials, never an atomic scatter: runs repeat bitwise.
+//
+// What bounds it: read once, the inputs take ~0.01 ms and the ~1,100 flops
+// per cell and subcycle ~0.08 ms at the f32 peak; what the design cannot
+// remove is 2*n_sub grid barriers (about 1.5 us each on an H100) and, per
+// subcycle, u, v and the partials through L2.  Measured on an H100 (PERF.md):
+// a subcycle's cell work runs at about one instruction a cycle per SM, seven
+// IEEE divisions and a square root a corner.
 //
 // K6 on a partitioned mesh: every block of the card in one call.  A block
 // of a sphere in four is a quarter of the mesh, so one launch per block
@@ -43,29 +65,18 @@
 // device table of the blocks' sizes and pointers (`BlockArgs`, one row a
 // block, built once per solve by the wrapper) and launches each phase once
 // with the block as blockIdx.y: two launches per subcycle whatever the
-// number of blocks.  Each block's arithmetic is K1's (`evp_cell_body`,
-// `evp_vertex_body`), so a block's result is bitwise what it is alone.
+// number of blocks.  Each block runs `evp_cell_body` and `evp_vertex_body`,
+// so a block's result is bitwise what it is alone.
 
-#include <cuda_runtime.h>
+#include <algorithm>
+
+#include <cooperative_groups.h>
+
+#include "evp_panel_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
-
-template <typename T>
-struct EvpParams {
-  T dte;        // elastic time step
-  T two_damp;   // 2 * damping time scale
-  T denom;      // 1 + 0.5*dte/damping
-  T ecc2;       // yield-curve eccentricity squared
-  T puny;
-  T cosw, sinw; // ocean turning angle
-  T drag;       // ice-ocean drag coefficient * sea-water density
-};
-
-template <typename T> __device__ __forceinline__ T t_sqrt(T x);
-template <> __device__ __forceinline__ float t_sqrt<float>(float x) { return sqrtf(x); }
-template <> __device__ __forceinline__ double t_sqrt<double>(double x) { return sqrt(x); }
-
-template <typename T> __device__ __forceinline__ T t_max(T a, T b) { return a > b ? a : b; }
 
 // ---- cell phase: strain, stress update (in place), divergence partials ----
 template <typename T, int ME>
@@ -124,20 +135,8 @@ __device__ __forceinline__ void evp_cell_body(
       x12 = x12 + T(0.5) * uc[g] * tl[g];
     }
     const T o11 = s11[g * n + c], o22 = s22[g * n + c], o12 = s12[g * n + c];
-    // EVP stress relaxation with replacement pressure
-    const T div = x11 + x22;
-    const T tension = x11 - x22;
-    const T shearing = T(2) * x12;
-    const T delta = t_sqrt<T>(div * div + (tension * tension + shearing * shearing) / P.ecc2);
-    T stress1 = o11 + o22;
-    T stress2 = o11 - o22;
-    T pc = press / t_max<T>(delta, P.puny);
-    pc = (pc * P.dte) / P.two_damp;
-    stress1 = (stress1 + pc * (div - delta)) / P.denom;
-    stress2 = (stress2 + (pc / P.ecc2) * tension) / P.denom;
-    const T n12 = (o12 + (pc / P.ecc2) * shearing * T(0.5)) / P.denom;
-    const T n11 = T(0.5) * (stress1 + stress2);
-    const T n22 = T(0.5) * (stress1 - stress2);
+    T n11, n22, n12;
+    evp_relax<T>(x11, x22, x12, press, o11, o22, o12, P, n11, n22, n12);
     r11[g] = ss ? n11 : o11;
     r22[g] = ss ? n22 : o22;
     r12[g] = ss ? n12 : o12;
@@ -179,38 +178,22 @@ __device__ __forceinline__ void evp_cell_body(
   }
 }
 
-template <typename T, int ME>
-__global__ void evp_cell_kernel(
-    int nc, int metric,
-    const T* __restrict__ u, const T* __restrict__ v,
-    const int* __restrict__ voc, const T* __restrict__ vmask,
-    const T* __restrict__ bgrad, const T* __restrict__ bint,
-    const T* __restrict__ bmet, const T* __restrict__ tanlat,
-    const T* __restrict__ pressure, const T* __restrict__ solve_stress,
-    T* __restrict__ s11, T* __restrict__ s22, T* __restrict__ s12,
-    T* __restrict__ pu_out, T* __restrict__ pv_out,
-    EvpParams<T> P)
-{
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= nc) return;
-  evp_cell_body<T, ME>(c, nc, metric, u, v, voc, vmask, bgrad, bint, bmet, tanlat,
-                       pressure, solve_stress, s11, s22, s12, pu_out, pv_out, P);
-}
-
 // ---- vertex phase: gather-sum of partials, drag, 2x2 momentum solve ----
+// pu, pv, u and v are written during the whole-loop launch, so they are
+// read with plain loads (never through the read-only path).
 template <typename T>
 __device__ __forceinline__ void evp_vertex_body(
     int i, int nv, int vd,
     const int* __restrict__ fci,     // [vd, nv] flat corner index cell*me + slot
     const T* __restrict__ cmask,     // [vd, nv]
-    const T* __restrict__ pu, const T* __restrict__ pv,
+    const T* pu, const T* pv,
     const T* __restrict__ denom,
     const T* __restrict__ uo, const T* __restrict__ vo,
     const T* __restrict__ mass_v, const T* __restrict__ mass_f,
     const T* __restrict__ rhs_u0, const T* __restrict__ rhs_v0,
     const T* __restrict__ ocn_u, const T* __restrict__ ocn_v,
     const T* __restrict__ solve_velocity, const T* __restrict__ area_v,
-    T* __restrict__ u, T* __restrict__ v,
+    T* u, T* v,
     const EvpParams<T>& P)
 {
   const size_t n = (size_t)nv;
@@ -221,45 +204,9 @@ __device__ __forceinline__ void evp_vertex_body(
     du += pu[idx] * m;
     dv += pv[idx] * m;
   }
-  const bool sv = solve_velocity[i] > T(0);
-  if (!sv) return;                       // u, v keep their values
-  const T div_u = -du / denom[i];
-  const T div_v = -dv / denom[i];
-  const T uu = u[i], vv = v[i];
-  const T dux = uo[i] - uu, dvy = vo[i] - vv;
-  const T oc = P.drag * area_v[i] * t_sqrt<T>(dux * dux + dvy * dvy);
-  const T mf = mass_f[i];
-  const T sgn = mf < T(0) ? T(-1) : T(1);            // sign(0) -> +1
-  const T mv = mass_v[i];
-  const T a11 = mv / P.dte + oc * P.cosw;
-  const T a12 = -mf - oc * P.sinw * sgn;
-  const T a21 = mf + oc * P.sinw * sgn;
-  const T rhs1 = div_u + rhs_u0[i] + oc * ocn_u[i] + mv * uu / P.dte;
-  const T rhs2 = div_v + rhs_v0[i] + oc * ocn_v[i] + mv * vv / P.dte;
-  T det = a11 * a11 - a12 * a21;
-  if (det == T(0)) det = T(1);
-  u[i] = (a11 * rhs1 - a12 * rhs2) / det;
-  v[i] = (a11 * rhs2 - a21 * rhs1) / det;
-}
-
-template <typename T>
-__global__ void evp_vertex_kernel(
-    int nv, int vd,
-    const int* __restrict__ fci, const T* __restrict__ cmask,
-    const T* __restrict__ pu, const T* __restrict__ pv,
-    const T* __restrict__ denom,
-    const T* __restrict__ uo, const T* __restrict__ vo,
-    const T* __restrict__ mass_v, const T* __restrict__ mass_f,
-    const T* __restrict__ rhs_u0, const T* __restrict__ rhs_v0,
-    const T* __restrict__ ocn_u, const T* __restrict__ ocn_v,
-    const T* __restrict__ solve_velocity, const T* __restrict__ area_v,
-    T* __restrict__ u, T* __restrict__ v,
-    EvpParams<T> P)
-{
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nv) return;
-  evp_vertex_body<T>(i, nv, vd, fci, cmask, pu, pv, denom, uo, vo, mass_v, mass_f,
-                     rhs_u0, rhs_v0, ocn_u, ocn_v, solve_velocity, area_v, u, v, P);
+  if (!(solve_velocity[i] > T(0))) return;   // u, v keep their values
+  evp_momentum<T>(du, dv, denom[i], u[i], v[i], uo[i], vo[i], mass_v[i], mass_f[i],
+                  rhs_u0[i], rhs_v0[i], ocn_u[i], ocn_v[i], area_v[i], P, u[i], v[i]);
 }
 
 // ---- K6: one subcycle of every block of the card, the block as blockIdx.y ----
@@ -309,35 +256,326 @@ __global__ void evp_vertex_blocks_kernel(const BlockArgs* __restrict__ tab, int 
                      (const T*)A.area_v, (T*)A.u, (T*)A.v, P);
 }
 
+// ---- K1: the whole loop as ONE persistent cooperative launch ----
+#ifndef EVP_K1_THREADS
+#define EVP_K1_THREADS 768
+#endif
+constexpr int kLoopThreads = EVP_K1_THREADS;
+
+// A cell takes ME lanes of one warp, one corner a lane: 32/ME cells a warp,
+// the last 32 % ME lanes idle; a block takes the cells of a pass at once.
+template <int ME> constexpr int kCellsPerWarp = 32 / ME;
+template <int ME> constexpr int kCellsPerPass = kLoopThreads / 32 * kCellsPerWarp<ME>;
+
 template <typename T>
-EvpParams<T> make_params(double dte, double damping, double ecc2, double puny,
-                         double cosw, double sinw, double drag)
-{
+struct LoopArgs {
+  int nc, nv, vd, metric, n_sub;
+  int cpb;        // cell slots per block (the last run of cells may be short)
+  int n_smem;     // cell slots per block whose basis is in shared memory
+  int vpb;        // vertices per block
+  const int* __restrict__ voc;          // [ME, nc]
+  const T* __restrict__ vmask;          // [ME, nc]
+  const T* __restrict__ bgrad;          // [ME(b), 2, ME(g), nc]
+  const T* __restrict__ bint;           // [ME(s), 2, ME(j), nc]
+  const T* __restrict__ bmet;           // [ME(s), ME(j), nc]
+  const int* __restrict__ fci;          // [vd, nv]
+  const T* __restrict__ cmask;          // [vd, nv]
+  const T* __restrict__ denom;          // [nv]
+  const T* __restrict__ tanlat;         // [nv]
+  const T* __restrict__ pressure;       // [nc]
+  const T* __restrict__ solve_stress;   // [nc]
+  const T* __restrict__ inv[10];        // [nv] each: uo, vo, mass_v, mass_f, rhs_u0,
+                                        // rhs_v0, ocn_u, ocn_v, solve_velocity, area_v
+  // written during the launch: plain pointers, plain loads
+  T* u; T* v;                           // [nv], in place
+  T* s11; T* s22; T* s12;               // [ME, nc], in place (the overflow cells'
+                                        // store between subcycles)
+  T* pu; T* pv;                         // [nc*ME] partials
   EvpParams<T> P;
-  P.dte = (T)dte;
-  P.two_damp = (T)(2.0 * damping);
-  P.denom = (T)(1.0 + (0.5 * dte) / damping);
-  P.ecc2 = (T)ecc2;
-  P.puny = (T)puny;
-  P.cosw = (T)cosw;
-  P.sinw = (T)sinw;
-  P.drag = (T)drag;
-  return P;
+};
+
+// The corner a lane owns (corner g of cell c) and what it keeps across
+// subcycles.
+template <typename T>
+struct Corner {
+  int c;                        // cell, -1 = none
+  int idx;                      // corner vertex
+  bool ss;
+  T press, m, tlm;              // pressure; corner mask, tan(lat)/r there (x mask)
+  T s11, s22, s12;
+};
+
+template <typename T, int ME>
+__device__ __forceinline__ void load_corner(Corner<T>& k, int c, int g, const LoopArgs<T>& A)
+{
+  k.c = c;
+  if (c < 0) return;
+  const size_t n = A.nc;
+  k.ss = A.solve_stress[c] > T(0);
+  k.press = A.pressure[c];
+  k.idx = A.voc[g * n + c];
+  k.m = A.vmask[g * n + c];
+  k.tlm = A.metric ? A.tanlat[k.idx] * k.m : T(0);
+  k.s11 = A.s11[g * n + c];
+  k.s22 = A.s22[g * n + c];
+  k.s12 = A.s12[g * n + c];
+}
+
+template <typename T>
+__device__ __forceinline__ void store_corner(const Corner<T>& k, int g, const LoopArgs<T>& A)
+{
+  if (k.c < 0) return;
+  const size_t n = A.nc;
+  A.s11[g * n + k.c] = k.s11;
+  A.s22[g * n + k.c] = k.s22;
+  A.s12[g * n + k.c] = k.s12;
+}
+
+// The basis of corner g of one cell: bg[k * stride] (k = b*2 + d),
+// bi[k * stride] (k = s*2 + d) and bm[k * stride] (k = s), from shared
+// memory ([5*ME][slot jl][corner g]) for the block's first n_smem slots,
+// else from the caller's [.., ME, nc] tensors.
+template <typename T>
+struct CornerBasis {
+  const T* bg; const T* bi; const T* bm;
+  int stride;
+};
+
+template <typename T, int ME>
+__device__ __forceinline__ CornerBasis<T> corner_basis(int jl, int c, int g, const T* bs,
+                                                       const LoopArgs<T>& A)
+{
+  if (jl < A.n_smem) {
+    const int S = A.n_smem * ME;
+    const T* col = bs + jl * ME + g;
+    return {col, col + 2 * ME * S, col + 4 * ME * S, S};
+  }
+  const size_t at = (size_t)g * A.nc + c;
+  return {A.bgrad + at, A.bint + at, A.bmet + at, ME * A.nc};
+}
+
+// Cell phase of one corner g (= the lane) of cell k.c, the sums in the
+// order of evp_cell_body: strain over b, partials over s.  uc, vc: the
+// corner's velocity (masked).  sh: the cell's ME exchange slots in three
+// arrays of stride shs; the ME lanes of a cell are part of one warp, so
+// __syncwarp orders the exchange.  Every lane of the warp takes part.
+template <typename T, int ME>
+__device__ __forceinline__ void corner_step(Corner<T>& k, int g, T uc, T vc,
+                                            const CornerBasis<T>& B, T* sh, int shs,
+                                            const LoopArgs<T>& A)
+{
+  const bool live = k.c >= 0;
+  __syncwarp();
+  if (live) { sh[g] = uc; sh[shs + g] = vc; }
+  __syncwarp();
+  if (live) {
+    T e11 = T(0), e22 = T(0), eA = T(0), eB = T(0);
+#pragma unroll
+    for (int b = 0; b < ME; ++b) {
+      const T gx = B.bg[(b * 2 + 0) * B.stride];
+      const T gy = B.bg[(b * 2 + 1) * B.stride];
+      const T ub = sh[b], vb = sh[shs + b];
+      e11 += ub * gx;
+      e22 += vb * gy;
+      eA += ub * gy;
+      eB += vb * gx;
+    }
+    T x11 = e11, x22 = e22, x12 = T(0.5) * (eA + eB);
+    if (A.metric) {
+      x11 = x11 - vc * k.tlm;
+      x12 = x12 + T(0.5) * uc * k.tlm;
+    }
+    T n11, n22, n12;
+    evp_relax<T>(x11, x22, x12, k.press, k.s11, k.s22, k.s12, A.P, n11, n22, n12);
+    if (k.ss) { k.s11 = n11; k.s22 = n22; k.s12 = n12; }
+  }
+  __syncwarp();
+  if (live) { sh[g] = k.s11; sh[shs + g] = k.s22; sh[2 * shs + g] = k.s12; }
+  __syncwarp();
+  if (!live) return;
+  // the divergence partials of dual slot j = g
+  T a = T(0), b2 = T(0), c2 = T(0), d2 = T(0), mu = T(0), mv = T(0);
+#pragma unroll
+  for (int s = 0; s < ME; ++s) {
+    const T bu = B.bi[(s * 2 + 0) * B.stride];
+    const T bv = B.bi[(s * 2 + 1) * B.stride];
+    const T q11 = sh[s], q22 = sh[shs + s], q12 = sh[2 * shs + s];
+    a += q11 * bu;
+    b2 += q12 * bv;
+    c2 += q22 * bv;
+    d2 += q12 * bu;
+    if (A.metric) {
+      const T w = B.bm[s * B.stride];
+      mu += q12 * w;
+      mv += q11 * w;
+    }
+  }
+  T pu = a + b2;
+  T pv = c2 + d2;
+  if (A.metric) {
+    pu = pu + mu * k.tlm;
+    pv = pv - mv * k.tlm;
+  }
+  A.pu[(size_t)k.c * ME + g] = pu;
+  A.pv[(size_t)k.c * ME + g] = pv;
 }
 
 template <typename T, int ME>
-cudaError_t launch_cell(int nc, int metric, const T* u, const T* v, const int* voc,
-                        const T* vmask, const T* bgrad, const T* bint, const T* bmet,
-                        const T* tanlat, const T* pressure, const T* solve_stress,
-                        T* s11, T* s22, T* s12, T* pu, T* pv, EvpParams<T> P,
-                        cudaStream_t stream)
+__global__ void __launch_bounds__(kLoopThreads, 1) evp_loop_kernel(LoopArgs<T> A)
 {
-  const int threads = 128;
-  const int blocks = (nc + threads - 1) / threads;
-  evp_cell_kernel<T, ME><<<blocks, threads, 0, stream>>>(
-      nc, metric, u, v, voc, vmask, bgrad, bint, bmet, tanlat, pressure,
-      solve_stress, s11, s22, s12, pu, pv, P);
-  return cudaGetLastError();
+  constexpr int CW = kCellsPerWarp<ME>;
+  constexpr int CP = kCellsPerPass<ME>;
+  // passes held in registers: about 360 cells a block (311 on the subdiv-6
+  // sphere on an H100); further passes keep their state in global memory
+  constexpr int KREG = (360 + CP - 1) / CP;
+  extern __shared__ __align__(16) unsigned char k1_smem[];
+  T* sh = reinterpret_cast<T*>(k1_smem);        // [3][CP*ME] exchange
+  T* bs = sh + 3 * CP * ME;                      // [5*ME][n_smem][ME] basis
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x;
+  // corner g of the pass's cell l; the last 32 % ME lanes of a warp idle
+  const int wl = tid % 32;
+  const bool lane_live = wl < CW * ME;
+  const int g = wl % ME, l = lane_live ? (tid / 32) * CW + wl / ME : 0;
+  // the block's jl-th cell: runs of CW cells (one warp's) dealt to the
+  // blocks in turn, so that every block takes cells from all over the mesh
+  auto cell_of = [&](int jl) {
+    if (!lane_live || jl >= A.cpb) return -1;
+    const int c = ((jl / CW) * (int)gridDim.x + (int)blockIdx.x) * CW + jl % CW;
+    return c < A.nc ? c : -1;
+  };
+  const int npass = (A.cpb + CP - 1) / CP;
+  const int v0 = blockIdx.x * A.vpb;
+  const int v1 = min(A.nv, v0 + A.vpb);
+  const int shs = CP * ME;
+  T* shc = sh + l * ME;                          // this cell's exchange slots
+  const size_t n = A.nc;
+
+  // ---- prologue: the basis of the block's first n_smem cells ----
+  const int nkc = (A.metric ? 5 : 4) * ME * ME;  // values a cell
+  const int ns = min(A.n_smem, A.cpb);
+  for (int e = tid; e < nkc * ns; e += kLoopThreads) {
+    const int jl = e % ns, kg = e / ns;
+    const int k = kg / ME, gk = kg % ME;         // k < 5*ME, corner gk
+    const int c = ((jl / CW) * (int)gridDim.x + (int)blockIdx.x) * CW + jl % CW;
+    if (c >= A.nc) continue;
+    T val;
+    if (k < 2 * ME) val = A.bgrad[((size_t)k * ME + gk) * n + c];
+    else if (k < 4 * ME) val = A.bint[((size_t)(k - 2 * ME) * ME + gk) * n + c];
+    else val = A.bmet[((size_t)(k - 4 * ME) * ME + gk) * n + c];
+    bs[(size_t)k * A.n_smem * ME + jl * ME + gk] = val;
+  }
+  Corner<T> reg[KREG];
+#pragma unroll
+  for (int p = 0; p < KREG; ++p) load_corner<T, ME>(reg[p], cell_of(p * CP + l), g, A);
+  __syncthreads();
+
+  DevPhaseTimer timer;   // cell work, barrier, vertex work, barrier
+  for (int k = 0; k < A.n_sub; ++k) {
+    timer.mark(-1);
+    // ---- cell phase: the velocities of every pass first, then the passes ----
+    T uc[KREG], vc[KREG];
+#pragma unroll
+    for (int p = 0; p < KREG; ++p) {
+      const bool on = reg[p].c >= 0;
+      uc[p] = on ? A.u[reg[p].idx] * reg[p].m : T(0);
+      vc[p] = on ? A.v[reg[p].idx] * reg[p].m : T(0);
+    }
+#pragma unroll
+    for (int p = 0; p < KREG; ++p) {
+      if (p >= npass) break;                     // uniform over the block
+      const int jl = p * CP + l;
+      corner_step<T, ME>(reg[p], g, uc[p], vc[p],
+                         corner_basis<T, ME>(jl, reg[p].c, g, bs, A), shc, shs, A);
+    }
+    for (int p = KREG; p < npass; ++p) {         // overflow passes: state in global
+      const int jl = p * CP + l;
+      Corner<T> o;
+      load_corner<T, ME>(o, cell_of(jl), g, A);
+      const bool on = o.c >= 0;
+      corner_step<T, ME>(o, g, on ? A.u[o.idx] * o.m : T(0), on ? A.v[o.idx] * o.m : T(0),
+                         corner_basis<T, ME>(jl, o.c, g, bs, A), shc, shs, A);
+      store_corner(o, g, A);
+    }
+    timer.mark(0);
+    grid.sync();
+    timer.mark(1);
+    // ---- vertex phase ----
+    for (int i = v0 + tid; i < v1; i += kLoopThreads)
+      evp_vertex_body<T>(i, A.nv, A.vd, A.fci, A.cmask, A.pu, A.pv, A.denom,
+                         A.inv[0], A.inv[1], A.inv[2], A.inv[3], A.inv[4], A.inv[5],
+                         A.inv[6], A.inv[7], A.inv[8], A.inv[9], A.u, A.v, A.P);
+    timer.mark(2);
+    grid.sync();
+    timer.mark(3);
+  }
+
+  // ---- epilogue: the register passes' stresses ----
+#pragma unroll
+  for (int p = 0; p < KREG; ++p) store_corner(reg[p], g, A);
+}
+
+// Sizes the grid and the shared-memory basis, then launches.  info[0..6]:
+// launches, grid, threads per block, dynamic shared memory bytes per block,
+// cells per block, cells per block with the basis in shared memory, cells
+// of the whole mesh with the basis in shared memory.
+template <typename T, int ME>
+int launch_loop(LoopArgs<T>& A, void* stream, int* info)
+{
+  constexpr int CW = kCellsPerWarp<ME>;
+  constexpr int CP = kCellsPerPass<ME>;
+  cudaError_t err;
+  int dev = 0, sms = 0, budget = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaDeviceGetAttribute(&budget, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return (int)err;
+  auto kernel = evp_loop_kernel<T, ME>;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  budget)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kLoopThreads,
+                                                           (size_t)budget)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // the co-resident grid, cut to one pass of cells per block on small meshes
+  const int grid = std::min(per_sm * sms, std::max(1, (A.nc + CP - 1) / CP));
+  const int runs = (A.nc + CW - 1) / CW;       // warp-sized runs of cells
+  A.cpb = (runs + grid - 1) / grid * CW;
+  A.vpb = (A.nv + grid - 1) / grid;
+  const size_t scratch = (size_t)3 * CP * ME * sizeof(T);
+  const size_t per_cell = (size_t)(A.metric ? 5 : 4) * ME * ME * sizeof(T);
+  const size_t room = (size_t)budget > scratch ? budget - scratch : 0;
+  A.n_smem = (int)std::min<size_t>(A.cpb, room / per_cell);
+  const size_t smem = scratch + A.n_smem * per_cell;
+  info[1] = grid;
+  info[2] = kLoopThreads;
+  info[3] = (int)smem;
+  info[4] = A.cpb;
+  info[5] = A.n_smem;
+  info[6] = 0;                                 // cells with the basis in shared memory
+  for (int q = 0; q < runs; ++q)               // run q is slot q / grid of its block
+    info[6] += std::max(0, std::min(std::min(CW, A.nc - q * CW),
+                                    A.n_smem - (q / grid) * CW));
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kLoopThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, A);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  info[0] = 1;
+  return 0;
 }
 
 template <typename T>
@@ -350,41 +588,32 @@ int run_loop(int nc, int nv, int me, int vd, int n_sub, int metric,
              const void* rhs_u0, const void* rhs_v0, const void* ocn_u, const void* ocn_v,
              const void* solve_velocity, const void* area_v, void* pu, void* pv,
              double dte, double damping, double ecc2, double puny, double cosw,
-             double sinw, double drag, void* stream_v, int* n_launches)
+             double sinw, double drag, void* stream, int* info)
 {
-  cudaStream_t stream = (cudaStream_t)stream_v;
-  const EvpParams<T> P = make_params<T>(dte, damping, ecc2, puny, cosw, sinw, drag);
-  *n_launches = 0;
-  const int vthreads = 128;
-  const int vblocks = (nv + vthreads - 1) / vthreads;
-  for (int k = 0; k < n_sub; ++k) {
-    cudaError_t err;
-#define EVP_CELL(MEV)                                                              \
-  case MEV:                                                                        \
-    err = launch_cell<T, MEV>(nc, metric, (const T*)u, (const T*)v, voc,           \
-                              (const T*)vmask, (const T*)bgrad, (const T*)bint,    \
-                              (const T*)bmet, (const T*)tanlat, (const T*)pressure,\
-                              (const T*)solve_stress, (T*)s11, (T*)s22, (T*)s12,   \
-                              (T*)pu, (T*)pv, P, stream);                          \
-    break;
-    switch (me) {
-      EVP_CELL(3) EVP_CELL(4) EVP_CELL(5) EVP_CELL(6) EVP_CELL(7)
-      EVP_CELL(8) EVP_CELL(9) EVP_CELL(10)
-      default: return (int)cudaErrorInvalidValue;
-    }
-#undef EVP_CELL
-    if (err != cudaSuccess) return (int)err;
-    ++*n_launches;
-    evp_vertex_kernel<T><<<vblocks, vthreads, 0, stream>>>(
-        nv, vd, fci, (const T*)cmask, (const T*)pu, (const T*)pv, (const T*)denom,
-        (const T*)uo, (const T*)vo, (const T*)mass_v, (const T*)mass_f,
-        (const T*)rhs_u0, (const T*)rhs_v0, (const T*)ocn_u, (const T*)ocn_v,
-        (const T*)solve_velocity, (const T*)area_v, (T*)u, (T*)v, P);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    ++*n_launches;
+  for (int k = 0; k < 7; ++k) info[k] = 0;
+  if (nc < 1 || nv < 1 || vd < 1 || n_sub < 0) return (int)cudaErrorInvalidValue;
+  LoopArgs<T> A;
+  A.nc = nc; A.nv = nv; A.vd = vd; A.metric = metric; A.n_sub = n_sub;
+  A.voc = voc; A.vmask = (const T*)vmask;
+  A.bgrad = (const T*)bgrad; A.bint = (const T*)bint; A.bmet = (const T*)bmet;
+  A.fci = fci; A.cmask = (const T*)cmask; A.denom = (const T*)denom;
+  A.tanlat = (const T*)tanlat;
+  A.pressure = (const T*)pressure; A.solve_stress = (const T*)solve_stress;
+  const void* inv[10] = {uo, vo, mass_v, mass_f, rhs_u0, rhs_v0, ocn_u, ocn_v,
+                         solve_velocity, area_v};
+  for (int k = 0; k < 10; ++k) A.inv[k] = (const T*)inv[k];
+  A.u = (T*)u; A.v = (T*)v;
+  A.s11 = (T*)s11; A.s22 = (T*)s22; A.s12 = (T*)s12;
+  A.pu = (T*)pu; A.pv = (T*)pv;
+  A.P = make_params<T>(dte, damping, ecc2, puny, cosw, sinw, drag);
+  switch (me) {
+#define EVP_LOOP(MEV) \
+  case MEV: return launch_loop<T, MEV>(A, stream, info);
+    EVP_LOOP(3) EVP_LOOP(4) EVP_LOOP(5) EVP_LOOP(6) EVP_LOOP(7) EVP_LOOP(8)
+    EVP_LOOP(9) EVP_LOOP(10)
+#undef EVP_LOOP
+    default: return (int)cudaErrorInvalidValue;
   }
-  return 0;
 }
 
 // K6: one subcycle of n_blocks blocks, two launches (cells, then vertices),
@@ -432,16 +661,18 @@ int run_blocks(int n_blocks, int max_nc, int max_nv, int me, int vd, int metric,
   const void* mass_v, const void* mass_f, const void* rhs_u0, const void* rhs_v0,   \
   const void* ocn_u, const void* ocn_v, const void* solve_velocity,                 \
   const void* area_v, void* pu, void* pv, double dte, double damping, double ecc2,  \
-  double puny, double cosw, double sinw, double drag, void* stream, int* n_launches
+  double puny, double cosw, double sinw, double drag, void* stream, int* info
 #define EVP_TAIL_PASS                                                               \
   voc, vmask, bgrad, bint, bmet, fci, cmask, denom, tanlat, u, v, s11, s22, s12,    \
   pressure, solve_stress, uo, vo, mass_v, mass_f, rhs_u0, rhs_v0, ocn_u, ocn_v,     \
   solve_velocity, area_v, pu, pv, dte, damping, ecc2, puny, cosw, sinw, drag,       \
-  stream, n_launches
+  stream, info
 
-// u, v [nv] and s11, s22, s12 [me, nc] are updated in place; pu, pv are
-// [nc*me] scratch.  Returns the first CUDA error (0 = none) and the number
-// of kernel launches made.  Nothing is allocated and nothing synchronises.
+// K1: all n_sub subcycles in ONE cooperative launch.  u, v [nv] and
+// s11, s22, s12 [me, nc] are updated in place; pu, pv are [nc*me] scratch.
+// info: int[7], launch_loop's.  Returns the first CUDA error (0 = none; a
+// refused cooperative launch returns its error and nothing runs).  Nothing
+// is allocated and nothing synchronises.
 extern "C" int evp_subcycle_loop_f32(int nc, int nv, int me, int vd, int n_sub,
                                      int metric, EVP_TAIL_ARGS) {
   return run_loop<float>(nc, nv, me, vd, n_sub, metric, EVP_TAIL_PASS);

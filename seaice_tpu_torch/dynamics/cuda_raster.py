@@ -12,13 +12,18 @@ uses cell 0's tables for all cells, and so does the plain version; against
 the per-cell `strain_tensor_S` path the difference is rounding (about
 1e-14 relative in float64).
 
-The CUDA source is `csrc/evp_raster.cu`: a cell kernel and a vertex kernel
-launched alternately from a host loop inside one C function,
-`2*n_subcycles` launches on the current stream with no synchronisation,
-the tables passed as kernel arguments.  Its bound on an H100
-(`evp_raster_loop_work`) is far below its time: all state (about 4 MB in
-f32 at 168 x 168 cells) stays in the L2, and what limits the loop is its
-launch latencies.
+The CUDA source is `csrc/evp_raster.cu`: ONE persistent cooperative
+launch per call, the vertices cut into tiles (one a block), each block
+computing the cells around its tile with their stresses in registers,
+the one-cell ring a neighbour owns included, so that only u, v cross
+between blocks and a subcycle needs one grid barrier
+(`evp_raster_loop.last_launch` says how the last launch was shaped).  The
+tables travel as kernel arguments, taken to the host once per tables
+tensor (`host_tables`), so a call makes no device-to-host copy.  Its bound
+on an H100 (`evp_raster_loop_work`) is far below its time: all state
+(about 4 MB in f32 at 168 x 168 cells) stays in the L2, and what limits the
+loop is, each subcycle, a chain of dependent L2 reads and divisions and
+the grid barrier.
 
 `build_raster_loop` returns None for a periodic or non-quad layout, as the
 JAX package's `build_pallas_subcycle` does; the caller raises.  The function it returns
@@ -119,8 +124,36 @@ def evp_raster_loop_work(nxc: int, nyc: int, n_subcycles: int,
             n_subcycles * (nc * cell + nv * vertex))
 
 
-_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 24 +
+_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 23 +
              [ctypes.c_double] * 7 + [ctypes.c_void_p, ctypes.c_void_p])
+
+# the last tables taken to the host: (key, the four tables, held so that no
+# other tensor takes their memory while the key names it, the host copy)
+_host_copy = None
+
+
+def host_tables(gx, gy, bu, bv):
+    """The four [4, 4] tables as 64 host doubles (gx, gy, bu, bv, each
+    row-major), copied once per tables tensor: a call with the tables of
+    the call before, or new views of the same memory unchanged since (the
+    tensors' version counters), returns the same host tensor without a
+    device-to-host copy."""
+    global _host_copy
+    tabs = (gx, gy, bu, bv)
+    key = tuple((t.device, t.dtype, t.data_ptr(), tuple(t.shape), t.stride(),
+                 t._version) for t in tabs)
+    if _host_copy is None or _host_copy[0] != key:
+        _host_copy = (key, tabs,
+                      torch.stack(tabs).double().cpu().contiguous())
+    return _host_copy[2]
+
+
+def launch_shape(info):
+    """What a K4 launch was: grid, threads per block, dynamic shared memory
+    per block and the vertex tile (rows x columns)."""
+    grid, threads, smem, tx, ty = (int(x) for x in info[1:6])
+    return {"grid": grid, "threads": threads, "smem_bytes": smem,
+            "tile": [tx, ty]}
 
 
 def _c_function(dtype):
@@ -166,10 +199,12 @@ def evp_raster_loop(raster, gx, gy, bu, bv, u, v, t11, t22, t12, pressure,
     """Run all `n_subcycles` elastic subcycles on a raster quad mesh (see
     `build_raster_loop` for the arguments).
 
-    CPU tensors take the plain version.  CUDA tensors launch the kernels
-    of `csrc/evp_raster.cu` (float32 or float64) and add one to
-    `evp_raster_loop.launches`; `evp_raster_loop.inner_launches`
-    accumulates the kernel launches made inside those calls.
+    CPU tensors take the plain version.  CUDA tensors make one cooperative
+    launch of the kernel of `csrc/evp_raster.cu` (float32 or float64) and
+    add one to `evp_raster_loop.launches`; `evp_raster_loop.inner_launches`
+    accumulates the kernel launches made inside those calls (one each) and
+    `evp_raster_loop.last_launch` says how the last one was shaped.  A
+    launch the card refuses raises.
     """
     kw = dict(dt_elastic=dt_elastic, damping_timescale=damping_timescale,
               n_subcycles=n_subcycles)
@@ -186,12 +221,13 @@ def evp_raster_loop(raster, gx, gy, bu, bv, u, v, t11, t22, t12, pressure,
 def _launch(*args, **kw):
     """Checks, copies and the call of the C function."""
     call, outputs = _bind(*args, **kw)
-    err, n_inner = call()
-    _COUNTS.inner_launches += n_inner
+    err, info = call()
+    _COUNTS.inner_launches += info[0]
     if err != 0:
-        raise RuntimeError(
-            f"evp_raster_loop: CUDA error {err} after {n_inner} launches")
+        raise RuntimeError(f"evp_raster_loop: CUDA error {err} (a refused "
+                           "cooperative launch is not retried)")
     _COUNTS.launches += 1
+    _COUNTS.last_launch = launch_shape(info)
     return outputs
 
 
@@ -202,7 +238,7 @@ def _bind(raster, gx, gy, bu, bv, u, v, t11, t22, t12, pressure,
     """Check every argument, copy the five tensors the kernel updates in
     place and allocate its scratch; returns (call, (u, v, t11, t22,
     t12)): call() makes the C call on the current stream, which carries
-    the copies n_subcycles further, and returns (error, launches)."""
+    the copies n_subcycles further, and returns (error, info)."""
     dt, dev = u.dtype, u.device
     if dt not in (torch.float32, torch.float64):
         raise ValueError(f"unsupported dtype {dt}")
@@ -214,8 +250,7 @@ def _bind(raster, gx, gy, bu, bv, u, v, t11, t22, t12, pressure,
         if tuple(t.shape) != (4, 4):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, "
                              "expected (4, 4)")
-    # host copies of the tables (64 doubles) and the offsets (8 ints)
-    tables = torch.stack([gx, gy, bu, bv]).double().cpu().contiguous()
+    tables = host_tables(gx, gy, bu, bv)
     offsets = (ctypes.c_int * 8)(*[o for pair in raster.offsets
                                    for o in pair])
     # the kernel updates these five in place: work on copies
@@ -235,34 +270,36 @@ def _bind(raster, gx, gy, bu, bv, u, v, t11, t22, t12, pressure,
     _check("pressure", pressure, (nc,), dt, dev)
     _check("solve_stress", solve_stress, (nc,), dt, dev)
 
-    scratch = torch.empty((2, 4 * nc), dtype=dt, device=dev)
+    # the second buffers of u, v and the stresses
+    work = torch.empty(2 * nv + 12 * nc, dtype=dt, device=dev)
     fn = _c_function(dt)
-    n_inner = ctypes.c_int(0)
+    info = (ctypes.c_int * 6)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
     ptr = [t.data_ptr() for t in (
-        u, v, t11, t22, t12, pressure, solve_stress,
-        *vertex_in.values(), scratch[0], scratch[1])]
+        u, v, t11, t22, t12, pressure, solve_stress, *vertex_in.values(),
+        work)]
     args = (nxc, nyc, int(n_subcycles),
             ctypes.cast(offsets, ctypes.c_void_p), tables.data_ptr(),
             *ptr, float(dt_elastic), float(damping_timescale),
             float(c.EVP_ECCENTRICITY_SQ), float(c.PUNY),
             float(c.COS_OCEAN_TURNING_ANGLE),
             float(c.SIN_OCEAN_TURNING_ANGLE),
-            float(c.ICE_OCEAN_DRAG * c.DENSITY_SEAWATER),
-            stream, ctypes.byref(n_inner))
+            float(c.ICE_OCEAN_DRAG * c.DENSITY_SEAWATER), stream,
+            ctypes.byref(info))
 
     outputs = (u, v, t11, t22, t12)
 
     def call():
-        return fn(*args), n_inner.value
+        return fn(*args), info
 
     # what the pointers address lives as long as the call
-    call.keep = (tables, offsets, scratch, pressure, solve_stress,
-                 vertex_in, outputs)
+    call.keep = (tables, offsets, work, pressure, solve_stress, vertex_in,
+                 outputs)
     return call, outputs
 
 
 evp_raster_loop.launches = 0
 evp_raster_loop.inner_launches = 0
+evp_raster_loop.last_launch = None
 _COUNTS = evp_raster_loop            # the wrapper carries its own counts

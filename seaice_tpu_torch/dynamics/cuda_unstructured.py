@@ -21,18 +21,22 @@ Replaces two TPU kernels of `seaice_tpu/dynamics/pallas_unstructured.py`:
     the caller's exchange writes the halo entries of `loop.u`, `loop.v`
     in place.
 
-The CUDA source is `csrc/evp_unstructured.cu`: a cell kernel and a vertex
-kernel launched alternately from a host loop inside one C function,
-`2*n_subcycles` launches on the current stream with no synchronisation;
-K6's entry launches each once over all the blocks (the block as
-`blockIdx.y`), two launches per subcycle.  Its bound on an H100
-(`evp_loop_work`): the inputs read once take about 0.01 ms and the ~1,100
+The CUDA source is `csrc/evp_unstructured.cu`.  K1 is ONE persistent
+cooperative launch per call (`cudaLaunchKernelEx`, grid-wide barriers
+between the cell and the vertex phase of every subcycle; a cell spread
+over one lane per corner, its basis in shared memory and its stresses in
+registers for the loop); `evp_subcycle_loop.last_launch` says how the last
+one was shaped (`launch_shape`).  K6's entry launches a cell and a vertex
+kernel once each over all the blocks (the block as `blockIdx.y`), two
+launches per subcycle.  Their bound on an H100 (`evp_loop_work`): over
+120 subcycles the inputs read once take about 0.01 ms and the ~1,100
 flops per cell and subcycle about 0.08 ms at the f32 peak, so neither
-roofline term limits it; what does is streaming the five basis tensors (29.5 MB in f32 at
-40,962 cells, resident in the 50 MB L2) once per subcycle, and the launch
-latencies.  The kernels therefore keep every corner array in the
-[maxEdges, nCells] layout (contiguous loads across a warp) and keep the
-divergence a gather, not an atomic scatter.
+roofline term limits them; K1's cell arithmetic, its gathers through L2
+and its grid barriers do, K6's launches and its basis streamed from L2
+every subcycle.  The
+kernels keep every corner array in the [maxEdges, nCells] layout
+(contiguous loads across a warp) and the divergence a gather, not an
+atomic scatter.
 
 The wrappers take the plain version only for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise.
@@ -117,7 +121,7 @@ def evp_loop_work(nc: int, nv: int, me: int, vd: int, n_subcycles: int,
     return byts, flops
 
 
-# after the leading ints: 28 pointers, 7 constants, the stream, &count
+# after the leading ints: 28 pointers, 7 constants, the stream, &info
 _TAIL_ARGTYPES = ([ctypes.c_void_p] * 28 + [ctypes.c_double] * 7 +
                   [ctypes.c_void_p] * 2)
 
@@ -166,8 +170,8 @@ class SubcycleLoop:
         self.include_metric = bool(include_metric)
         self.scratch = None        # the kernel's [2, nc*me] partials
         self.shape = None          # (nc, nv, me, vd) for the C entries
-        self.c_tail = None         # 28 pointers, 7 constants, stream, &count
-        self.c_count = None
+        self.c_tail = None         # 28 pointers, 7 constants, stream, &info
+        self.c_info = None         # K1's launch record, int[7]
         self.blocks = None         # SubcycleBlocks of the last batched call
 
 
@@ -232,7 +236,7 @@ def _bind_kernel(loop: SubcycleLoop):
     _check("tan_lat_vertex", ft.tan_lat_vertex, (nv,), dt, dev)
 
     loop.scratch = torch.empty((2, nc * me), dtype=dt, device=dev)
-    loop.c_count = ctypes.c_int(0)
+    loop.c_info = (ctypes.c_int * 7)()
     loop.shape = (nc, nv, me, vd)
     _bind_pointers(loop)
 
@@ -253,7 +257,7 @@ def _bind_pointers(loop: SubcycleLoop):
         float(c.EVP_ECCENTRICITY_SQ), float(c.PUNY),
         float(c.COS_OCEAN_TURNING_ANGLE), float(c.SIN_OCEAN_TURNING_ANGLE),
         float(c.ICE_OCEAN_DRAG * c.DENSITY_SEAWATER), stream,
-        ctypes.byref(loop.c_count))
+        ctypes.byref(loop.c_info))
 
 
 class SubcycleBlocks:
@@ -384,6 +388,16 @@ evp_subcycle_step.launches = 0
 evp_subcycle_step.inner_launches = 0
 
 
+def launch_shape(info, nc: int):
+    """What a K1 launch was: grid, threads per block, dynamic shared
+    memory per block, cells per block, and the share of the basis held in
+    shared memory."""
+    grid, threads, smem, cpb, ns, in_smem = (int(x) for x in info[1:7])
+    return {"grid": grid, "threads": threads, "smem_bytes": smem,
+            "cells_per_block": cpb, "smem_cells_per_block": ns,
+            "basis_share_in_smem": in_smem / nc}
+
+
 def evp_subcycle_loop(ft: FastTensors, u, v, s11T, s22T, s12T, pressure,
                       solve_stress, uo_v, vo_v, mass_vertex, mass_f,
                       rhs_u0, rhs_v0, ocean_u, ocean_v, solve_velocity,
@@ -395,10 +409,13 @@ def evp_subcycle_loop(ft: FastTensors, u, v, s11T, s22T, s12T, pressure,
     Arguments as for `evp_subcycle_prepare`.  Returns new
     (u, v, s11T, s22T, s12T); the inputs are not modified.
 
-    CPU tensors take the plain version.  CUDA tensors launch the kernel of
-    `csrc/evp_unstructured.cu` (float32 or float64) and add one to
-    `evp_subcycle_loop.launches`; `evp_subcycle_loop.inner_launches`
-    accumulates the kernel launches made inside those calls.
+    CPU tensors take the plain version.  CUDA tensors make one cooperative
+    launch of the kernel of `csrc/evp_unstructured.cu` (float32 or
+    float64) and add one to `evp_subcycle_loop.launches`;
+    `evp_subcycle_loop.inner_launches` accumulates the kernel launches made
+    inside those calls (one each) and `evp_subcycle_loop.last_launch` says
+    how the last one was shaped (`launch_shape`).  A launch the card
+    refuses raises.
     """
     args = (ft, u, v, s11T, s22T, s12T, pressure, solve_stress, uo_v, vo_v,
             mass_vertex, mass_f, rhs_u0, rhs_v0, ocean_u, ocean_v,
@@ -408,17 +425,29 @@ def evp_subcycle_loop(ft: FastTensors, u, v, s11T, s22T, s12T, pressure,
     if u.device.type == "cpu":
         return evp_subcycle_loop_plain(*args, n_subcycles=n_subcycles, **kw)
     loop = evp_subcycle_prepare(*args, **kw)
-    fn = _c_function(u.dtype)
-    err = fn(*loop.shape, int(n_subcycles), int(loop.include_metric),
-             *loop.c_tail)
-    evp_subcycle_loop.inner_launches += loop.c_count.value
+    err = loop_call(loop, n_subcycles)()
+    evp_subcycle_loop.inner_launches += loop.c_info[0]
     if err != 0:
         raise RuntimeError(
-            f"evp_subcycle_loop: CUDA error {err} after "
-            f"{loop.c_count.value} launches")
+            f"evp_subcycle_loop: CUDA error {err} (a refused cooperative "
+            "launch is not retried)")
     evp_subcycle_loop.launches += 1
+    evp_subcycle_loop.last_launch = launch_shape(loop.c_info,
+                                                 loop.shape[0])
     return evp_subcycle_finish(loop)
+
+
+def loop_call(loop: SubcycleLoop, n_subcycles: int):
+    """K1's C call on a loop bound by `evp_subcycle_prepare`: call()
+    carries the loop's u, v and stresses `n_subcycles` further in one
+    launch and returns the CUDA error (0 = none); `loop.c_info` receives
+    the launch record."""
+    fn = _c_function(loop.u.dtype)
+    args = (*loop.shape, int(n_subcycles), int(loop.include_metric),
+            *loop.c_tail)
+    return lambda: fn(*args)
 
 
 evp_subcycle_loop.launches = 0
 evp_subcycle_loop.inner_launches = 0
+evp_subcycle_loop.last_launch = None

@@ -289,38 +289,100 @@ def test_panel_cell_source_matches_plain(on_host, metric, dtype):
         assert not bool(loops[1].partials[:, npp:].any())
 
 
+def _k1_on_host(ft, args, kw):
+    """K1's C call through the wrapper's own binding (`evp_subcycle_prepare`,
+    `loop_call`): one cooperative launch per call; returns the loop's
+    (u, v, s11T, s22T, s12T) and the launch shape."""
+    kw = dict(kw)
+    n_sub = kw.pop("n_subcycles")
+    loop = cuda_unstructured.evp_subcycle_prepare(ft, *args, **kw)
+    cuda_unstructured._bind_kernel(loop)
+    assert cuda_unstructured.loop_call(loop, n_sub)() == 0
+    assert loop.c_info[0] == 1
+    return (cuda_unstructured.evp_subcycle_finish(loop),
+            cuda_unstructured.launch_shape(loop.c_info, loop.shape[0]))
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
 @pytest.mark.parametrize("metric", [False, True])
 def test_unstructured_loop_source_matches_plain(on_host, metric, dtype):
-    """K1's source through the same stand-in: the harness is held against
-    a kernel that is known to agree on the card."""
+    """K1's source through the same stand-in: one launch a call, two
+    blocks, the basis partly in the stand-in's 32 KB of shared memory and
+    partly in global memory (with metric terms, and in float64)."""
     mesh, _, dyn = _panel_problem(metric, dtype)
     args = _loop_args(_loop_inputs(mesh, np.random.default_rng(9), dtype))
     kw = dict(dt_elastic=15.0, damping_timescale=648.0, n_subcycles=5,
               include_metric=metric)
     want = cuda_unstructured.evp_subcycle_loop_plain(dyn.fast, *args, **kw)
-    fn = cuda_unstructured._c_function(dtype)
-    ft = dyn.fast
-    u, v, s11, s22, s12, pressure, ss, *vert = (x.clone() for x in args)
-    me, nc = ft.voc_T.shape
-    vd, nv = ft.flat_corner_idx.shape
-    scratch = torch.empty((2, nc * me), dtype=dtype)
-    n_inner = ctypes.c_int(0)
-    from seaice_tpu_torch import constants as c
-    ptr = [x.data_ptr() for x in (
-        ft.voc_T_i32, ft.voc_mask_T, ft.basis_grad_T, ft.basis_int_T,
-        ft.basis_metric_T, ft.flat_corner_idx_i32, ft.cov_mask_T,
-        ft.denominator, ft.tan_lat_vertex, u, v, s11, s22, s12, pressure,
-        ss, *vert, scratch[0], scratch[1])]
-    err = fn(nc, nv, me, vd, 5, int(metric), *ptr, 15.0, 648.0,
-             float(c.EVP_ECCENTRICITY_SQ), float(c.PUNY),
-             float(c.COS_OCEAN_TURNING_ANGLE),
-             float(c.SIN_OCEAN_TURNING_ANGLE),
-             float(c.ICE_OCEAN_DRAG * c.DENSITY_SEAWATER), 0,
-             ctypes.byref(n_inner))
-    assert err == 0 and n_inner.value == 10
-    _assert_close((u, v, s11, s22, s12), want, dtype, "K1")
+    before = [a.clone() for a in args]
+    got, shape = _k1_on_host(dyn.fast, args, kw)
+    _assert_close(got, want, dtype, "K1")
+    assert shape["grid"] == 2 and shape["threads"] == 768
+    if metric or dtype == torch.float64:
+        assert 0.0 < shape["basis_share_in_smem"] < 1.0
+    for a, b in zip(args, before):
+        assert torch.equal(a, b)
+
+
+def _other_mesh(name, dtype):
+    """A mesh whose maxEdges is not 6: the planar quad mesh (4) or a jittered
+    spherical Voronoi mesh with one 7-sided cell (7)."""
+    if name == "quad4":
+        mesh = tmesh.planar_quad_mesh(12, 10, 2000.0, periodic=False)
+        cfg = tconfig.box_test_config()
+    else:
+        mesh = tmesh.spherical_voronoi_mesh(2, jitter=0.3, seed=0)
+        cfg = _cfg(True)
+    return mesh, cfg, tevp.build_dynamics_tensors(mesh, cfg, dtype, "cpu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("case", ["one_block_many_cells", "quad4", "voronoi7"])
+def test_unstructured_loop_source_other_shapes(on_host, monkeypatch, case,
+                                               dtype):
+    """K1 where the shape differs from the sphere's: on a card of one
+    multiprocessor at subdiv 3 the one block owns 642 cells with 768
+    threads (six passes of 120 cells: three keep their stresses in
+    registers, three in the stress arrays between subcycles, most read
+    their basis from global memory); and meshes of maxEdges 4 and 7."""
+    if case == "one_block_many_cells":
+        monkeypatch.setenv("SHIM_SMS", "1")
+        mesh, _, dyn = _panel_problem(True, dtype, subdiv=3)
+        metric = True
+    else:
+        mesh, cfg, dyn = _other_mesh(case, dtype)
+        metric = cfg.velocity.include_metric_terms
+        assert mesh.max_edges == {"quad4": 4, "voronoi7": 7}[case]
+    args = _loop_args(_loop_inputs(mesh, np.random.default_rng(13), dtype))
+    kw = dict(dt_elastic=15.0, damping_timescale=648.0, n_subcycles=3,
+              include_metric=metric)
+    want = cuda_unstructured.evp_subcycle_loop_plain(dyn.fast, *args, **kw)
+    got, shape = _k1_on_host(dyn.fast, args, kw)
+    _assert_close(got, want, dtype, "K1 " + case)
+    if case == "one_block_many_cells":
+        # 129 runs of 5 cells (a warp's), the last with 2
+        assert shape["grid"] == 1 and shape["cells_per_block"] == 645
+        assert 0.0 < shape["basis_share_in_smem"] < 1.0
+
+
+def test_unstructured_loop_equals_k6_steps_bitwise(on_host):
+    """K1's loop against n calls of K6's entry (`evp_subcycle_step_f64`) on
+    the same mesh as one block, float64: bitwise equal (the host contracts
+    no multiply-add, so this pins that both keep one order of every sum)."""
+    dtype = torch.float64
+    mesh, _, dyn = _panel_problem(True, dtype)
+    args = _loop_args(_loop_inputs(mesh, np.random.default_rng(14), dtype))
+    kw = dict(dt_elastic=15.0, damping_timescale=648.0, include_metric=True)
+    got, _ = _k1_on_host(dyn.fast, args, dict(kw, n_subcycles=4))
+    loop = cuda_unstructured.evp_subcycle_prepare(dyn.fast, *args, **kw)
+    cuda_unstructured._bind_kernel(loop)
+    blocks = cuda_unstructured._bind_blocks((loop,))
+    for _ in range(4):
+        assert blocks.call() == 0
+    want = cuda_unstructured.evp_subcycle_finish(loop)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
@@ -434,25 +496,90 @@ def test_unstructured_blocks_source_matches_plain(on_host, n_shards, dtype):
         assert all(torch.equal(x, y) for x, y in zip(g, a))
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
-                         ids=["f64", "f32"])
-@pytest.mark.parametrize("nx, ny", [(8, 8), (12, 7)])
-def test_raster_loop_source_matches_plain(on_host, nx, ny, dtype):
+def _raster_problem(nx, ny, dtype, seed=3):
     mesh = raster_reorder(tmesh.planar_quad_mesh(nx, ny, 2000.0,
                                                  periodic=False))
     lay = detect_raster_quad(mesh)
     ft = tevp.build_dynamics_tensors(mesh, tconfig.box_test_config(), dtype,
                                      "cpu").fast
-    a = _loop_inputs(mesh, np.random.default_rng(3), dtype)
-    args = (lay, *cuda_raster.basis_tables(ft), a["u"], a["v"], *a["s"],
+    a = _loop_inputs(mesh, np.random.default_rng(seed), dtype)
+    return (lay, *cuda_raster.basis_tables(ft), a["u"], a["v"], *a["s"],
             a["pressure"], a["ss"], a["uo"], a["vo"], a["mass"], a["mass_f"],
             *a["rhs"], 0.3 * a["rhs"][1], 0.2 * a["rhs"][0], *a["ocn"],
             a["sv"], a["area"], ft.denominator)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("nx, ny", [(8, 8), (12, 7)])
+def test_raster_loop_source_matches_plain(on_host, nx, ny, dtype):
+    args = _raster_problem(nx, ny, dtype)
     kw = dict(dt_elastic=15.0, damping_timescale=648.0, n_subcycles=5)
+    k4 = cuda_raster.evp_raster_loop
+    n0 = (k4.launches, k4.inner_launches)
     _assert_close(cuda_raster._launch(*args, **kw),
                   cuda_raster.evp_raster_loop_plain(*args, **kw), dtype,
                   "K4")
-    assert cuda_raster.evp_raster_loop.inner_launches % 10 == 0
+    assert (k4.launches, k4.inner_launches) == (n0[0] + 1, n0[1] + 1)
+    assert k4.last_launch["grid"] >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("case", ["one_tile", "uneven_tiles",
+                                  "several_tiles_a_block"])
+def test_raster_loop_source_tilings(on_host, monkeypatch, case, dtype):
+    """K4's tilings against the plain version, with an even and an odd
+    number of subcycles, and a second call bitwise the first: one tile on
+    a card of one multiprocessor; tiles that do not divide the box (15 x 9
+    vertices in two tiles of 8 x 9 on a card of three); and a card of one
+    multiprocessor whose one block takes two tiles in turn (the second
+    tile's stresses, and those the first tile's ring reads, through global
+    memory)."""
+    nx, ny, sms = {"one_tile": (12, 7, "1"), "uneven_tiles": (14, 8, "3"),
+                   "several_tiles_a_block": (40, 33, "1")}[case]
+    monkeypatch.setenv("SHIM_SMS", sms)
+    args = _raster_problem(nx, ny, dtype, seed=4)
+    kw = dict(dt_elastic=15.0, damping_timescale=648.0)
+    for n_sub in (3, 4):
+        outs = []
+        for _ in range(2):
+            call, got = cuda_raster._bind(*args, **kw, n_subcycles=n_sub)
+            err, info = call()
+            assert err == 0 and info[0] == 1
+            outs.append(got)
+        _assert_close(outs[0], cuda_raster.evp_raster_loop_plain(
+            *args, **kw, n_subcycles=n_sub), dtype, "K4 " + case)
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
+    shape = cuda_raster.launch_shape(info)
+    want = {"one_tile": dict(grid=1, tile=[13, 8]),
+            "uneven_tiles": dict(grid=2, tile=[8, 9]),
+            "several_tiles_a_block": dict(grid=1)}[case]
+    assert shape["grid"] == want["grid"]
+    if "tile" in want:
+        assert shape["tile"] == want["tile"]
+    if case == "several_tiles_a_block":
+        tx, ty = shape["tile"]
+        assert -(-(nx + 1) // tx) * -(-(ny + 1) // ty) > 1
+
+
+def test_raster_loop_host_tables_copied_once(on_host):
+    """Two solves with the step's table views (new view objects of the same
+    basis each step) reuse one host buffer of the tables; a table changed
+    in place is copied anew."""
+    args = _raster_problem(8, 8, torch.float64)
+    kw = dict(dt_elastic=15.0, damping_timescale=648.0, n_subcycles=2)
+    lay, gx, gy, bu, bv, *rest = args
+    views = [(gx[:], gy[:], bu[:], bv[:]) for _ in range(2)]
+    calls = [cuda_raster._bind(lay, *v, *rest, **kw)[0] for v in views]
+    assert calls[0].keep[0] is calls[1].keep[0]
+    assert torch.equal(calls[0].keep[0].reshape(4, 4, 4),
+                       torch.stack([gx, gy, bu, bv]))
+    gx2 = gx.clone()
+    first = cuda_raster._bind(lay, gx2, gy, bu, bv, *rest, **kw)[0].keep[0]
+    gx2.mul_(2.0)
+    second = cuda_raster._bind(lay, gx2, gy, bu, bv, *rest, **kw)[0].keep[0]
+    assert second is not first and torch.equal(second[0], 2.0 * first[0])
 
 
 def _flux_problem(dtype):
