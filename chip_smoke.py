@@ -6,8 +6,9 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
 
   1. builds the CUDA kernels from `seaice_tpu_torch/csrc/` (one nvcc per
      source, in parallel) and the host remap-stencil library;
-  2. drives four paths at full width through `SeaIceModel.make_step()` and
-     `ShardedSeaIceModel.make_step()`, float32, column package off:
+  2. drives five paths at full width through `SeaIceModel.make_step()` and
+     `ShardedSeaIceModel.make_step()`, float32, the first four with the
+     column package off:
        raw sphere   raw icosahedral subdiv 6 (40,962 cells), 5 categories,
                     7 ice + 1 snow layers, full enthalpy tracer tree, EVP
                     with 120 subcycles and metric terms, incremental
@@ -23,6 +24,11 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
                     vertex halo exchanged between calls) + K2 per block;
        raster box   the 168 x 168 box test, raster-ordered, one category:
                     the raster loop K4;
+       full-physics panel sphere  `bench_full.py`'s workload (the main
+                    path): the panel sphere with mushy thermodynamics,
+                    delta-Eddington shortwave, level-ice ponds, Rothrock
+                    strength and ridging around K3 + K2 (its inputs built
+                    here, nothing of the JAX package imported);
   3. holds each kernel against its plain PyTorch version on the card, on
      the very tensors the step hands it (float32, and the same tensors
      cast to float64), and times both with CUDA events; reports the
@@ -35,13 +41,19 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
      runs K1 against K6's per-subcycle calls on the raw sphere as one
      block and on K3's inputs (two kernels, one function) and reports
      their times and distances; holds the sharded step against the
-     unsharded one;
+     unsharded one; on the full-physics path holds K3 (fed the Rothrock
+     strength) and K2 (the column's tracer table, ponds included) to
+     their plain versions on the tensors that step hands them;
   4. for each path sets the launch counts to 0, takes a few steps, reads
      the counts and checks the state (finite, |u| bounded, every tracer
-     product conserved);
+     product conserved; on the full-physics path, which changes the
+     mass, aice <= 1 + 1e-6, the remap's own conservation error, no
+     unconverged column); on the full-physics path it also times each
+     phase of the model's own step, counts the host syncs of a step, and holds the float32
+     state against the same steps in float64 (BASELINE.md's budget);
   5. checks small float64 models (raw sphere, panel sphere by both routes,
-     box, sphere in 4 blocks) on the card against the same models on the
-     CPU (plain PyTorch throughout).
+     box, sphere in 4 blocks, full-physics panel sphere) on the card
+     against the same models on the CPU (plain PyTorch throughout).
 
 One JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -73,6 +85,18 @@ SUBDIV, N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES = 6, 5, 7, 120
 BOX_NX = 168
 # the blocks of the sharded sphere, all on the one card
 SHARDS = 4
+
+# the full-physics path: the float32 step against float64 after the same
+# steps (BASELINE.md's f32-vs-f64 budget: area and volume 3.3e-5 and
+# enthalpy 1.4e-4 of their max, surface temperature 0.27 K pointwise)
+F32_F64_BUDGET = {"iceAreaCategory": 3.3e-5, "iceVolumeCategory": 3.3e-5,
+                  "iceEnthalpy": 1.4e-4}
+TSFC_BUDGET_K = 0.27
+IR_CONSERVATION_LIMIT = 1e-5
+# a field whose CPU max stays below this in the small full-physics model
+# is rounding noise (melt ponds of 1e-10 m under cold forcing): the
+# card's must stay below it too
+NOISE = 1e-8
 
 # CICE category thickness bounds for 5 categories (m)
 HIN_MAX = np.array([0.0, 0.6445, 1.3914, 2.4702, 4.5673, 9.3338])
@@ -238,13 +262,19 @@ def build_sharded_model(subdiv, n_cat, n_ice, n_sub, dtype, device,
             model.scatter_cell_tree(DynamicsForcing(**forcing)))
 
 
-def stepper(model):
+def stepper(model, col=None):
     """step(state, forcing) -> (state, diags) of a SeaIceModel or a
-    ShardedSeaIceModel (whose state and forcing are lists of blocks)."""
+    ShardedSeaIceModel (whose state and forcing are lists of blocks);
+    col: the column physics' (AtmosForcing, OceanForcing, coszen) of a
+    full-physics model."""
     step = model.make_step()
     if hasattr(model, "halo"):
         return lambda state, forcing: step(model.tensors, model.halo, state,
                                            forcing)
+    if col is not None:
+        atm, ocn, coszen = col
+        return lambda state, forcing: step(model.tensors, state, forcing,
+                                           atm, ocn, coszen=coszen)
     return lambda state, forcing: step(model.tensors, state, forcing)
 
 
@@ -274,9 +304,270 @@ def build_box_model(nx, n_sub, dtype, device):
     return model, state, forcing
 
 
-def capture_kernel_inputs(model, state, forcing):
-    """Take one step with recording wrappers in place of the kernel
-    wrappers; returns (state after the step, {kernel name: [(args, kwargs)
+def full_physics_case(subdiv, n_cat, n_ice, n_sub, dtype, device):
+    """The full-physics workload of `bench_full.py` (the north-star panel
+    step), built by the port alone: the panel-reordered sphere, mushy
+    thermodynamics, delta-Eddington shortwave, level-ice ponds, Rothrock
+    strength, ITD thermodynamics and ridging, incremental remapping with
+    its conservation check; polar caps of ice (|lat| > 65 deg, 90%
+    spread over the categories, -10 C ice, -12 C snow, -15 C surface),
+    the analytic wind, an air temperature falling to the poles,
+    shortwave, a slab ocean's frzmlt and coszen = clip(cos(lat - 0.3)).
+    Returns (model, state, forcing, (AtmosForcing, OceanForcing,
+    coszen))."""
+    from seaice_tpu_torch import config as C
+    from seaice_tpu_torch.column.driver import (AtmosForcing, OceanForcing,
+                                                slab_ocean_frzmlt)
+    from seaice_tpu_torch.column.thermo_shared import (
+        ice_enthalpy_from_temperature, melting_temperature,
+        salinity_profile, snow_enthalpy_from_temperature)
+    from seaice_tpu_torch.dynamics.evp import DynamicsForcing
+    from seaice_tpu_torch.mesh import (icosahedral_mesh,
+                                       latlon_vector_rotation_forward)
+    from seaice_tpu_torch.mesh.panels import panel_reorder
+    from seaice_tpu_torch.model import SeaIceModel
+
+    dt = 1800.0
+    mesh, _ = panel_reorder(icosahedral_mesh(subdiv), subdiv)
+    cfg = C.Config(
+        run=C.RunConfig(dt=dt, n_categories=n_cat, n_ice_layers=n_ice),
+        velocity=C.VelocitySolverConfig(
+            elastic_subcycle_number=n_sub, rotate_cartesian_grid=True,
+            include_metric_terms=True, geostrophic_surface_tilt=False),
+        advection=C.AdvectionConfig(conservation_check=True),
+        column=C.ColumnConfig(ktherm=2, shortwave="dEdd",
+                              pond_scheme="lvl", kstrength=1))
+    model = SeaIceModel(mesh, cfg, dtype=dtype, device=device)
+    dev = model.device
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64)).to(
+            device=dev, dtype=dtype)
+
+    nc, ns = mesh.n_cells, 1
+    lat, lon = mesh.lat_cell, mesh.lon_cell
+    polar = np.abs(lat) > np.deg2rad(65.0)
+    h = model.column.hin_max
+    mids = 0.5 * (h[:-1] + np.minimum(h[1:], 10.0))
+    area = np.where(polar[:, None], 0.9 / n_cat, 0.0) * np.ones((1, n_cat))
+    state = model.init_state(area, area * mids, area * 0.05)
+    S = t(np.tile(salinity_profile(n_ice), (nc, n_cat, 1)))
+    has = t(area[..., None] > 0)
+    tr = dict(state.tracers)
+    tr["surfaceTemperature"] = t(np.where(area > 0, -15.0, 0.0))
+    tr["iceEnthalpy"] = ice_enthalpy_from_temperature(
+        t(np.full((nc, n_cat, n_ice), -10.0)) * has,
+        melting_temperature(S)) * has
+    tr["iceSalinity"] = S * has
+    tr["snowEnthalpy"] = snow_enthalpy_from_temperature(
+        t(np.full((nc, n_cat, ns), -12.0))) * has
+    state = state.replace(tracers=tr)
+
+    u_t = 6.0 * np.cos(lat) + 2.0 * np.sin(lon)
+    v_t = 1.5 * np.sin(2 * lon)
+    uw, vw = latlon_vector_rotation_forward(
+        u_t, v_t, mesh.x_cell, mesh.y_cell, mesh.z_cell)
+    one, z = np.ones(nc), np.zeros(nc)
+    forcing = DynamicsForcing(
+        u_air_velocity=t(uw), v_air_velocity=t(vw),
+        air_density=t(1.3 * one), u_ocean_velocity=t(z),
+        v_ocean_velocity=t(z), sea_surface_tilt_u=t(z),
+        sea_surface_tilt_v=t(z), land_ice_mask=t(z))
+    atm = AtmosForcing(
+        air_temperature=t(288.0 - 45.0 * np.sin(np.abs(lat)) ** 2),
+        specific_humidity=t(4e-4 * one), u_air=t(uw), v_air=t(vw),
+        longwave_down=t(180.0 * one), sw_vis_dir=t(30.0 * one),
+        sw_vis_dif=t(20.0 * one), sw_ir_dir=t(25.0 * one),
+        sw_ir_dif=t(15.0 * one), rain_rate=t(z), snow_rate=t(2e-6 * one),
+        air_density=t(1.3 * one), air_level_height=t(10.0 * one))
+    sst, Tf = t(np.where(polar, -1.7, 8.0)), t(-1.8 * one)
+    ocn = OceanForcing(
+        sst=sst, sss=t(34.0 * one), freezing_temperature=Tf,
+        frzmlt=slab_ocean_frzmlt(sst, Tf, t(20.0 * one), dt),
+        mixed_layer_depth=t(20.0 * one))
+    coszen = t(np.clip(np.cos(lat - 0.3), 0.0, 1.0))
+    return model, state, forcing, (atm, ocn, coszen)
+
+
+def count_host_syncs(fn):
+    """The synchronizing CUDA operations fn() makes (torch's sync debug
+    mode warns once for each)."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    n = sum("synchroniz" in str(w.message) for w in caught)
+    return out, n
+
+
+def full_physics_path(label, model, state, forcing, col, n_steps):
+    """Drive the full-physics step: counts to 0, n_steps steps, read the
+    counts, check the state (finite, |u| < 3 m/s, aice <= 1 + 1e-6, the
+    remap's conservation error <= IR_CONSERVATION_LIMIT, no column left
+    unconverged) and that K3 and K2 ran once per velocity solve and
+    remap.  Returns (state, median ms per step, the BL99/Picard
+    iterations of each step)."""
+    from seaice_tpu_torch.kernels import launch_counts, reset_launch_counts
+    step = stepper(model, col)
+    n_dyn = model.cfg.velocity.dynamics_subcycle_number
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()     # the path's own peak
+    ms, diags_all = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, diags = step(state, forcing)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        diags_all.append(diags)
+    counts = launch_counts()
+    iters = [d["column_fluxes"].thermo_iterations for d in diags_all]
+    ir_err = max(float(d["ir_conservation_error"]) for d in diags_all)
+    unconv = sum(int(d["column_fluxes"].warnings["thermo_unconverged"].sum())
+                 for d in diags_all)
+    fields = global_fields(model, state)
+    u, v = fields.pop("u"), fields.pop("v")
+    max_u = float(np.sqrt(u * u + v * v).max())
+    aice_max = float(fields["iceAreaCategory"].sum(-1).max())
+    out = {"path": label, "steps": n_steps, "ms_per_step": ms,
+           "ms_per_step_median": float(np.median(ms)), "launches": counts,
+           "max_speed": max_u, "aice_max": aice_max,
+           "ir_conservation_error": ir_err, "thermo_unconverged": unconv,
+           "thermo_iterations_per_step": iters,
+           "ice_area_sum": float(fields["iceAreaCategory"].sum()),
+           "peak_mem_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+    emit({"main_path": out})
+    for name, t in list(fields.items()) + [("u", u), ("v", v)]:
+        if not np.isfinite(t).all():
+            fail(f"{label}: {name} is not finite")
+    if not 0.0 < max_u < 3.0:
+        fail(f"{label}: max |u| = {max_u} outside (0, 3) m/s")
+    if not aice_max <= 1.0 + 1e-6:
+        fail(f"{label}: aice = {aice_max} > 1 + 1e-6")
+    if not ir_err <= IR_CONSERVATION_LIMIT:
+        fail(f"{label}: ir_conservation_error {ir_err} > "
+             f"{IR_CONSERVATION_LIMIT}")
+    if unconv:
+        fail(f"{label}: {unconv} columns left in thermo_unconverged")
+    want = {"evp_panel_loop": n_dyn * n_steps,
+            "integrate_fluxes_cuda": n_dyn * n_steps}
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            fail(f"{label}: {name} launched {n} times in {n_steps} steps, "
+                 f"expected {want.get(name, 0)}")
+    return state, float(np.median(ms)), iters
+
+
+def full_physics_phases(model, state, forcing, col, reps=3):
+    """Host-clock milliseconds of each phase of the model's OWN
+    full-physics step, with a synchronise before and after each phase
+    (median over reps steps, each phase summed over the step's dynamics
+    subcycles): column thermodynamics, ice strength, velocity solve,
+    remap, ridging, post-dynamics, and the rest of the step (the remap's
+    conservation check, tracer bookkeeping).  The step is the one
+    `SeaIceModel.make_step` builds, with timing wrappers around the
+    velocity solve and the remap step it is handed and around the
+    model's `ColumnPhysics` methods; the wrappers are taken out again."""
+    from seaice_tpu_torch import model as model_mod
+    from seaice_tpu_torch.dynamics import evp
+    acc = {}
+
+    def add(name, t0):
+        torch.cuda.synchronize()
+        acc[name] = acc.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
+
+    def timer(name, fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            add(name, t0)
+            return out
+        return wrapped
+
+    def gen_timer(name, fn):          # the velocity solve is a generator
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = yield from fn(*a, **kw)
+            add(name, t0)
+            return out
+        return wrapped
+
+    vss, mrs = evp.velocity_solve_steps, model_mod.make_remap_step
+    column = model.column
+    methods = {"step_thermodynamics": "step_thermodynamics",
+               "ice_strength": "ice_strength", "step_ridging": "ridging",
+               "step_post_dynamics": "post_dynamics"}
+    evp.velocity_solve_steps = lambda *a, **kw: gen_timer(
+        "velocity_solve", vss(*a, **kw))
+    model_mod.make_remap_step = lambda *a, **kw: timer("remap", mrs(*a, **kw))
+    for m, name in methods.items():
+        setattr(column, m, timer(name, getattr(column, m)))
+    try:
+        step = stepper(model, col)
+    finally:
+        evp.velocity_solve_steps, model_mod.make_remap_step = vss, mrs
+    try:
+        rows = []
+        for _ in range(reps):
+            acc.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, forcing)
+            torch.cuda.synchronize()
+            total = 1e3 * (time.perf_counter() - t0)
+            rows.append(dict(acc, rest=total - sum(acc.values()),
+                             step=total))
+    finally:
+        for m in methods:
+            delattr(column, m)       # back to the class's methods
+    want = set(methods.values()) | {"velocity_solve", "remap"}
+    if not want <= set(rows[0]):
+        fail(f"full physics: the step ran no {sorted(want - set(rows[0]))}")
+    return {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+
+
+def f32_against_f64(f32, n_steps):
+    """The float32 full-physics state after n_steps against the same
+    steps in float64 on the card, from the same initial state: area and
+    volume to F32_F64_BUDGET relative to their max, iceEnthalpy likewise,
+    surfaceTemperature to TSFC_BUDGET_K pointwise; the velocity distance
+    is printed, not held."""
+    model, state, forcing, col = full_physics_case(
+        SUBDIV, N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES, torch.float64, None)
+    step = stepper(model, col)
+    for _ in range(n_steps):
+        state, _ = step(state, forcing)
+    f64 = global_fields(model, state)
+    out = {k: rel_err(torch.as_tensor(f32[k]).double(),
+                      torch.as_tensor(f64[k]))
+           for k in F32_F64_BUDGET}
+    out["surfaceTemperature_max_abs_K"] = float(
+        np.abs(f32["surfaceTemperature"] - f64["surfaceTemperature"]).max())
+    speed = float(np.sqrt(f64["u"] ** 2 + f64["v"] ** 2).max())
+    out["velocity_max_abs_over_max_speed_unheld"] = float(max(
+        np.abs(f32["u"] - f64["u"]).max(),
+        np.abs(f32["v"] - f64["v"]).max())) / speed
+    emit({"full_physics_f32_vs_f64": dict(out, steps=n_steps)})
+    for k, lim in F32_F64_BUDGET.items():
+        if not out[k] <= lim:
+            fail(f"full physics: f32 {k} differs from f64 by {out[k]} > "
+                 f"{lim}")
+    if not out["surfaceTemperature_max_abs_K"] <= TSFC_BUDGET_K:
+        fail(f"full physics: f32 surfaceTemperature differs from f64 by "
+             f"{out['surfaceTemperature_max_abs_K']} K > {TSFC_BUDGET_K}")
+
+
+def capture_kernel_inputs(model, state, forcing, col=None):
+    """Take one step (with the column forcing `col` of a full-physics
+    model) with recording wrappers in place of the kernel wrappers;
+    returns (state after the step, {kernel name: [(args, kwargs)
     of each call in that step]})."""
     from seaice_tpu_torch.dynamics import cuda_raster, evp as evp_mod
     from seaice_tpu_torch.transport import cuda_flux as flux_mod
@@ -305,7 +596,7 @@ def capture_kernel_inputs(model, state, forcing):
         saved.append((mod, name, fn))
         setattr(mod, name, recorder(name, fn))
     try:
-        state, _ = stepper(model)(state, forcing)
+        state, _ = stepper(model, col)(state, forcing)
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
@@ -387,10 +678,21 @@ def check_loop(name, call, reps):
     second, where K1, K3 and both plain loops all lie 1e-7 to 2e-6 from
     one another).  There the float64 pair is held to the larger of 1e-7
     and ten times that response of the plain loop to a one-ulp
-    perturbation (`loop_rel_err_f64_plain_one_ulp`), and the float32
-    kernel's distance to the float64 plain version to twice the float32
-    plain version's own distance to it (measured: at most 1.6 times).  A
-    SHORT loop of
+    perturbation (`loop_rel_err_f64_plain_one_ulp`).  The float32
+    kernel's distance to the float64 plain version is held, field by
+    field, to the larger of twice the float32 plain version's own distance
+    to it (plus 1e-5) and, as in float64, ten times the float32 plain
+    loop's response to rounding (`loop_rel_err_f32_plain_one_ulp`: the
+    largest distance of the float32 plain loop to itself started with its
+    state one float32 ulp larger, or moved one ulp up or down at random in
+    two seeded draws).  Twice a single float32 distance alone is no limit:
+    measured on an H100 with `dev/k3_drift.py`, the float32 plain loop
+    started one ulp away lies up to 3.6 times (full-physics state, u,
+    120 subcycles) and 7.8 times (column-off state, s12, 60 subcycles) as
+    far from float64 as the same loop from its inputs, the largest
+    distances sit at single vertices of the ice edge, and K3's float32
+    draws spread alike.  A ten-ulp error per subcycle would still be
+    caught.  A SHORT loop of
     SHORT_LOOP subcycles, where the amplification has barely begun, holds
     the float32 kernel to the float32 plain version at SHORT_LOOP_TOL, so
     that a fault of the float32 instantiation in the loop (carrying state
@@ -462,10 +764,28 @@ def check_loop(name, call, reps):
     if not max(e64.values()) <= limit64:
         fail(f"{tag0} f64, whole loop: kernel and plain version disagree, "
              f"{e64} > {limit64}")
+    # the f32 plain loop from its state one f32 ulp larger, and moved one
+    # ulp up or down at random (two seeded draws)
+    g = torch.Generator(device="cuda")
+    draws = []
+    for seed in (None, 0, 1):
+        d = list(a[torch.float32])
+        if seed is not None:
+            g.manual_seed(seed)
+        d[at:at + 5] = [x * (1.0 + 2.0 ** -23 * (1 if seed is None else (
+            torch.randint(0, 2, x.shape, generator=g, device=x.device)
+            * 2 - 1).to(x.dtype))) for x in d[at:at + 5]]
+        draws.append(d)
+    r32 = [errs(plain(*d, **kw), p32) for d in draws]
+    resp32 = {n: max(r[n] for r in r32) for n in names}
+    lim32 = {n: max(2.0 * ep[n] + 1e-5, 10.0 * resp32[n]) for n in names}
+    out["loop_rel_err_f32_plain_one_ulp"] = resp32
+    out["loop_rel_err_f32_limit"] = lim32
     for n in names:
-        if not ek[n] <= 2.0 * ep[n] + 1e-5:
+        if not ek[n] <= lim32[n]:
             fail(f"{tag0} f32, whole loop, {n}: kernel is {ek[n]} from the "
-                 f"f64 plain version, the f32 plain version {ep[n]}")
+                 f"f64 plain version > {lim32[n]} (the f32 plain version "
+                 f"{ep[n]}, its one-ulp response {resp32[n]})")
 
     shapes, (byts, flops) = spec["work"](a[torch.float32], kw)
     t_b, t_f = byts / PEAK_BYTES_PER_S, flops / PEAK_FLOPS_F32
@@ -1118,6 +1438,7 @@ def main_path(label, model, state, forcing, n_steps, expect):
     before = conserved_sums(model, state)
     torch.cuda.synchronize()
     reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()     # the path's own peak
     ms = []
     for _ in range(n_steps):
         t0 = time.perf_counter()
@@ -1223,7 +1544,8 @@ def profile(model, state, forcing, step_ms):
     trace_steps("panel sphere", model, state, forcing, step_ms, phases)
 
 
-def trace_steps(label, model, state, forcing, step_ms, phases=None, n=2):
+def trace_steps(label, model, state, forcing, step_ms, phases=None, n=2,
+                col=None):
     """A torch.profiler trace of n whole steps of a path: device-busy ms
     and CUDA kernels per step, the device's idle share (1 - busy over
     `step_ms`, the path's UNTRACED median ms per step of this run: tracing
@@ -1231,7 +1553,7 @@ def trace_steps(label, model, state, forcing, step_ms, phases=None, n=2):
     the idle share), the package's own kernels and the top device
     kernels."""
     from torch.profiler import ProfilerActivity
-    step = stepper(model)
+    step = stepper(model, col)
     with torch.profiler.profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1288,25 +1610,35 @@ def small_reference():
             24, 8, torch.float64, dev),
         "icos subdiv 3, 4 blocks": lambda dev: build_sharded_model(
             3, 3, 4, 8, torch.float64, dev, 4),
+        "panel subdiv 3, full physics": lambda dev: full_physics_case(
+            3, 3, 4, 8, torch.float64, dev),
     }
     for label, build in cases.items():
         outs = {}
         for device in ("cuda", "cpu"):
-            model, state, forcing = build(device)
-            step = stepper(model)
+            model, state, forcing, *col = build(device)
+            step = stepper(model, *col)
             for _ in range(2):
                 state, _ = step(state, forcing)
             outs[device] = (to_stacked_arrays(state)
                             if isinstance(state, list)
                             else flatten_arrays(state))
-        worst = 0.0
+        worst, noise = 0.0, []
         for k, ref in outs["cpu"].items():
-            scale = max(float(np.abs(ref).max()), 1e-300)
-            worst = max(worst,
-                        float(np.abs(outs["cuda"][k] - ref).max()) / scale)
+            scale = float(np.abs(ref).max())
+            if col and scale < NOISE:
+                # rounding noise of the column physics (see NOISE)
+                noise.append(k)
+                if not float(np.abs(outs["cuda"][k]).max()) < NOISE:
+                    fail(f"small model ({label}): {k} is noise on the CPU "
+                         "and not on the card")
+                continue
+            worst = max(worst, float(np.abs(outs["cuda"][k] - ref).max()) /
+                        max(scale, 1e-300))
         emit({"small_reference": {"mesh": label, "steps": 2,
                                   "dtype": "float64",
-                                  "max_rel_err_vs_cpu": worst}})
+                                  "max_rel_err_vs_cpu": worst,
+                                  "noise_fields": noise}})
         if not worst <= 1e-9:
             fail(f"small model ({label}) on the card differs from the "
                  f"CPU: {worst}")
@@ -1484,6 +1816,47 @@ def main():
         {"evp_raster_loop": 1})
     kernels["evp_raster_loop"]["launches"] = counts["evp_raster_loop"]
     del model, state, forcing, step
+    torch.cuda.empty_cache()
+
+    # --- full-physics panel sphere (bench_full.py's workload): the
+    # column physics around K3 + K2.  One step to spin up, a second one
+    # that is recorded (K3 with the Rothrock strength and K2 with the
+    # column's tracer table, each against its plain version), then the
+    # path (args.steps steps), the phases of the model's own step, the
+    # host syncs of one step, and the float32 state against the same
+    # steps in float64 ---
+    t0 = time.perf_counter()
+    model, state, forcing, col = full_physics_case(
+        SUBDIV, N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES, torch.float32, None)
+    model_line("full-physics panel sphere", model, t0)
+    step = stepper(model, col)
+    state, _ = step(state, forcing)
+    state, calls = capture_kernel_inputs(model, state, forcing, col)
+    if set(calls) != {"evp_panel_loop", "integrate_fluxes_cuda"}:
+        fail(f"full-physics panel sphere: the step called {sorted(calls)}")
+    k3 = check_loop("evp_panel_loop", calls["evp_panel_loop"][0],
+                    min(args.reps, 3))
+    emit({"full_physics_k3_against_plain": {
+        k: v for k, v in k3.items()
+        if "err" in k or k in ("ms", "plain_ms", "bound_ms")}})
+    k2_on_path("full-physics panel sphere", calls["integrate_fluxes_cuda"])
+    del calls
+    state, fp_ms, iters = full_physics_path(
+        "full-physics panel sphere", model, state, forcing, col, args.steps)
+    f32_fields = global_fields(model, state)
+    phases = full_physics_phases(model, state, forcing, col)
+    _, syncs = count_host_syncs(lambda: step(state, forcing))
+    emit({"full_physics_split": {
+        "card": card, "ms_per_step_untraced": fp_ms, "phase_ms": phases,
+        "host_syncs_per_step": syncs,
+        "thermo_iterations_per_step": iters}})
+    if args.profile:
+        trace_steps("full-physics panel sphere", model, state, forcing,
+                    fp_ms, phases, col=col)
+    del model, state, forcing, col, step
+    torch.cuda.empty_cache()
+    f32_against_f64(f32_fields, 2 + args.steps)
+    del f32_fields
     torch.cuda.empty_cache()
 
     small_reference()

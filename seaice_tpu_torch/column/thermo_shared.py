@@ -1,15 +1,11 @@
-"""Enthalpy/temperature relations shared across the thermodynamics schemes
-(reference `ice_therm_shared.F90` and the BL99 salinity profile from
-`ice_colpkg.F90:333-414`).
+"""Enthalpy/temperature relations and surface fluxes shared across the
+thermodynamics schemes (reference `ice_therm_shared.F90` and the BL99
+salinity profile from `ice_colpkg.F90:333-414`).
 
 Enthalpy convention (BL99, brine-inclusive):
   ice:  q = -rhoi [ cp_ice (Tmlt - T) + Lfresh (1 - Tmlt/T) - cp_ocn Tmlt ]
   snow: q = -rhos [ Lfresh - cp_ice T ]
 with Tmlt = -depressT * S. All temperatures in deg C, q in J/m^3.
-
-This slice of the port holds the functions `init_thermo_tracers` needs;
-the inverse relations and the surface-flux functions of the JAX module
-come with the column-physics slice.
 """
 
 from __future__ import annotations
@@ -39,6 +35,17 @@ def ice_enthalpy_from_temperature(T, Tmlt):
     return -c.RHOI * (c.CP_ICE * (Tmlt - T) +
                       c.LFRESH * (1.0 - Tmlt / T.clamp(max=-c.PUNY)) -
                       c.CP_OCN * Tmlt)
+
+
+def ice_temperature_from_enthalpy(q, Tmlt):
+    """Invert q(T): aT^2 + bT + c0 = 0 with the physical (negative) root
+    (reference calculate_Tin_from_qin, ice_therm_shared.F90)."""
+    a = c.CP_ICE
+    b = (c.CP_OCN - c.CP_ICE) * Tmlt - q / c.RHOI - c.LFRESH
+    c0 = c.LFRESH * Tmlt
+    disc = torch.sqrt((b * b - 4.0 * a * c0).clamp(min=0.0))
+    T = -(b + disc) / (2.0 * a)
+    return T.clamp(max=-c.PUNY)
 
 
 def snow_enthalpy_from_temperature(T):
@@ -87,3 +94,50 @@ def init_thermo_tracers(tracers, n_ice_layers, n_snow_layers, dtype,
         tr["snowEnthalpy"] = torch.where(
             has[..., None], qs.expand(area.shape + (ns,)), 0.0)
     return tr
+
+
+def snow_temperature_from_enthalpy(q):
+    return (c.LFRESH + q / c.RHOS) / c.CP_ICE
+
+
+def surface_heat_flux(Tsf, fswsfc, rhoa, flw, potT, Qa, shcoef, lhcoef):
+    """Net surface flux (excluding conduction) and components
+    (reference surface_heat_flux, ice_therm_shared.F90).
+    Returns (flwout, fsens, flat, fsurf)."""
+    TsfK = Tsf + c.TFFRESH
+    qsat = c.QQQICE * torch.exp(-c.TTTICE / TsfK)
+    Qsfc = qsat / rhoa
+    flwdabs = c.EMISSIVITY * flw
+    flwout = -c.EMISSIVITY * c.STEFAN_BOLTZMANN * TsfK ** 4
+    fsens = shcoef * (potT - TsfK)
+    flat = lhcoef * (Qa - Qsfc)
+    fsurf = fswsfc + flwdabs + flwout + fsens + flat
+    return flwout, fsens, flat, fsurf
+
+
+def dsurface_heat_flux_dTsf(Tsf, rhoa, shcoef, lhcoef):
+    """d(fluxes)/dTsf (reference dsurface_heat_flux_dTsf).
+    Returns (dflwout, dfsens, dflat, dfsurf)."""
+    TsfK = Tsf + c.TFFRESH
+    dQsfc = c.QQQICE * torch.exp(-c.TTTICE / TsfK) * c.TTTICE / \
+        (TsfK ** 2 * rhoa)
+    dflwout = -4.0 * c.EMISSIVITY * c.STEFAN_BOLTZMANN * TsfK ** 3
+    dfsens = -shcoef
+    dflat = -lhcoef * dQsfc
+    dfsurf = dflwout + dfsens + dflat
+    return dflwout, dfsens, dflat, dfsurf
+
+
+def sea_freezing_temperature(sss, tfrz_option: str = "minus1p8"):
+    """Ocean freezing temperature Tf(SSS) (reference
+    colpkg_sea_freezing_temperature, ice_colpkg.F90:1664-1686):
+    'minus1p8' -> constant -1.8 C; 'linear_salt' -> -depressT * sss;
+    'mushy' -> the mushy liquidus (consistent with ktherm=2)."""
+    if tfrz_option == "mushy":
+        from .mushy import liquidus_temperature
+        return liquidus_temperature(sss)
+    if tfrz_option == "linear_salt":
+        return -c.DEPRESST * sss
+    sss = torch.as_tensor(sss)
+    return torch.full_like(sss, c.TOCNFRZ, dtype=sss.dtype
+                           if sss.is_floating_point() else torch.float64)

@@ -1,8 +1,11 @@
 """State and static tensors carried across from the JAX package.
 
 The system has no weights; what has to agree between the two packages is
-the static per-mesh data (`ModelTensors`) and the prognostic state
-(`State`, `DynamicsForcing`).  `flatten_arrays` turns any container of
+the static per-mesh data (`ModelTensors`), the prognostic state (`State`,
+with every tracer of the tree: the full-physics state carries its
+thermodynamic and pond tracers the same way) and the forcing
+(`DynamicsForcing`, and for the column physics `AtmosForcing` and
+`OceanForcing`).  `flatten_arrays` turns any container of
 arrays (a dataclass, a dict, nested) into {dotted name: numpy array};
 `from_reference_arrays` builds the port's containers from such
 dictionaries.  For a partitioned mesh the JAX package stacks every block
@@ -21,6 +24,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .column.driver import AtmosForcing, OceanForcing
 from .dynamics.evp import (DynamicsForcing, DynamicsTensors,
                            VelocitySolverState)
 from .dynamics.variational_fast import FastTensors
@@ -115,6 +119,15 @@ def from_reference_arrays(tensors_np: Optional[Dict[str, np.ndarray]],
     if forcing_np is not None:
         forcing = _build(DynamicsForcing, forcing_np, "", device, dtype)
     return tensors, state, forcing
+
+
+def column_forcing_from_reference_arrays(
+        atmos_np: Dict[str, np.ndarray], ocean_np: Dict[str, np.ndarray],
+        device, dtype):
+    """The port's (AtmosForcing, OceanForcing) from the JAX package's
+    column forcing flattened by `flatten_arrays`."""
+    return (_build(AtmosForcing, atmos_np, "", device, dtype),
+            _build(OceanForcing, ocean_np, "", device, dtype))
 
 
 def from_sharded_reference_arrays(

@@ -4,26 +4,28 @@ Equivalent of the reference's core run loop and time integration
 (MPAS-Seaice `src/model_forward/mpas_seaice_core.F:257-371` and
 `src/shared/mpas_seaice_time_integration.F:42-175`): one `seaice_timestep`
 = column pre-dynamics -> (dynamics subcycle: velocity solve -> transport
--> ridging) -> column post-dynamics.
-
-The port runs the dynamics-transport step so far
-(`use_column_package=False`): velocity solve -> incremental remap, with
-the working set resident on the device; the velocity solve's kernel
-follows from the mesh (panel-reordered sphere, raster quad box, or any
-connectivity).  The body of the step, `dynamics_transport_steps`, is a
-generator that stops at every halo exchange (`utils/lockstep.py`):
-`SeaIceModel` runs it alone, `parallel/sharded.py` runs one per block.
-The column physics (and with it ridging and the Rothrock strength) is a
-later slice.
+-> ridging) -> column post-dynamics, with the working set resident on the
+device; the velocity solve's kernel follows from the mesh
+(panel-reordered sphere, raster quad box, or any connectivity).  The
+column physics (`column/`, `cfg.column.use_column_package`) supplies the
+thermodynamics before the dynamics, the Rothrock strength and the
+ridging inside each dynamics subcycle, and the post-dynamics
+aggregation.  The body of the dynamics subcycles,
+`dynamics_transport_steps`, is a generator that stops at every halo
+exchange (`utils/lockstep.py`): `SeaIceModel` runs it alone,
+`parallel/sharded.py` runs one per block (without the column physics).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from .column.driver import AtmosForcing, ColumnPhysics, OceanForcing
+from .column.tuning import Tunables
 from .config import AdvectionType, Config
 from .mesh.core import Mesh, MeshTensors
 from .dynamics import evp
@@ -59,6 +61,81 @@ class ModelTensors:
     area_cell: Any
 
 
+def _col_tunables(col) -> Tunables:
+    """Build the column physics Tunables from the flat ColumnConfig
+    fields (the namelist maps Registry options onto these)."""
+    return Tunables(**{f.name: getattr(col, f.name)
+                       for f in dataclasses.fields(Tunables)})
+
+
+def column_tracer_tree(cfg: Config) -> TracerTree:
+    """The tracer tree the column configuration carries (the JAX
+    package's `SeaIceModel.__init__` tree; the biogeochemistry's own
+    sizing is left out with it: `ColumnPhysics` raises for every option
+    whose tracers the port does not step)."""
+    col = cfg.column
+    return standard_tracer_tree(
+        n_ice_layers=cfg.run.n_ice_layers,
+        n_snow_layers=cfg.run.n_snow_layers,
+        use_ice_age=col.use_ice_age,
+        use_first_year_ice=col.use_first_year_ice,
+        use_level_ice=col.use_level_ice,
+        pond_scheme=col.pond_scheme,
+        use_snow_tracers=col.use_snow_tracers,
+        n_aerosols=col.n_aerosols,
+        use_brine_height=(col.use_brine_height or col.use_biogeochemistry
+                          or col.solve_zsalinity),
+        n_bio_tracers=col.n_bio_tracers,
+        n_bio_grid_points=(col.n_bio_layers + 1
+                           if col.use_biogeochemistry else 0),
+        use_skeletal_bgc=col.use_skeletal_biochemistry,
+        n_vertical_salinity=(col.n_bio_layers if col.solve_zsalinity
+                             else 0))
+
+
+def build_column_physics(cfg: Config, dtype, device) -> ColumnPhysics:
+    """The ColumnPhysics of a config (the JAX package's
+    `SeaIceModel.__init__` call), its tables in dtype on device."""
+    col = cfg.column
+    return ColumnPhysics(
+        cfg.run.n_categories, cfg.run.n_ice_layers, cfg.run.n_snow_layers,
+        kcatbound=col.kcatbound, kitd=col.kitd,
+        krdg_partic=col.krdg_partic, krdg_redist=col.krdg_redist,
+        natmiter=col.natmiter, shortwave=col.shortwave,
+        ktherm=col.ktherm, kstrength=col.kstrength, atmbndy=col.atmbndy,
+        use_shortwave=col.use_shortwave,
+        use_vertical_thermodynamics=col.use_vertical_thermodynamics,
+        use_itd_thermodynamics=col.use_itd_thermodynamics,
+        pond_scheme=col.pond_scheme,
+        use_level_ice=col.use_level_ice or col.pond_scheme == "lvl",
+        use_ice_age=col.use_ice_age,
+        use_first_year_ice=col.use_first_year_ice,
+        use_snow_tracers=col.use_snow_tracers, snwredist=col.snwredist,
+        n_aerosols=col.n_aerosols, use_form_drag=col.use_form_drag,
+        highfreq=col.highfreq, tfrz_option=col.tfrz_option,
+        rfracmin=col.rfracmin, rfracmax=col.rfracmax,
+        pndaspect=col.pndaspect, frzpnd=col.frzpnd,
+        dpscale=col.dpscale, hi_min_pond=col.hi_min_pond,
+        mu_rdg=col.mu_rdg,
+        shortwave_tuning=dict(
+            albicev=col.albicev, albicei=col.albicei,
+            albsnowv=col.albsnowv, albsnowi=col.albsnowi,
+            ahmax=col.ahmax, R_ice=col.r_ice, R_pnd=col.r_pnd,
+            R_snw=col.r_snw, dT_mlt=col.dt_mlt, rsnw_mlt=col.rsnw_mlt),
+        zbgc_params=col.zbgc_params, tunables=_col_tunables(col),
+        use_snicar=col.use_snicar, use_brine_height=col.use_brine_height,
+        use_biogeochemistry=col.use_biogeochemistry,
+        use_skeletal_bgc=col.use_skeletal_biochemistry,
+        n_algae=col.n_algae, n_bio_layers=col.n_bio_layers,
+        solve_zsalinity=col.solve_zsalinity,
+        calc_tsfc=col.calc_surface_temperature,
+        use_snow_liquid_ponds=col.use_snow_liquid_ponds,
+        include_pond_freshwater_feedback=(
+            col.include_pond_freshwater_feedback),
+        use_modal_aerosols=col.use_modal_aerosols,
+        dtype=dtype, device=device)
+
+
 class SeaIceModel:
     """Owns the static mesh/basis/geometry tensors and builds the step for
     a Config (scheme selection at build time, like the reference's
@@ -66,20 +143,22 @@ class SeaIceModel:
 
     def __init__(self, mesh: Mesh, cfg: Config, dtype=torch.float32,
                  device=None, tracer_tree: Optional[TracerTree] = None):
-        if cfg.column.use_column_package:
-            raise NotImplementedError(
-                "column physics: a later slice of the port (ROADMAP Queue 1 "
-                "item 4)")
         self.mesh = mesh
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.column = None
+        if cfg.column.use_column_package:
+            self.column = build_column_physics(cfg, dtype, self.device)
         if tracer_tree is None:
-            tracer_tree = TracerTree((
-                mass_only_tree().specs[0],
-                standard_tracer_tree().specs[1],
-                standard_tracer_tree().specs[2],
-            ))
+            if cfg.column.use_column_package:
+                tracer_tree = column_tracer_tree(cfg)
+            else:
+                tracer_tree = TracerTree((
+                    mass_only_tree().specs[0],
+                    standard_tracer_tree().specs[1],
+                    standard_tracer_tree().specs[2],
+                ))
         self.tree = tracer_tree
 
         dev = self.device
@@ -99,7 +178,6 @@ class SeaIceModel:
             area_cell=torch.as_tensor(
                 np.ascontiguousarray(mesh.area_cell, np.float64)).to(
                     device=dev, dtype=dtype))
-        self.column = None
 
     # -- state ---------------------------------------------------------------
 
@@ -210,14 +288,47 @@ class SeaIceModel:
             remap_step = make_remap_step(
                 tree, self.mesh.vertex_degree,
                 monotonic=cfg.advection.monotonic)
-        body = dynamics_transport_steps(cfg, tree, vel_solve, remap_step)
+        column = self.column
+        body = dynamics_transport_steps(cfg, tree, vel_solve, remap_step,
+                                        column=column)
 
         def step(tensors: ModelTensors, state: State,
-                 forcing: DynamicsForcing):
+                 forcing: DynamicsForcing,
+                 atmos: Optional[AtmosForcing] = None,
+                 ocean: Optional[OceanForcing] = None,
+                 coszen=None):
             """One coupling timestep (reference seaice_timestep,
-            mpas_seaice_time_integration.F:42-175) without the column
-            package: (velocity solve -> transport) x n_sub."""
-            return drive(body(tensors, state, forcing))
+            mpas_seaice_time_integration.F:42-175): column pre-dynamics
+            -> (velocity solve -> transport -> ridging) x n_sub ->
+            column post-dynamics.  Without the column package, or
+            without `atmos`, the column phases before and after the
+            dynamics are left out.
+
+            coszen: cell cosine solar zenith (dEdd shortwave).  The
+            JAX step's further inputs (day_of_year/lat, faero_atm,
+            sfc_fluxes) feed options the port does not run (first-year
+            ice, aerosols, calc_Tsfc=False), which raise when the model
+            is built (ROADMAP.md Queue 1 item 10)."""
+            thermo = column is not None and atmos is not None
+            fluxes = None
+            if thermo:
+                tr, fluxes = column.step_thermodynamics(
+                    cfg.run.dt, dict(state.tracers), atmos, ocean,
+                    coszen=coszen)
+                state = state.replace(tracers=tr)
+            new_state, diags = drive(body(tensors, state, forcing))
+            if thermo:
+                # post-dynamics: snow physics + coupling prep
+                # (reference column.F:1208)
+                wind = torch.sqrt(atmos.u_air ** 2 + atmos.v_air ** 2)
+                tr, post = column.step_post_dynamics(
+                    cfg.run.dt, new_state.tracers, wind=wind,
+                    snow_rate=atmos.snow_rate)
+                diags["coupling_prep"] = post
+                new_state = new_state.replace(tracers=tr)
+            if fluxes is not None:
+                diags["column_fluxes"] = fluxes
+            return new_state, diags
 
         return step
 
@@ -240,10 +351,11 @@ def check_kernel_options(cfg: Config):
 
 
 def dynamics_transport_steps(cfg: Config, tree: TracerTree, vel_solve,
-                             remap_step, adv_checks: bool = True):
+                             remap_step, adv_checks: bool = True,
+                             column: Optional[ColumnPhysics] = None):
     """The body of the dynamics-transport step as a generator function:
-    (velocity solve -> incremental remap -> tracer halo refresh) x
-    dynamics_subcycle_number, returning (state, diags).
+    (velocity solve -> incremental remap -> tracer halo refresh ->
+    ridging) x dynamics_subcycle_number, returning (state, diags).
 
     vel_solve: from `evp.velocity_solve_steps`; remap_step: from
     `make_remap_step`, or None without transport.  It yields where the
@@ -251,11 +363,17 @@ def dynamics_transport_steps(cfg: Config, tree: TracerTree, vel_solve,
     2-deep tracer halo refresh of a partitioned mesh; the remap returns new
     tensors, so the refresh may write them in place).  adv_checks=False
     leaves out the optional conservation and monotonicity checks of the
-    config, which sum over the mesh (a block's sums are not the mesh's)."""
+    config, which sum over the mesh (a block's sums are not the mesh's).
+    column: the model's `ColumnPhysics`, or None without the column
+    package; with it the velocity solve takes the Rothrock strength
+    (kstrength=1) and every subcycle ends with ridging
+    (`cfg.column.use_ridging`)."""
     adv_checks = adv_checks and (cfg.advection.conservation_check or
                                  cfg.advection.monotonicity_check)
     dt_dyn = cfg.dynamics_timestep
     n_sub = cfg.velocity.dynamics_subcycle_number
+    use_ridging = column is not None and cfg.column.use_ridging
+    use_kstrength = column is not None and cfg.column.kstrength == 1
 
     def steps(tensors: ModelTensors, state: State,
               forcing: DynamicsForcing):
@@ -264,47 +382,59 @@ def dynamics_transport_steps(cfg: Config, tree: TracerTree, vel_solve,
         diags = {}
         for _ in range(n_sub):
             if cfg.velocity.use_velocity_solver:
+                # Rothrock strength from the column package (reference
+                # kstrength dispatch, ice_mechred.F90 ice_strength)
+                pressure_in = (column.ice_strength(tr) if use_kstrength
+                               else None)
                 vel, diags = yield from vel_solve(
                     tensors.dynamics, vel, forcing,
                     tr["iceAreaCategory"], tr["iceVolumeCategory"],
-                    tr["snowVolumeCategory"], pressure_in=None)
-            if remap_step is None:
-                continue
-            if adv_checks:
-                pre_sums = (global_conserved_sums(
-                    tree, tr, tensors.area_cell)
-                    if cfg.advection.conservation_check else None)
-                pre_ext = (local_extrema(
-                    tree, tr, tensors.mesh.cells_on_cell,
-                    tensors.mesh.cells_on_cell_mask)
-                    if cfg.advection.monotonicity_check else None)
-            tr = remap_step(
-                tensors.remap, tensors.mesh.cells_on_cell,
-                tensors.mesh.cells_on_cell_mask, tensors.area_cell,
-                tr, vel.u_velocity, vel.v_velocity, dt_dyn)
-            # 2-deep tracer halo refresh (owned values are authoritative;
-            # halo updates computed locally are discarded)
-            yield "cell_field", tuple(tr.values())
-            if adv_checks:
-                # runtime self-checks (reference optional IR checks,
-                # ..._incremental_remap.F:8126,8416)
-                if pre_sums is not None:
-                    post = global_conserved_sums(
-                        tree, tr, tensors.area_cell)
-                    err = torch.stack([
-                        (post[k] - pre_sums[k]).abs() /
-                        pre_sums[k].abs().clamp(min=1e-30)
-                        for k in pre_sums]).max()
-                    prev = diags.get("ir_conservation_error")
-                    diags["ir_conservation_error"] = err \
-                        if prev is None else torch.maximum(prev, err)
-                if pre_ext is not None:
-                    viol = monotonicity_violation(tree, tr, *pre_ext)
-                    prev = diags.get("ir_monotonicity_violation")
-                    diags["ir_monotonicity_violation"] = viol \
-                        if prev is None else torch.maximum(prev, viol)
+                    tr["snowVolumeCategory"], pressure_in=pressure_in)
+            if remap_step is not None:
+                tr, diags = yield from _transport(tensors, tr, vel, diags)
+            if use_ridging and diags:
+                tr, rdg = column.step_ridging(
+                    dt_dyn, tr, diags["ridge_convergence"],
+                    diags["ridge_shear"])
+                diags.update(rdg)
         new_state = State(velocity=vel, tracers=tr,
                           time=state.time + cfg.run.dt)
         return new_state, diags
+
+    def _transport(tensors, tr, vel, diags):
+        """Incremental remap of every tracer, the tracer halo refresh and
+        the optional self-checks."""
+        if adv_checks:
+            pre_sums = (global_conserved_sums(tree, tr, tensors.area_cell)
+                        if cfg.advection.conservation_check else None)
+            pre_ext = (local_extrema(
+                tree, tr, tensors.mesh.cells_on_cell,
+                tensors.mesh.cells_on_cell_mask)
+                if cfg.advection.monotonicity_check else None)
+        tr = remap_step(
+            tensors.remap, tensors.mesh.cells_on_cell,
+            tensors.mesh.cells_on_cell_mask, tensors.area_cell,
+            tr, vel.u_velocity, vel.v_velocity, dt_dyn)
+        # 2-deep tracer halo refresh (owned values are authoritative;
+        # halo updates computed locally are discarded)
+        yield "cell_field", tuple(tr.values())
+        if adv_checks:
+            # runtime self-checks (reference optional IR checks,
+            # ..._incremental_remap.F:8126,8416)
+            if pre_sums is not None:
+                post = global_conserved_sums(tree, tr, tensors.area_cell)
+                err = torch.stack([
+                    (post[k] - pre_sums[k]).abs() /
+                    pre_sums[k].abs().clamp(min=1e-30)
+                    for k in pre_sums]).max()
+                prev = diags.get("ir_conservation_error")
+                diags["ir_conservation_error"] = err \
+                    if prev is None else torch.maximum(prev, err)
+            if pre_ext is not None:
+                viol = monotonicity_violation(tree, tr, *pre_ext)
+                prev = diags.get("ir_monotonicity_violation")
+                diags["ir_monotonicity_violation"] = viol \
+                    if prev is None else torch.maximum(prev, viol)
+        return tr, diags
 
     return steps

@@ -35,8 +35,10 @@ those buffers, through a table fixed when the model is built:
     slots (colour -1) stay zero, as `_perm_halo` leaves them.
 
 Both give every real halo slot the same value, bitwise.  All blocks live
-on one device: several devices (peer copies or NCCL), `overlap=True` and
-the column package raise NotImplementedError (ROADMAP Queue 1 item 10).
+on one device: several devices (peer copies or NCCL) and `overlap=True`
+raise NotImplementedError (ROADMAP Queue 1 item 10), the column package
+too (ROADMAP Queue 1 item 4).  `full_physics_inputs` is the port's copy
+of the JAX package's full-physics initial state and forcing.
 """
 
 from __future__ import annotations
@@ -153,8 +155,8 @@ class ShardedSeaIceModel:
         "allgather".  tracer_tree: as `SeaIceModel` takes it."""
         if cfg.column.use_column_package:
             raise NotImplementedError(
-                "the sharded step with the column physics: the column "
-                f"physics is a later slice of the port; {_LATER}")
+                "the sharded step with the column physics: a later slice "
+                "of the port (ROADMAP Queue 1 item 4)")
         if overlap:
             raise NotImplementedError(
                 "overlap=True: the interior/boundary overlap of the halo "
@@ -390,3 +392,71 @@ class ShardedSeaIceModel:
             return [o[0] for o in outs], [o[1] for o in outs]
 
         return step
+
+
+def full_physics_inputs(mesh, cfg, dtype=torch.float64, device="cpu"):
+    """Global initial state + forcing for a full-physics run: the port's
+    copy of the JAX package's `parallel/sharded.py::full_physics_inputs`
+    (its dryrun's and its sharding-invariance tests' inputs).
+
+    Returns (area, vol, snow as numpy [nCells, nCat]; extra: the
+    thermodynamic tracers as tensors; AtmosForcing, OceanForcing; coszen
+    [nCells]), the tensors in dtype on device."""
+    from ..column.driver import (AtmosForcing, OceanForcing,
+                                 slab_ocean_frzmlt)
+    from ..column.itd import category_boundaries
+    from ..column.thermo_shared import (ice_enthalpy_from_temperature,
+                                        melting_temperature,
+                                        salinity_profile,
+                                        snow_enthalpy_from_temperature)
+    from ..testcases import box
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64)).to(
+            device=device, dtype=dtype)
+
+    ncat = cfg.run.n_categories
+    ni = cfg.run.n_ice_layers
+    ns = cfg.run.n_snow_layers
+    nc = mesh.n_cells
+    conc = np.clip(mesh.x_cell / box.BOX_LX, 0.05, 1.0)
+    area = np.tile((conc / ncat)[:, None], (1, ncat)) * 0.9
+    hmax = category_boundaries(ncat, cfg.column.kcatbound,
+                               cfg.column.kitd)
+    mids = 0.5 * (hmax[:-1] + np.minimum(hmax[1:], 10.0))
+    vol = area * mids
+    snow = area * 0.05
+    S = salinity_profile(ni)
+    has = t(area[..., None] > 0)
+    sal = t(np.tile(S, (nc, ncat, 1)))
+    extra = {
+        "surfaceTemperature": t(np.where(area > 0, -12.0, 0.0)),
+        "iceEnthalpy": ice_enthalpy_from_temperature(
+            t(np.where(area[..., None] > 0, -8.0, 0.0) *
+              np.ones((nc, ncat, ni))), melting_temperature(sal)) * has,
+        "iceSalinity": sal * has,
+        "snowEnthalpy": snow_enthalpy_from_temperature(
+            t(-10.0 * np.ones((nc, ncat, ns)))) * has,
+    }
+    one = np.ones((nc,))
+    dynf = box.box_forcing(mesh, t=0.0, dtype=torch.float64, device="cpu")
+    atm = AtmosForcing(
+        air_temperature=252.0 * one, specific_humidity=0.0004 * one,
+        u_air=dynf.u_air_velocity.numpy(), v_air=dynf.v_air_velocity.numpy(),
+        longwave_down=170.0 * one,
+        sw_vis_dir=5.0 * one, sw_vis_dif=5.0 * one,
+        sw_ir_dir=4.0 * one, sw_ir_dif=4.0 * one,
+        rain_rate=0.0 * one, snow_rate=1e-5 * one,
+        air_density=1.3 * one, air_level_height=10.0 * one)
+    sst, Tf = -1.7 * one, -1.8 * one
+    ocn = OceanForcing(
+        sst=sst, sss=34.0 * one, freezing_temperature=Tf,
+        frzmlt=slab_ocean_frzmlt(torch.as_tensor(sst), torch.as_tensor(Tf),
+                                 torch.as_tensor(20.0 * one),
+                                 cfg.run.dt).numpy(),
+        mixed_layer_depth=20.0 * one)
+    atm = AtmosForcing(**{f: t(getattr(atm, f))
+                          for f in atm.__dataclass_fields__})
+    ocn = OceanForcing(**{f: t(getattr(ocn, f))
+                          for f in ocn.__dataclass_fields__})
+    return area, vol, snow, extra, atm, ocn, t(0.5 * one)
