@@ -6,9 +6,9 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
 
   1. builds the CUDA kernels from `seaice_tpu_torch/csrc/` (one nvcc per
      source, in parallel) and the host remap-stencil library;
-  2. drives five paths at full width through `SeaIceModel.make_step()` and
-     `ShardedSeaIceModel.make_step()`, float32, the first four with the
-     column package off:
+  2. drives seven paths at full width through `SeaIceModel.make_step()`,
+     `ShardedSeaIceModel.make_step()` and the runners of `run.py`,
+     float32, the first four with the column package off:
        raw sphere   raw icosahedral subdiv 6 (40,962 cells), 5 categories,
                     7 ice + 1 snow layers, full enthalpy tracer tree, EVP
                     with 120 subcycles and metric terms, incremental
@@ -29,6 +29,21 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
                     delta-Eddington shortwave, level-ice ponds, Rothrock
                     strength and ridging around K3 + K2 (its inputs built
                     here, nothing of the JAX package imported);
+       file-driven run  the same column on the subdiv-6 MPAS file of
+                    `tests/mpas_fixture.py` (written into a temporary
+                    directory, read by the port's reader; not
+                    panel-ordered, so K1 + K2) with CORE and NCAR forcing
+                    files, through `run.py::StandaloneRunner`: 48 steps
+                    (240 with --five-day) with the state check after every
+                    step, restarted halfway from a checkpoint in a new
+                    runner (bitwise the straight run), and the same steps
+                    in float64 (BASELINE.md's budget on the global totals
+                    and on the surface temperature where both runs hold
+                    ice: ROADMAP Queue 3, fault 6);
+       sharded full physics  the raw sphere with the column in 4 blocks
+                    (K6 + K2) against the unsharded step (K1), then two
+                    steps of `ShardedStandaloneRunner` from forcing files,
+                    whose per-block checkpoint reads back bitwise;
   3. holds each kernel against its plain PyTorch version on the card, on
      the very tensors the step hands it (float32, and the same tensors
      cast to float64), and times both with CUDA events; reports the
@@ -266,11 +281,11 @@ def stepper(model, col=None):
     """step(state, forcing) -> (state, diags) of a SeaIceModel or a
     ShardedSeaIceModel (whose state and forcing are lists of blocks);
     col: the column physics' (AtmosForcing, OceanForcing, coszen) of a
-    full-physics model."""
+    full-physics model (of a sharded one: three lists of blocks)."""
     step = model.make_step()
     if hasattr(model, "halo"):
         return lambda state, forcing: step(model.tensors, model.halo, state,
-                                           forcing)
+                                           forcing, *(col or ()))
     if col is not None:
         atm, ocn, coszen = col
         return lambda state, forcing: step(model.tensors, state, forcing,
@@ -304,7 +319,8 @@ def build_box_model(nx, n_sub, dtype, device):
     return model, state, forcing
 
 
-def full_physics_case(subdiv, n_cat, n_ice, n_sub, dtype, device):
+def full_physics_case(subdiv, n_cat, n_ice, n_sub, dtype, device,
+                      panel=True):
     """The full-physics workload of `bench_full.py` (the north-star panel
     step), built by the port alone: the panel-reordered sphere, mushy
     thermodynamics, delta-Eddington shortwave, level-ice ponds, Rothrock
@@ -328,7 +344,9 @@ def full_physics_case(subdiv, n_cat, n_ice, n_sub, dtype, device):
     from seaice_tpu_torch.model import SeaIceModel
 
     dt = 1800.0
-    mesh, _ = panel_reorder(icosahedral_mesh(subdiv), subdiv)
+    mesh = icosahedral_mesh(subdiv)
+    if panel:
+        mesh, _ = panel_reorder(mesh, subdiv)
     cfg = C.Config(
         run=C.RunConfig(dt=dt, n_categories=n_cat, n_ice_layers=n_ice),
         velocity=C.VelocitySolverConfig(
@@ -535,16 +553,22 @@ def full_physics_phases(model, state, forcing, col, reps=3):
 
 def f32_against_f64(f32, n_steps):
     """The float32 full-physics state after n_steps against the same
-    steps in float64 on the card, from the same initial state: area and
-    volume to F32_F64_BUDGET relative to their max, iceEnthalpy likewise,
-    surfaceTemperature to TSFC_BUDGET_K pointwise; the velocity distance
-    is printed, not held."""
+    steps in float64 on the card, from the same initial state
+    (`hold_f32_to_f64`)."""
     model, state, forcing, col = full_physics_case(
         SUBDIV, N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES, torch.float64, None)
     step = stepper(model, col)
     for _ in range(n_steps):
         state, _ = step(state, forcing)
-    f64 = global_fields(model, state)
+    hold_f32_to_f64("full physics", f32, global_fields(model, state),
+                    n_steps)
+
+
+def hold_f32_to_f64(label, f32, f64, n_steps):
+    """Area and volume to F32_F64_BUDGET relative to their max,
+    iceEnthalpy likewise, surfaceTemperature to TSFC_BUDGET_K pointwise
+    (BASELINE.md's f32-vs-f64 budget); the velocity distance is printed,
+    not held."""
     out = {k: rel_err(torch.as_tensor(f32[k]).double(),
                       torch.as_tensor(f64[k]))
            for k in F32_F64_BUDGET}
@@ -557,10 +581,9 @@ def f32_against_f64(f32, n_steps):
     emit({"full_physics_f32_vs_f64": dict(out, steps=n_steps)})
     for k, lim in F32_F64_BUDGET.items():
         if not out[k] <= lim:
-            fail(f"full physics: f32 {k} differs from f64 by {out[k]} > "
-                 f"{lim}")
+            fail(f"{label}: f32 {k} differs from f64 by {out[k]} > {lim}")
     if not out["surfaceTemperature_max_abs_K"] <= TSFC_BUDGET_K:
-        fail(f"full physics: f32 surfaceTemperature differs from f64 by "
+        fail(f"{label}: f32 surfaceTemperature differs from f64 by "
              f"{out['surfaceTemperature_max_abs_K']} K > {TSFC_BUDGET_K}")
 
 
@@ -569,6 +592,14 @@ def capture_kernel_inputs(model, state, forcing, col=None):
     model) with recording wrappers in place of the kernel wrappers;
     returns (state after the step, {kernel name: [(args, kwargs)
     of each call in that step]})."""
+    (state, _), rec = capture_calls(
+        lambda: stepper(model, col)(state, forcing))
+    return state, rec
+
+
+def capture_calls(fn):
+    """fn() with recording wrappers in place of the kernel wrappers;
+    returns (fn's result, {kernel name: [(args, kwargs) of each call]})."""
     from seaice_tpu_torch.dynamics import cuda_raster, evp as evp_mod
     from seaice_tpu_torch.transport import cuda_flux as flux_mod
     sites = [(evp_mod, "evp_subcycle_loop"), (evp_mod, "evp_panel_loop"),
@@ -592,16 +623,16 @@ def capture_kernel_inputs(model, state, forcing, col=None):
         return wrapped
 
     for mod, name in sites:
-        fn = getattr(mod, name)
-        saved.append((mod, name, fn))
-        setattr(mod, name, recorder(name, fn))
+        f = getattr(mod, name)
+        saved.append((mod, name, f))
+        setattr(mod, name, recorder(name, f))
     try:
-        state, _ = stepper(model, col)(state, forcing)
+        out = fn()
     finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+        for mod, name, f in saved:
+            setattr(mod, name, f)
     torch.cuda.synchronize()
-    return state, rec
+    return out, rec
 
 
 def cast(obj, dtype):
@@ -658,6 +689,44 @@ def loop_specs():
             plain=cuda_raster.evp_raster_loop_plain, work=work_k4,
             state_at=5),
     }
+
+
+def short_loop(name, a32, kw):
+    """SHORT_LOOP float32 subcycles of a whole-loop EVP kernel against its
+    plain version on the float32 arguments a32, and, for scale, the plain
+    loop's own response to its arguments one float32 ulp larger: its
+    state (u, v and the stresses; "state"), and the tensors after the
+    state that are not 0/1 masks (strength, forcing, masses; "inputs",
+    the only perturbation that moves a loop started from rest).  Returns
+    (kernel's distance, {"state": response, "inputs": response}), each
+    by field, relative to the field's max."""
+    spec = loop_specs()[name]
+    kernel, plain, at = spec["kernel"], spec["plain"], spec["state_at"]
+    kws = dict(kw, n_subcycles=SHORT_LOOP)
+    names = ("u", "v", "s11", "s22", "s12")
+    ulp = 1.0 + 2.0 ** -23
+    p_short = plain(*a32, **kws)
+
+    def errs(x):
+        return {n: rel_err(g.double(), w.double())
+                for n, g, w in zip(names, x, p_short)}
+
+    up = list(a32)
+    up[at:at + 5] = [x * ulp for x in up[at:at + 5]]
+    return errs(kernel(*a32, **kws)), {
+        "state": errs(plain(*up, **kws)),
+        "inputs": errs(plain(*inputs_one_ulp(a32, at + 5), **kws))}
+
+
+def inputs_one_ulp(args, first):
+    """args with every floating tensor from index `first` on that is not
+    a 0/1 mask one ulp of its dtype larger."""
+    def up(x):
+        if not isinstance(x, torch.Tensor) or not x.is_floating_point() \
+                or bool(((x == 0) | (x == 1)).all()):
+            return x
+        return x * (1.0 + torch.finfo(x.dtype).eps)
+    return list(args[:first]) + [up(x) for x in args[first:]]
 
 
 def check_loop(name, call, reps):
@@ -730,14 +799,16 @@ def check_loop(name, call, reps):
             fail(f"{tag0} {tag}, one subcycle: kernel and plain version "
                  f"disagree, {e} > {TOL[dtype]}")
 
-    kws = dict(kw, n_subcycles=SHORT_LOOP)
-    e = errs(kernel(*a[torch.float32], **kws),
-             plain(*a[torch.float32], **kws))
+    e, resp = short_loop(name, a[torch.float32], kw)
     out["short_loop_subcycles"] = SHORT_LOOP
     out["short_loop_rel_err_f32"] = e
+    out["short_loop_rel_err_f32_plain_one_ulp"] = resp["state"]
+    out["short_loop_rel_err_f32_plain_inputs_one_ulp"] = resp["inputs"]
     if not max(e.values()) <= SHORT_LOOP_TOL:
         fail(f"{tag0} f32, {SHORT_LOOP} subcycles: kernel and plain "
-             f"version disagree, {e} > {SHORT_LOOP_TOL}")
+             f"version disagree, {e} > {SHORT_LOOP_TOL} (the plain "
+             f"loop's one-ulp response "
+             f"{out['short_loop_rel_err_f32_plain_one_ulp']})")
 
     k32 = kernel(*a[torch.float32], **kw)
     p32 = plain(*a[torch.float32], **kw)
@@ -1151,12 +1222,15 @@ def k2_c_call(args):
     return call
 
 
-def sharded_loops(model, calls, dtype):
+def sharded_loops(model, calls, dtype, inputs_up=False):
     """K6's loops of every block, begun from the step's captured
-    `evp_subcycle_prepare` calls cast to dtype."""
+    `evp_subcycle_prepare` calls cast to dtype (with inputs_up, their
+    inputs after the loop state one ulp larger, `inputs_one_ulp`)."""
     from seaice_tpu_torch.dynamics.cuda_unstructured import (
         evp_subcycle_prepare)
-    return [evp_subcycle_prepare(*cast(a, dtype), **kw) for a, kw in calls]
+    return [evp_subcycle_prepare(*(inputs_one_ulp(cast(a, dtype), 6)
+                                   if inputs_up else cast(a, dtype)), **kw)
+            for a, kw in calls]
 
 
 def plain_steps(*loops):
@@ -1180,14 +1254,18 @@ def run_sharded_loops(model, loops, step, n):
     return [evp_subcycle_finish(lp) for lp in loops]
 
 
-def check_k6(model, calls, reps):
+def check_k6(model, calls, reps, short_loop_from_response=False):
     """K6, the one-subcycle EVP kernel, on the captured inputs of every
     block of the sharded sphere: one call advances all the blocks.
 
     One call on all blocks against `evp_subcycle_step_plain` block by
     block on the same tensors, float32 and float64: held to TOL.
     SHORT_LOOP subcycles of all blocks with the exchange after each,
-    float32 kernel against float32 plain: SHORT_LOOP_TOL.  The whole loop
+    float32 kernel against float32 plain: SHORT_LOOP_TOL, or with
+    short_loop_from_response (the sharded full-physics step, whose
+    Rothrock strength amplifies rounding more), the larger of it and ten
+    times the float32 plain loop's response to its state or its inputs
+    one ulp larger (ROADMAP Queue 3, fault 2).  The whole loop
     (N_SUBCYCLES) with exchanges in float64: the larger of 1e-7 and ten
     times the plain loop's response to a one-ulp perturbation of every
     block's u, v and stresses (ROADMAP Queue 3, fault 4).  Distances are
@@ -1228,8 +1306,8 @@ def check_k6(model, calls, reps):
             fail(f"K6 {tag}, one call on {len(calls)} blocks: kernel and "
                  f"plain version disagree, {e} > {TOL[dtype]}")
 
-    def run(dtype, step, n, scale=None):
-        loops = sharded_loops(model, calls, dtype)
+    def run(dtype, step, n, scale=None, inputs_up=False):
+        loops = sharded_loops(model, calls, dtype, inputs_up)
         if scale is not None:
             for lp in loops:
                 for t in evp_subcycle_finish(lp):
@@ -1240,12 +1318,21 @@ def check_k6(model, calls, reps):
     e = errs(run(torch.float32, evp_subcycle_step, SHORT_LOOP), p32)
     out["short_loop_subcycles"] = SHORT_LOOP
     out["short_loop_rel_err_f32"] = e
-    # for scale: the f32 plain loop's own response to one f32 ulp
-    out["short_loop_rel_err_f32_plain_one_ulp"] = errs(run(
-        torch.float32, plain_steps, SHORT_LOOP, 1.0 + 2.0 ** -23), p32)
-    if not max(e.values()) <= SHORT_LOOP_TOL:
+    # the f32 plain loop's own response to one f32 ulp of its state and
+    # of its inputs
+    resp = {"state": errs(run(torch.float32, plain_steps, SHORT_LOOP,
+                              1.0 + 2.0 ** -23), p32),
+            "inputs": errs(run(torch.float32, plain_steps, SHORT_LOOP,
+                               inputs_up=True), p32)}
+    out["short_loop_rel_err_f32_plain_one_ulp"] = resp["state"]
+    out["short_loop_rel_err_f32_plain_inputs_one_ulp"] = resp["inputs"]
+    lim = {n: max(SHORT_LOOP_TOL, 10.0 * max(r[n] for r in resp.values()))
+           if short_loop_from_response else SHORT_LOOP_TOL for n in names}
+    out["short_loop_limit"] = lim
+    if any(not e[n] <= lim[n] for n in names):
         fail(f"K6 f32, {SHORT_LOOP} subcycles with exchanges: kernel and "
-             f"plain version disagree, {e} > {SHORT_LOOP_TOL}")
+             f"plain version disagree, {e} > {lim} (the plain loop's "
+             f"one-ulp responses {resp})")
     k64 = run(torch.float64, evp_subcycle_step, N_SUBCYCLES)
     p64 = run(torch.float64, plain_steps, N_SUBCYCLES)
     pu = run(torch.float64, plain_steps, N_SUBCYCLES, 1.0 + 2.0 ** -52)
@@ -1327,7 +1414,8 @@ def sharded_against_unsharded(smodel, sstate, sforcing, model, state,
     a one-ulp (float32) perturbation of its velocities and stresses.  Then
     ms per step of both, in turns.  The second sharded step is recorded
     (`capture_kernel_inputs`), so that K6 is checked on the step where K1
-    is.  Returns the sharded state after two steps and that record."""
+    is.  Returns the sharded state after two steps, that record and the
+    largest relative distance."""
     sstep, step = stepper(smodel), stepper(model)
     rows, states = [], []
     for i in range(2):
@@ -1369,7 +1457,7 @@ def sharded_against_unsharded(smodel, sstate, sforcing, model, state,
     emit({"sharded_against_unsharded": out})
     if not worst <= limit:
         fail(f"sharded and unsharded steps disagree: {worst} > {limit}")
-    return sstate, calls
+    return sstate, calls, worst
 
 
 def loop_drift(model, state, forcing, n_steps=4):
@@ -1545,20 +1633,24 @@ def profile(model, state, forcing, step_ms):
 
 
 def trace_steps(label, model, state, forcing, step_ms, phases=None, n=2,
-                col=None):
+                col=None, advance=None):
     """A torch.profiler trace of n whole steps of a path: device-busy ms
     and CUDA kernels per step, the device's idle share (1 - busy over
     `step_ms`, the path's UNTRACED median ms per step of this run: tracing
     slows the host severalfold, so the traced wall time would overstate
     the idle share), the package's own kernels and the top device
-    kernels."""
+    kernels.  advance: a callable taking one step in place of the model's
+    step (a runner's run(1))."""
     from torch.profiler import ProfilerActivity
     step = stepper(model, col)
     with torch.profiler.profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            state, _ = step(state, forcing)
+            if advance is not None:
+                advance()
+            else:
+                state, _ = step(state, forcing)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     rows = [(e.key, getattr(e, "device_time_total",
@@ -1590,6 +1682,668 @@ def trace_steps(label, model, state, forcing, step_ms, phases=None, n=2,
         "own_kernels_ms_per_step": own,
         "top_device_kernels_ms_per_step": [
             [k[:70], ms / n, c / n] for k, ms, c in rows[:12]]}})
+
+
+# -- the file-driven run and the sharded full-physics step --------------------
+
+# the file-driven run: steps by default and with --five-day (the restart
+# halfway), and the setup of `examples/run_5day_from_files.py`
+FILE_STEPS, FIVE_DAY_STEPS = 48, 240
+FILE_SETUP = dict(initial_condition_type="cice_default",
+                  initial_latitude_north=65.0, initial_latitude_south=-65.0)
+SPEED_LIMIT = 3.0
+# the file-driven run's surface temperature is held to TSFC_BUDGET_K on
+# the categories with at least this much ice area in both dtypes
+FILE_RUN_AREA_FLOOR = 1e-3
+PONDS = ("pondArea", "pondDepth", "pondLidThickness")
+# the remap's conservation limit on the pond tracers while the ponds'
+# water is rounding noise: 2.5 times the largest loss read on the H100
+# (1.98e-2 in the five-day run; ROADMAP Queue 3, fault 7)
+POND_NOISE_LIMIT = 5e-2
+
+
+def mpas_fixture():
+    """`tests/mpas_fixture.py` (numpy and scipy), loaded by its path."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "mpas_fixture.py")
+    spec = importlib.util.spec_from_file_location("mpas_fixture", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def write_forcing_files(outdir, mesh):
+    """CORE-layout 6-hourly and monthly atmosphere and NCAR monthly ocean
+    files for `mesh`, written with plain scipy netcdf calls (the files of
+    `examples/run_5day_from_files.py`)."""
+    import os
+    from scipy.io import netcdf_file
+    from seaice_tpu_torch.mesh.rotation import latlon_vector_rotation_forward
+
+    nc = mesh.n_cells
+    lat, lon = mesh.lat_cell, mesh.lon_cell
+
+    def write(path, times, fields):
+        f = netcdf_file(path, "w")
+        f.createDimension("Time", len(times))
+        f.createDimension("nCells", nc)
+        v = f.createVariable("xtime_seconds", "d", ("Time",))
+        v[:] = times
+        for k, a in fields.items():
+            v = f.createVariable(k, "d", ("Time", "nCells"))
+            v[:] = a
+        f.close()
+
+    # 6-hourly atmosphere across the year (16 sample times, cyclic)
+    n_samp = 16
+    t6 = np.linspace(0.0, 365 * 86400.0, n_samp, endpoint=False)
+    t_air, q, u_wind, v_wind = (np.zeros((n_samp, nc)) for _ in range(4))
+    for i, tsec in enumerate(t6):
+        season = np.cos(2 * np.pi * (tsec / (365 * 86400.0) - 14 / 365))
+        t_air[i] = 288.0 - 45.0 * np.sin(np.abs(lat)) ** 2 \
+            - 12.0 * season * np.sin(lat)
+        q[i] = np.clip(5e-3 * np.exp((t_air[i] - 288.0) / 12.0),
+                       1e-4, 2e-2)
+        u_t = 6.0 * np.cos(lat) + 2.0 * np.sin(
+            2 * np.pi * tsec / (10 * 86400.0) + lon)
+        v_t = 1.5 * np.sin(2 * lon + 2 * np.pi * tsec / (5 * 86400.0))
+        u_wind[i], v_wind[i] = latlon_vector_rotation_forward(
+            u_t, v_t, mesh.x_cell, mesh.y_cell, mesh.z_cell)
+    paths = [os.path.join(outdir, n) for n in
+             ("core_sixhourly.nc", "core_monthly.nc", "ocean.nc")]
+    write(paths[0], t6, {
+        "airTemperature": t_air, "airSpecificHumidity": q,
+        "uAirVelocity": u_wind, "vAirVelocity": v_wind})
+    tm = (np.arange(12) + 0.5) * (365.0 * 86400.0 / 12)
+    write(paths[1], tm, {
+        "cloudFraction": np.tile(
+            (0.5 + 0.3 * np.sin(np.abs(lat)))[None, :], (12, 1)),
+        "rainfallRate": np.full((12, nc), 2e-6)})
+    polar = np.abs(lat) > np.deg2rad(65.0)
+    sst = np.where(polar, -1.7, 8.0 + 14.0 * np.cos(lat) ** 2)
+    write(paths[2], tm, {
+        "seaSurfaceTemperature": np.tile(sst[None, :], (12, 1)),
+        "seaSurfaceSalinity": np.full((12, nc), 34.0),
+        "uOceanVelocity": np.zeros((12, nc)),
+        "vOceanVelocity": np.zeros((12, nc)),
+        "oceanMixedLayerDepth": np.full((12, nc), 20.0)})
+    return paths
+
+
+def file_config(C=None):
+    """The north-star column of `bench_full.py` (5 categories, 7+1
+    layers, 120 subcycles, dt 1800 s, metric terms, mushy, dEdd, level
+    ponds, Rothrock, ridging) with the remap's conservation check, built
+    from the config module C (default: the port's)."""
+    if C is None:
+        from seaice_tpu_torch import config as C
+    return C.Config(
+        run=C.RunConfig(dt=1800.0, n_categories=N_CATEGORIES,
+                        n_ice_layers=N_ICE_LAYERS),
+        velocity=C.VelocitySolverConfig(
+            elastic_subcycle_number=N_SUBCYCLES, rotate_cartesian_grid=True,
+            include_metric_terms=True, geostrophic_surface_tilt=False),
+        advection=C.AdvectionConfig(conservation_check=True),
+        column=C.ColumnConfig(ktherm=2, shortwave="dEdd",
+                              pond_scheme="lvl", kstrength=1))
+
+
+def file_inputs(workdir):
+    """The subdiv-SUBDIV mesh file of `tests/mpas_fixture.py` and its
+    forcing files, written once into workdir, read back through the
+    port's readers: (mesh, CoreAtmosForcing, NcarOceanForcing)."""
+    import os
+    from seaice_tpu_torch.io import read_mpas_mesh
+    from seaice_tpu_torch.io.forcing_reader import (core_atmos_from_files,
+                                                    ncar_ocean_from_file)
+    path = os.path.join(workdir, f"mesh_icos{SUBDIV}.nc")
+    t0 = time.perf_counter()
+    mpas_fixture().write_icosahedral_mpas_file(path, subdiv=SUBDIV)
+    t1 = time.perf_counter()
+    mesh = read_mpas_mesh(path)
+    six, mon, ocn = write_forcing_files(workdir, mesh)
+    emit({"file_inputs": {"mesh_file_seconds": t1 - t0,
+                          "read_and_forcing_seconds":
+                              time.perf_counter() - t1,
+                          "cells": mesh.n_cells}})
+    return (mesh, core_atmos_from_files(six, mon, mesh.lon_cell,
+                                        mesh.lat_cell),
+            ncar_ocean_from_file(ocn))
+
+
+def file_runner(inputs, dtype, state=None, device=None):
+    """A StandaloneRunner of `file_config()` on the file mesh in dtype on
+    the card (or `device`), from `FILE_SETUP`'s initial state or from
+    `state`."""
+    from seaice_tpu_torch.model import SeaIceModel
+    from seaice_tpu_torch.namelist import RunSetup, initial_state_from_setup
+    from seaice_tpu_torch.run import StandaloneRunner
+    mesh, atmos, ocean = inputs
+    model = SeaIceModel(mesh, file_config(), dtype=dtype, device=device)
+    if state is None:
+        state = initial_state_from_setup(model, RunSetup(**FILE_SETUP))
+    return StandaloneRunner(model, state, atmos_forcing=atmos,
+                            ocean_forcing=ocean)
+
+
+def runner_step(runner, label):
+    """One step of a runner with the state check fetched after it;
+    returns the host ms of the step."""
+    from seaice_tpu_torch.error import SeaIceAbort
+    t0 = time.perf_counter()
+    try:
+        runner.run(1, check_interval=1)
+    except SeaIceAbort as e:
+        fail(f"{label}: {e}")
+    return 1e3 * (time.perf_counter() - t0)
+
+
+class RemapSums:
+    """Records the global mass-tracer sums the model takes around every
+    remap for its conservation check (`model.global_conserved_sums`,
+    called before and after each remap), so that the remap's
+    conservation error can be read by tracer product."""
+
+    def __enter__(self):
+        from seaice_tpu_torch import model as model_mod
+        self.mod, self.fn, self.sums = model_mod, \
+            model_mod.global_conserved_sums, []
+
+        def recorded(*a, **kw):
+            out = self.fn(*a, **kw)
+            self.sums.append(out)
+            return out
+        model_mod.global_conserved_sums = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.global_conserved_sums = self.fn
+
+    def errors(self):
+        """{product: the largest relative change of its global sum over
+        the remaps recorded since the last call} (0-d tensors)."""
+        pre, post = self.sums[0::2], self.sums[1::2]
+        self.sums = []
+        return {k: torch.stack([(b[k] - a[k]).abs() /
+                                a[k].abs().clamp(min=1e-30)
+                                for a, b in zip(pre, post)]).max()
+                for k in pre[0]}
+
+
+def held_conservation_error(runner, sums):
+    """The remap's conservation error of the runner's last step (from
+    `sums`, a RemapSums), held by tracer product: every product to
+    IR_CONSERVATION_LIMIT, but the three pond tracers, while the ponds'
+    water per unit ice area is under NOISE, to POND_NOISE_LIMIT (ROADMAP
+    Queue 3, fault 7: the remap's sliver repair clamps the pond depth of
+    slivers to the range of the meaningful cells, which is not
+    conservative; under cold forcing the ponds are rounding noise,
+    fault 4).  Returns (the largest error over the products other than
+    the ponds, the ponds' largest error, the pond water in metres, the
+    ponds' limit); fails when a product exceeds its limit."""
+    tr = runner.state.tracers
+    area = runner.model.tensors.area_cell
+    a = tr["iceAreaCategory"]
+    water = ((a * tr["levelIceArea"] * tr["pondArea"] * tr["pondDepth"])
+             .sum(-1) * area).sum() / ((a.sum(-1) * area).sum())
+    by = sums.errors()
+    vals = torch.stack([water.double()] + [e.double() for e in by.values()])
+    water, *errs = vals.cpu().tolist()
+    err = max(e for k, e in zip(by, errs) if k not in PONDS)
+    pond = max(e for k, e in zip(by, errs) if k in PONDS)
+    pond_limit = IR_CONSERVATION_LIMIT if water >= NOISE else POND_NOISE_LIMIT
+    if not err <= IR_CONSERVATION_LIMIT:
+        fail(f"file-driven run: ir_conservation_error {err} > "
+             f"{IR_CONSERVATION_LIMIT} ({dict(zip(by, errs))})")
+    if not pond <= pond_limit:
+        fail(f"file-driven run: the pond tracers' conservation error "
+             f"{pond} > {pond_limit} (pond water {water} m per unit ice "
+             f"area)")
+    return err, pond, water, pond_limit
+
+
+def bare_step_ms(runner, reps=3):
+    """Host ms of the runner's model step alone (synchronised), on the
+    runner's state with the forcing of its next step, reps times after
+    one warm-up step that is not counted; the runner does not advance."""
+    model, state = runner.model, runner.state
+    dyn, atmf, ocnf, coszen = runner.next_step_inputs()
+    out = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.step_fn(model.tensors, state, dyn, atmf, ocnf, coszen=coszen)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out[1:]
+
+
+def file_driven_run(inputs, n_steps, reps, card, workdir):
+    """The file-driven full-physics run (K1 + K2, f32) through
+    StandaloneRunner: step 1 from rest recorded (K1's short loop against
+    its plain version, held to ten times the plain loop's one-ulp
+    response: from rest the EVP loop amplifies rounding far more, ROADMAP
+    Queue 3 fault 2), step 2 recorded (K1 and K2 against their plain
+    versions on its inputs, `check_loop` and `k2_on_path`), then the
+    path: counts to 0, steps 3 to n_steps with the state check after
+    every step and a checkpoint after step n_steps / 2; a second runner
+    restarted from it runs the second half, and the two final states
+    must be bitwise equal; before its steps, the bare model step on the
+    checkpoint's state (`bare_step_ms`, against ms per runner step), and
+    its first two steps traced for the device idle share
+    (`trace_steps`).  Then the same n_steps in f64, twice, the second
+    rounded to f32 once after step 1 (`hold_file_run_to_f64`)."""
+    import os
+    from seaice_tpu_torch.io import load_checkpoint, save_checkpoint
+    from seaice_tpu_torch.kernels import (launch_counts, reset_launch_counts,
+                                          wrappers)
+    label = "file-driven run"
+    half = n_steps // 2
+    t0 = time.perf_counter()
+    runner = file_runner(inputs, torch.float32)
+    model = runner.model
+    emit({"model": {"path": label, "seconds_to_build":
+                    time.perf_counter() - t0, "cells": model.mesh.n_cells,
+                    "dtype": "float32", "tracers": model.tree.names,
+                    "steps": n_steps, "restart_after": half}})
+    # step 1 from rest: K1's short loop held to its plain version at the
+    # larger of SHORT_LOOP_TOL and ten times the plain loop's response to
+    # its inputs one ulp larger (from rest the loop amplifies rounding
+    # far more; ROADMAP Queue 3, fault 2)
+    _, calls = capture_calls(lambda: runner_step(runner, label))
+    e, resp = short_loop("evp_subcycle_loop", cast(
+        calls["evp_subcycle_loop"][0][0], torch.float32),
+        calls["evp_subcycle_loop"][0][1])
+    lim = {n: max(SHORT_LOOP_TOL, 10.0 * max(r[n] for r in resp.values()))
+           for n in e}
+    emit({"file_run_k1_step1_short_loop": {
+        "subcycles": SHORT_LOOP, "rel_err_f32": e,
+        "plain_one_ulp_response": resp, "limit": lim}})
+    if any(not e[n] <= lim[n] for n in e):
+        fail(f"{label}, step 1: K1's {SHORT_LOOP} subcycles disagree with "
+             f"the plain version, {e} > {lim}")
+    del calls
+    _, calls = capture_calls(lambda: runner.run(1, check_interval=1))
+    if set(calls) != {"evp_subcycle_loop", "integrate_fluxes_cuda"}:
+        fail(f"{label}: the step called {sorted(calls)}")
+    k1 = check_loop("evp_subcycle_loop", calls["evp_subcycle_loop"][0],
+                    min(reps, 3))
+    emit({"file_run_k1_against_plain": {
+        k: v for k, v in k1.items()
+        if "err" in k or k in ("ms", "plain_ms", "bound_ms", "shapes")}})
+    k2_on_path(label, calls["integrate_fluxes_cuda"])
+    del calls
+
+    # the path: steps 2 .. n_steps, a checkpoint after step `half`
+    ckpt = os.path.join(workdir, "restart_half.npz")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms, ir_err, iters, ponds, pond_err, pond_lim = [], [], [], [], [], []
+    with RemapSums() as sums:
+        for i in range(3, n_steps + 1):
+            ms.append(runner_step(runner, label))
+            err, perr, water, plim = held_conservation_error(runner, sums)
+            ir_err.append(err)
+            pond_err.append(perr)
+            ponds.append(water)
+            pond_lim.append(plim)
+            iters.append(runner.diags["column_fluxes"].thermo_iterations)
+            if i == half:
+                save_checkpoint(ckpt, runner.state, {
+                    "year": runner.clock.year,
+                    "seconds": runner.clock.seconds})
+    counts = launch_counts()
+    inner = {name: fn.inner_launches for name, fn in wrappers().items()
+             if getattr(fn, "inner_launches", 0)}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    f32 = global_fields(model, runner.state)
+    u, v = f32["u"], f32["v"]
+    max_u = float(np.sqrt(u * u + v * v).max())
+    aice_max = float(f32["iceAreaCategory"].sum(-1).max())
+    n_dyn = model.cfg.velocity.dynamics_subcycle_number
+    out = {"path": label, "steps": n_steps - 2, "card": card,
+           "ms_per_runner_step": ms,
+           "ms_per_runner_step_median": float(np.median(ms)),
+           "launches": counts, "inner_launches": inner,
+           "max_speed": max_u, "aice_max": aice_max,
+           "ir_conservation_error_max": max(ir_err),
+           "ir_conservation_error_per_step": ir_err,
+           "pond_water_per_ice_area_m_per_step": ponds,
+           "ir_conservation_error_pond_tracers_per_step": pond_err,
+           "ir_conservation_limit_pond_tracers_per_step": pond_lim,
+           "thermo_iterations_per_step": iters,
+           "ice_area_sum": float(f32["iceAreaCategory"].sum()),
+           "peak_mem_mb": peak, "timers": runner.timers.totals}
+    emit({"main_path": out})
+    for name, t in f32.items():
+        if not np.isfinite(t).all():
+            fail(f"{label}: {name} is not finite")
+    if not 0.0 < max_u < SPEED_LIMIT:
+        fail(f"{label}: max |u| = {max_u} outside (0, {SPEED_LIMIT}) m/s")
+    if not aice_max <= 1.0 + 1e-6:
+        fail(f"{label}: aice = {aice_max} > 1 + 1e-6")
+    want = {"evp_subcycle_loop": n_dyn * (n_steps - 2),
+            "integrate_fluxes_cuda": n_dyn * (n_steps - 2)}
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            fail(f"{label}: {name} launched {n} times in {n_steps - 2} "
+                 f"steps, expected {want.get(name, 0)}")
+    if inner.get("evp_subcycle_loop") != counts["evp_subcycle_loop"]:
+        fail(f"{label}: K1 made {inner.get('evp_subcycle_loop')} kernel "
+             f"launches in {counts['evp_subcycle_loop']} calls, not one each")
+
+    # the restart: a new model and runner from the checkpoint; on its
+    # state the bare model step, then its first two steps traced
+    st, meta = load_checkpoint(ckpt)
+    second = file_runner(inputs, torch.float32, st)
+    second.restore_clock(meta)
+    bare_ms = bare_step_ms(second)
+    trace_steps(label, model, None, None, float(np.median(ms)),
+                phases={"bare_model_step_ms": float(np.median(bare_ms)),
+                        "bare_model_step_ms_each": bare_ms,
+                        "runner_step_ms": float(np.median(ms)),
+                        "traced_steps": [half + 1, half + 2]},
+                advance=lambda: runner_step(second, label + ", restarted"))
+    for _ in range(n_steps - half - 2):
+        runner_step(second, label + ", restarted")
+    got = global_fields(second.model, second.state)
+    differ = [k for k in f32 if not np.array_equal(f32[k], got[k])]
+    emit({"file_run_restart": {
+        "restart_after": half, "steps_after_restart": n_steps - half,
+        "bitwise": not differ, "fields_differing": differ,
+        "clock": [second.clock.timestamp(), runner.clock.timestamp()],
+        "state_time": [float(second.state.time), float(runner.state.time)]}})
+    if differ or second.clock.seconds != runner.clock.seconds:
+        fail(f"{label}: the restarted run differs from the straight run in "
+             f"{differ}")
+    del runner, second, st
+    torch.cuda.empty_cache()
+
+    # the same steps in f64, the comparison run, and beside it the f64
+    # run rounded to f32 once after step 1: not gated by the state
+    # check, whose column rule fails the f64 run on a sliver of ice at
+    # step 49 (ROADMAP Queue 3, fault 6; the reference's column flags the
+    # same cell on the same inputs); the flagged columns are counted
+    third = file_runner(inputs, torch.float64)
+    fourth = file_runner(inputs, torch.float64)
+    unconv64 = []
+    for i in range(n_steps):
+        for r in (third, fourth):
+            r.run(1, check_interval=2)      # one step: no check fetched
+        if i == 0:
+            fourth.state = rounded(fourth.state, torch.float32)
+        unconv64.append(int(third.diags["column_fluxes"].warnings[
+            "thermo_unconverged"].sum()))
+    hold_file_run_to_f64(label, f32, global_fields(third.model, third.state),
+                         global_fields(fourth.model, fourth.state),
+                         third.model.mesh.area_cell, n_steps,
+                         {"f64_thermo_unconverged_per_step": unconv64})
+    del third, fourth
+    torch.cuda.empty_cache()
+    return counts
+
+
+def file_run_distances(a, b, area_cell):
+    """Run a's fields against run b's (global numpy fields): the global
+    totals of ice area, volume, energy (volume x enthalpy) and salt,
+    relative; and on the categories with at least FILE_RUN_AREA_FLOOR of
+    ice area in both runs, area, volume and enthalpy relative to b's max
+    of the field and the surface temperature in K."""
+    def totals(f):
+        v, n = f["iceVolumeCategory"], f["iceEnthalpy"].shape[-1]
+        layer = (v / n)[..., None]
+        return {"area": (f["iceAreaCategory"].sum(-1) * area_cell).sum(),
+                "volume": (v.sum(-1) * area_cell).sum(),
+                "energy": ((layer * f["iceEnthalpy"]).sum((-2, -1)) *
+                           area_cell).sum(),
+                "salt": ((layer * f["iceSalinity"]).sum((-2, -1)) *
+                         area_cell).sum()}
+    ta, tb = totals(a), totals(b)
+    out = {"total_" + k: float(abs(ta[k] - tb[k]) / abs(tb[k])) for k in tb}
+    keep = (a["iceAreaCategory"] >= FILE_RUN_AREA_FLOOR) & \
+        (b["iceAreaCategory"] >= FILE_RUN_AREA_FLOOR)
+    for k in F32_F64_BUDGET:
+        d = np.abs(a[k] - b[k])
+        out[k + "_where_area_ge_floor"] = float(
+            d[keep].max() / max(float(np.abs(b[k]).max()), 1e-300)) \
+            if keep.any() else 0.0
+    out["surfaceTemperature_K_where_area_ge_floor"] = float(np.abs(
+        a["surfaceTemperature"] - b["surfaceTemperature"])[keep].max()) \
+        if keep.any() else 0.0
+    out["categories_held"] = int(keep.sum())
+    return out
+
+
+def rounded(state, dtype):
+    """The state with every floating tensor rounded to dtype and back."""
+    import dataclasses
+
+    def r(t):
+        return t.to(dtype).to(t.dtype) \
+            if isinstance(t, torch.Tensor) and t.is_floating_point() else t
+    vel = state.velocity
+    return state.replace(
+        tracers={k: r(t) for k, t in state.tracers.items()},
+        velocity=vel.replace(**{f.name: r(getattr(vel, f.name))
+                                for f in dataclasses.fields(vel)}))
+
+
+def hold_file_run_to_f64(label, f32, f64, f64r, area_cell, n_steps, extra):
+    """The float32 file-driven run (f32) against the same steps in
+    float64 (f64), beside the float64 run with its state rounded to
+    float32 once after step 1 (f64r: the float64 run's own response to
+    one float32 rounding).  Held (`file_run_distances`): the global
+    totals of ice area and volume to 3.3e-5 and of ice energy to 1.4e-4,
+    relative (BASELINE.md's budget; a state rounded to bfloat16 every
+    step leaves them after one step, PERF.md section 6); on the
+    categories with at least FILE_RUN_AREA_FLOOR of ice area in both
+    runs, area, volume and enthalpy to the larger of the budget and ten
+    times f64r's distance there, and the surface temperature to
+    TSFC_BUDGET_K.  The EVP loop amplifies rounding (ROADMAP Queue 3,
+    faults 2 and 6): after 48 steps one float32 rounding of the float64
+    state moves those categories further than the float32 run's own
+    distance, far past the budget.  Printed, not held: the distances on
+    every category (at the ice edge a category of 1e-9 area holds ice in
+    one run and not in the other), the salt total, the velocity, and the
+    categories with ice in one run only."""
+    out = file_run_distances(f32, f64, area_cell)
+    resp = file_run_distances(f64r, f64, area_cell)
+    unheld = {k: rel_err(torch.as_tensor(f32[k]).double(),
+                         torch.as_tensor(f64[k]))
+              for k in list(F32_F64_BUDGET) + ["u", "v"]}
+    unheld["surfaceTemperature_max_abs_K"] = float(np.abs(
+        f32["surfaceTemperature"] - f64["surfaceTemperature"]).max())
+    unheld["categories_with_ice_in_one_run_only"] = int(
+        ((f32["iceAreaCategory"] > 1e-11) !=
+         (f64["iceAreaCategory"] > 1e-11)).sum())
+    limits = {"total_area": F32_F64_BUDGET["iceAreaCategory"],
+              "total_volume": F32_F64_BUDGET["iceVolumeCategory"],
+              "total_energy": F32_F64_BUDGET["iceEnthalpy"],
+              "surfaceTemperature_K_where_area_ge_floor": TSFC_BUDGET_K}
+    for k, budget in F32_F64_BUDGET.items():
+        k = k + "_where_area_ge_floor"
+        limits[k] = max(budget, 10.0 * resp[k])
+    emit({"file_run_f32_vs_f64": dict(
+        out, steps=n_steps, limits=limits, f64_rounded_to_f32_once=resp,
+        pointwise_unheld=unheld, **extra)})
+    for k, lim in limits.items():
+        if not out[k] <= lim:
+            fail(f"{label}: f32 {k} differs from f64 by {out[k]} > {lim} "
+                 f"(the f64 run rounded to f32 once: {resp[k]})")
+
+
+def sharded_full_physics(workdir, gap, card, reps):
+    """The raw sphere in SHARDS blocks on the card with the column (K6 +
+    K2): two steps against the unsharded full-physics step (K1) from the
+    same state and forcing, the second recorded (K6 and K2 against their
+    plain versions on its inputs, `check_k6` and `k2_on_path`, reps
+    timing repetitions), held to the larger of 1e-7 and ten times the
+    unsharded second step's response to a one-ulp perturbation of its
+    velocities and stresses (fields under NOISE held to NOISE; the pond
+    fields printed, not held, where the unsharded pond water is under
+    NOISE metres), printed beside `gap`, the column-off sharded sphere's
+    distance in this run (the K1/K6 contraction gap); one counted step
+    (K6 and K2 launches); then two steps of ShardedStandaloneRunner from
+    files, with its state check, whose sharded checkpoint must read back
+    bitwise."""
+    from seaice_tpu_torch.io import (load_sharded_checkpoint,
+                                     read_restart_timestamp)
+    from seaice_tpu_torch.io.forcing_reader import (core_atmos_from_files,
+                                                    ncar_ocean_from_file)
+    from seaice_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from seaice_tpu_torch.parallel import ShardedSeaIceModel
+    from seaice_tpu_torch.run import RunStreams, ShardedStandaloneRunner
+    label = "sharded full physics"
+    t0 = time.perf_counter()
+    model, state, forcing, col = full_physics_case(
+        SUBDIV, N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES, torch.float32, None,
+        panel=False)
+    sm = ShardedSeaIceModel(model.mesh, model.cfg, SHARDS,
+                            dtype=torch.float32)
+    tr = {k: t.cpu().numpy() for k, t in state.tracers.items()}
+    sstate = [st.replace(tracers=t) for st, t in
+              zip(sm.init_state(), sm.scatter_cell_tree(tr))]
+    sforcing = sm.scatter_cell_tree(forcing)
+    scol = tuple(sm.scatter_cell_tree(x) for x in col)
+    emit({"model": {"path": label, "seconds_to_build":
+                    time.perf_counter() - t0, "cells": model.mesh.n_cells,
+                    "blocks": SHARDS, "dtype": "float32",
+                    "tracers": sm.tree.names}})
+    step, sstep = stepper(model, col), stepper(sm, scol)
+    rows, states = [], []
+    for i in range(2):
+        states.append(state)
+        if i == 0:
+            sstate, _ = sstep(sstate, sforcing)
+        else:
+            sstate, calls = capture_kernel_inputs(sm, sstate, sforcing,
+                                                  scol)
+        state, _ = step(state, forcing)
+        torch.cuda.synchronize()
+        got, want = global_fields(sm, sstate), global_fields(model, state)
+        rows.append({k: float(np.abs(got[k] - want[k]).max()) /
+                     max(float(np.abs(want[k]).max()), 1e-300)
+                     for k in want})
+    if set(calls) != {"evp_subcycle_prepare", "integrate_fluxes_cuda"} \
+            or len(calls["evp_subcycle_prepare"]) != SHARDS:
+        fail(f"{label}: the step called "
+             f"{ {k: len(v) for k, v in calls.items()} }")
+    # K6 on the blocks' Rothrock strength and K2 with the column's tracer
+    # table, each against its plain version on this step's inputs
+    k6 = check_k6(sm, calls["evp_subcycle_prepare"], reps,
+                  short_loop_from_response=True)
+    emit({"sharded_full_physics_k6_against_plain": {
+        k: v for k, v in k6.items() if "err" in k or k in (
+            "short_loop_limit", "ms", "plain_ms", "bound_ms", "shapes")}})
+    k2_on_path(label, calls["integrate_fluxes_cuda"])
+    del calls
+    ulp = 1.0 + 2.0 ** -23
+    vel = states[1].velocity
+    pert = states[1].replace(velocity=vel.replace(**{
+        k: getattr(vel, k) * ulp for k in (
+            "u_velocity", "v_velocity", "stress11", "stress22", "stress12")}))
+    pstate, _ = step(pert, forcing)
+    pw = global_fields(model, pstate)
+    resp = {k: float(np.abs(pw[k] - want[k]).max()) /
+            max(float(np.abs(want[k]).max()), 1e-300) for k in want}
+    noise = sorted(k for k in want if float(np.abs(want[k]).max()) < NOISE)
+    # melt ponds whose water is rounding noise (ROADMAP Queue 3, fault 4:
+    # under this cold forcing a pond's area and depth grow from a melt of
+    # 1e-19 m, so they follow the last bit of the melt): not held
+    pond_water = float((want["pondArea"] * want["pondDepth"] *
+                        want["levelIceArea"] *
+                        want["iceAreaCategory"]).sum(-1).max())
+    unheld = sorted(k for k in PONDS if k not in noise) \
+        if pond_water < NOISE else []
+    held = [k for k in want if k not in noise and k not in unheld]
+    limit = max(1e-7, 10.0 * max(resp[k] for k in held))
+    worst = max(r[k] for r in rows for k in held)
+    out = {"blocks": SHARDS, "card": card, "after_step": rows,
+           "max_rel_diff": worst, "one_ulp_response": resp, "limit": limit,
+           "noise_fields": noise, "pond_water_max_m": pond_water,
+           "unheld_noise_ponds": unheld,
+           "column_off_sharded_max_rel_diff_this_run": gap}
+    del pstate, pert, states
+    # one counted step
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sstate, _ = sstep(sstate, sforcing)
+    torch.cuda.synchronize()
+    out["ms_per_step"] = 1e3 * (time.perf_counter() - t0)
+    counts = launch_counts()
+    out["launches_per_step"] = counts
+    emit({"sharded_full_physics": out})
+    if not worst <= limit:
+        fail(f"{label}: sharded and unsharded steps disagree: {worst} > "
+             f"{limit}")
+    for k in noise:
+        if not float(np.abs(got[k]).max()) < NOISE:
+            fail(f"{label}: {k} is noise unsharded and not sharded")
+    n_dyn = model.cfg.velocity.dynamics_subcycle_number
+    want_counts = {"evp_subcycle_step": N_SUBCYCLES * n_dyn,
+                   "integrate_fluxes_cuda": SHARDS * n_dyn}
+    for name, n in counts.items():
+        if n != want_counts.get(name, 0):
+            fail(f"{label}: {name} launched {n} times in one step, "
+                 f"expected {want_counts.get(name, 0)}")
+    del model, state, forcing, col, step
+    torch.cuda.empty_cache()
+
+    # two steps of the sharded runner from forcing files of this mesh
+    import os
+    fdir = os.path.join(workdir, "raw_sphere")
+    os.makedirs(fdir)
+    six, mon, ocn = write_forcing_files(fdir, sm.global_mesh)
+    atmos = core_atmos_from_files(six, mon, sm.global_mesh.lon_cell,
+                                  sm.global_mesh.lat_cell)
+    runner = ShardedStandaloneRunner(
+        sm, sstate, atmos_forcing=atmos, ocean_forcing=ncar_ocean_from_file(
+            ocn), streams=RunStreams(restart_dir=fdir,
+                                     restart_interval=2 * 1800.0))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runner.run(1)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    rcounts = launch_counts()
+    ts = read_restart_timestamp(fdir)
+    back, clock = load_sharded_checkpoint(fdir, f"restart.{ts}", sm.part,
+                                          sm.init_state())
+    got, want = global_fields(sm, back), global_fields(sm, runner.state)
+    differ = [k for k in want if not np.array_equal(got[k], want[k])]
+    g = global_fields(sm, runner.state)
+    max_u = float(np.sqrt(g["u"] ** 2 + g["v"] ** 2).max())
+    emit({"sharded_runner": {
+        "steps": 2, "ms_per_runner_step": ms, "launches": rcounts,
+        "restart": ts, "clock": clock, "restart_bitwise": not differ,
+        "fields_differing": differ, "max_speed": max_u}})
+    if differ:
+        fail(f"sharded runner: the sharded checkpoint reads back with "
+             f"{differ} changed")
+    if not all(np.isfinite(a).all() for a in g.values()) or \
+            not max_u < SPEED_LIMIT:
+        fail(f"sharded runner: state not finite or max |u| = {max_u}")
+    for name, n in rcounts.items():
+        if n != 2 * want_counts.get(name, 0):
+            fail(f"sharded runner: {name} launched {n} times in 2 steps, "
+                 f"expected {2 * want_counts.get(name, 0)}")
+    return counts, rcounts
+
+
+def add_launches(kernels, path, counts):
+    """Record a path's launch counts on the kernels it launched:
+    `launches_by_path[path]`, and `launches` the sum over the paths."""
+    for name, n in counts.items():
+        if n and name in kernels:
+            by = kernels[name].setdefault("launches_by_path", {})
+            by[path] = n
+            kernels[name]["launches"] = sum(by.values())
 
 
 def small_reference():
@@ -1654,6 +2408,10 @@ def main():
     ap.add_argument("--drift", action="store_true",
                     help="also print how far float64 evaluations of the "
                     "EVP loop drift apart on the panel sphere")
+    ap.add_argument("--five-day", action="store_true",
+                    help=f"the file-driven run's full gate: "
+                    f"{FIVE_DAY_STEPS} steps (five days), the restart "
+                    f"halfway, in place of {FILE_STEPS}")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1705,7 +2463,7 @@ def main():
     state, counts, _ = main_path(
         "raw sphere", model, state, forcing, 1,
         {"evp_subcycle_loop": 1, "integrate_fluxes_cuda": 1})
-    kernels["evp_subcycle_loop"]["launches"] = counts["evp_subcycle_loop"]
+    add_launches(kernels, "raw sphere", counts)
     del model, state, forcing, step
     torch.cuda.empty_cache()
 
@@ -1730,8 +2488,8 @@ def main():
                if a.dtype.kind == "f" and not np.isfinite(a).all()]
         if bad:
             fail(f"sharded sphere, block {s}: non-finite tensors {bad}")
-    sstate, calls = sharded_against_unsharded(smodel, sstate, sforcing, *raw,
-                                              min(args.reps, 3))
+    sstate, calls, k1_k6_gap = sharded_against_unsharded(
+        smodel, sstate, sforcing, *raw, min(args.reps, 3))
     del raw
     if set(calls) != {"evp_subcycle_prepare", "integrate_fluxes_cuda"} \
             or len(calls["evp_subcycle_prepare"]) != SHARDS:
@@ -1744,7 +2502,7 @@ def main():
     sstate, counts, sharded_ms = main_path(
         "sharded sphere", smodel, sstate, sforcing, 1,
         {"evp_subcycle_step": N_SUBCYCLES, "integrate_fluxes_cuda": SHARDS})
-    kernels["evp_subcycle_step"]["launches"] = counts["evp_subcycle_step"]
+    add_launches(kernels, "sharded sphere", counts)
     if args.profile:
         trace_steps("sharded sphere", smodel, sstate, sforcing, sharded_ms)
     del smodel, sstate, sforcing
@@ -1772,9 +2530,7 @@ def main():
     state, counts, step_ms = main_path(
         "panel sphere", model, state, forcing, args.steps,
         {"evp_panel_loop": 1, "integrate_fluxes_cuda": 1})
-    kernels["evp_panel_loop"]["launches"] = counts["evp_panel_loop"]
-    kernels["integrate_fluxes_cuda"]["launches"] = \
-        counts["integrate_fluxes_cuda"]
+    add_launches(kernels, "panel sphere", counts)
     if args.profile:
         profile(model, state, forcing, step_ms)
     # the same model, the per-subcycle route: same tensors, another config
@@ -1793,7 +2549,7 @@ def main():
     _, counts, route_ms = main_path(
         "panel sphere, per-subcycle route", model5, state, forcing, 1,
         {"panel_cell_step": N_SUBCYCLES, "integrate_fluxes_cuda": 1})
-    kernels["panel_cell_step"]["launches"] = counts["panel_cell_step"]
+    add_launches(kernels, "panel sphere, per-subcycle route", counts)
     kernels["panel_cell_step"]["route_ms_per_step"] = route_ms
     del model, model5, state, forcing, step
     torch.cuda.empty_cache()
@@ -1814,7 +2570,7 @@ def main():
     state, counts, _ = main_path(
         "raster box", model, state, forcing, args.steps,
         {"evp_raster_loop": 1})
-    kernels["evp_raster_loop"]["launches"] = counts["evp_raster_loop"]
+    add_launches(kernels, "raster box", counts)
     del model, state, forcing, step
     torch.cuda.empty_cache()
 
@@ -1857,6 +2613,26 @@ def main():
     torch.cuda.empty_cache()
     f32_against_f64(f32_fields, 2 + args.steps)
     del f32_fields
+    torch.cuda.empty_cache()
+
+    # --- the file-driven run (K1 + K2) and the sharded full-physics step
+    # (K6 + K2), their files written into a temporary directory ---
+    import shutil
+    import tempfile
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        inputs = file_inputs(workdir)
+        counts = file_driven_run(
+            inputs, FIVE_DAY_STEPS if args.five_day else FILE_STEPS,
+            args.reps, card, workdir)
+        add_launches(kernels, "file-driven run", counts)
+        del inputs
+        counts, rcounts = sharded_full_physics(workdir, k1_k6_gap, card,
+                                               min(args.reps, 3))
+        add_launches(kernels, "sharded full physics", counts)
+        add_launches(kernels, "sharded runner", rcounts)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
 
     small_reference()

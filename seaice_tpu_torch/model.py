@@ -13,7 +13,8 @@ ridging inside each dynamics subcycle, and the post-dynamics
 aggregation.  The body of the dynamics subcycles,
 `dynamics_transport_steps`, is a generator that stops at every halo
 exchange (`utils/lockstep.py`): `SeaIceModel` runs it alone,
-`parallel/sharded.py` runs one per block (without the column physics).
+`parallel/sharded.py` runs one per block, with the column phases
+before and after it on each block's cells.
 """
 
 from __future__ import annotations
@@ -310,27 +311,39 @@ class SeaIceModel:
             ice, aerosols, calc_Tsfc=False), which raise when the model
             is built (ROADMAP.md Queue 1 item 10)."""
             thermo = column is not None and atmos is not None
-            fluxes = None
             if thermo:
-                tr, fluxes = column.step_thermodynamics(
-                    cfg.run.dt, dict(state.tracers), atmos, ocean,
-                    coszen=coszen)
-                state = state.replace(tracers=tr)
+                state, fluxes = column_before_dynamics(
+                    cfg, column, state, atmos, ocean, coszen)
             new_state, diags = drive(body(tensors, state, forcing))
             if thermo:
-                # post-dynamics: snow physics + coupling prep
-                # (reference column.F:1208)
-                wind = torch.sqrt(atmos.u_air ** 2 + atmos.v_air ** 2)
-                tr, post = column.step_post_dynamics(
-                    cfg.run.dt, new_state.tracers, wind=wind,
-                    snow_rate=atmos.snow_rate)
-                diags["coupling_prep"] = post
-                new_state = new_state.replace(tracers=tr)
-            if fluxes is not None:
-                diags["column_fluxes"] = fluxes
+                new_state, diags = column_after_dynamics(
+                    cfg, column, new_state, diags, atmos, fluxes)
             return new_state, diags
 
         return step
+
+
+def column_before_dynamics(cfg: Config, column: ColumnPhysics, state: State,
+                           atmos: AtmosForcing, ocean: OceanForcing,
+                           coszen=None):
+    """The column phase before the dynamics: vertical and ITD
+    thermodynamics, per cell.  Returns (state, ColumnFluxes)."""
+    tr, fluxes = column.step_thermodynamics(
+        cfg.run.dt, dict(state.tracers), atmos, ocean, coszen=coszen)
+    return state.replace(tracers=tr), fluxes
+
+
+def column_after_dynamics(cfg: Config, column: ColumnPhysics, state: State,
+                          diags, atmos: AtmosForcing, fluxes):
+    """The column phase after the dynamics, per cell: snow physics and
+    coupling prep (reference column.F:1208).  Returns (state, diags)
+    with the coupling prep and the thermodynamics' fluxes in diags."""
+    wind = torch.sqrt(atmos.u_air ** 2 + atmos.v_air ** 2)
+    tr, post = column.step_post_dynamics(
+        cfg.run.dt, state.tracers, wind=wind, snow_rate=atmos.snow_rate)
+    diags["coupling_prep"] = post
+    diags["column_fluxes"] = fluxes
+    return state.replace(tracers=tr), diags
 
 
 def check_kernel_options(cfg: Config):

@@ -36,9 +36,17 @@ those buffers, through a table fixed when the model is built:
 
 Both give every real halo slot the same value, bitwise.  All blocks live
 on one device: several devices (peer copies or NCCL) and `overlap=True`
-raise NotImplementedError (ROADMAP Queue 1 item 10), the column package
-too (ROADMAP Queue 1 item 4).  `full_physics_inputs` is the port's copy
-of the JAX package's full-physics initial state and forcing.
+raise NotImplementedError (ROADMAP Queue 1 item 10).
+
+With the column package each block runs the column physics on all its
+local cells (owned and halo), as the JAX package's `shard_body` does:
+thermodynamics before the dynamics, the Rothrock strength and the
+ridging inside each dynamics subcycle, the post-dynamics phase after.
+The column is per cell and a halo cell carries the same tracers and
+forcing as its owner, so no exchange is added: the tracer halo refresh
+after each remap already carries every tracer.  `full_physics_inputs`
+is the port's copy of the JAX package's full-physics initial state and
+forcing.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from ..dynamics.cuda_unstructured import (evp_subcycle_share_uv,
                                           evp_subcycle_step)
 from ..mesh.core import Mesh
 from ..model import (SeaIceModel, State, check_kernel_options,
+                     column_after_dynamics, column_before_dynamics,
                      dynamics_transport_steps)
 from ..transport.remap import make_remap_step
 from ..utils.containers import tensor_dataclass
@@ -153,10 +162,6 @@ class ShardedSeaIceModel:
         one), one device, or a list of devices that names one device.
         halo_mode: "ring" (rounds of neighbour copies, default) or
         "allgather".  tracer_tree: as `SeaIceModel` takes it."""
-        if cfg.column.use_column_package:
-            raise NotImplementedError(
-                "the sharded step with the column physics: a later slice "
-                "of the port (ROADMAP Queue 1 item 4)")
         if overlap:
             raise NotImplementedError(
                 "overlap=True: the interior/boundary overlap of the halo "
@@ -358,12 +363,16 @@ class ShardedSeaIceModel:
         evp_subcycle_step(*loops)
 
     def make_step(self):
-        """Build step(tensors, halo, state, forcing) -> (state, diags),
-        each a list with one entry per block: the dynamics-transport step
-        of `SeaIceModel` on every block, in lockstep, the velocity solve by
-        the one-subcycle EVP kernel with the vertex halo refreshed between
-        subcycles.  The config's optional conservation and monotonicity
-        checks sum over a block and are left out, as in the JAX package."""
+        """Build step(tensors, halo, state, forcing, atmos=None,
+        ocean=None, coszen=None) -> (state, diags), each argument a list
+        with one entry per block: the step of `SeaIceModel` on every
+        block, in lockstep, the velocity solve by the one-subcycle EVP
+        kernel with the vertex halo refreshed between subcycles.  With
+        the column package and `atmos` (AtmosForcing, OceanForcing and
+        coszen per block, as `scatter_cell_tree` makes them) each block
+        runs the column phases on its own cells.  The config's optional
+        conservation and monotonicity checks sum over a block and are
+        left out, as in the JAX package."""
         cfg = self.cfg
         check_kernel_options(cfg)
         vel_solve = evp.velocity_solve_steps(cfg, halo=True)
@@ -374,10 +383,13 @@ class ShardedSeaIceModel:
             remap_step = make_remap_step(
                 self.tree, self.global_mesh.vertex_degree,
                 monotonic=cfg.advection.monotonic)
-        body = dynamics_transport_steps(cfg, self.tree, vel_solve,
-                                        remap_step, adv_checks=False)
+        columns = [m.column for m in self.models]
+        bodies = [dynamics_transport_steps(cfg, self.tree, vel_solve,
+                                           remap_step, adv_checks=False,
+                                           column=col) for col in columns]
 
-        def step(tensors, halo, state, forcing):
+        def step(tensors, halo, state, forcing, atmos=None, ocean=None,
+                 coszen=None):
             solve = {}          # the K6 loops of the solve under way
 
             def advance(kind, fields):
@@ -386,9 +398,21 @@ class ShardedSeaIceModel:
                 else:
                     self.exchange(kind, fields, halo, solve)
 
+            blocks = range(self.n_shards)
+            thermo = columns[0] is not None and atmos is not None
+            if thermo:
+                coszen = coszen or [None] * self.n_shards
+                pre = [column_before_dynamics(cfg, columns[s], state[s],
+                                              atmos[s], ocean[s], coszen[s])
+                       for s in blocks]
+                state = [p[0] for p in pre]
             outs = drive_lockstep(
-                [body(t, st, f) for t, st, f in zip(tensors, state, forcing)],
-                advance)
+                [body(t, st, f) for body, t, st, f in
+                 zip(bodies, tensors, state, forcing)], advance)
+            if thermo:
+                outs = [column_after_dynamics(cfg, columns[s], *outs[s],
+                                              atmos[s], pre[s][1])
+                        for s in blocks]
             return [o[0] for o in outs], [o[1] for o in outs]
 
         return step

@@ -41,6 +41,14 @@ MODULES = [
     "seaice_tpu_torch.kernels.build", "seaice_tpu_torch.native",
     "seaice_tpu_torch.parallel", "seaice_tpu_torch.parallel.partition",
     "seaice_tpu_torch.parallel.sharded", "seaice_tpu_torch.utils.lockstep",
+    "seaice_tpu_torch.forcing", "seaice_tpu_torch.forcing.clock",
+    "seaice_tpu_torch.forcing.core", "seaice_tpu_torch.io",
+    "seaice_tpu_torch.io.mesh_reader", "seaice_tpu_torch.io.forcing_reader",
+    "seaice_tpu_torch.io.state_reader", "seaice_tpu_torch.io.checkpoint",
+    "seaice_tpu_torch.io.output", "seaice_tpu_torch.io.parallel",
+    "seaice_tpu_torch.testcases.ic", "seaice_tpu_torch.namelist",
+    "seaice_tpu_torch.diagnostics", "seaice_tpu_torch.error",
+    "seaice_tpu_torch.run",
 ]
 
 
@@ -73,7 +81,12 @@ def test_sources_do_not_name_the_jax_package_in_imports():
     for new in ("mesh/panels.py", "mesh/structured.py",
                 "dynamics/variational_panel.py", "dynamics/cuda_panel.py",
                 "dynamics/cuda_panel_fused.py", "dynamics/cuda_raster.py",
-                "parallel/partition.py", "parallel/sharded.py"):
+                "parallel/partition.py", "parallel/sharded.py",
+                "forcing/clock.py", "forcing/core.py", "io/mesh_reader.py",
+                "io/forcing_reader.py", "io/state_reader.py",
+                "io/checkpoint.py", "io/output.py", "io/parallel.py",
+                "testcases/ic.py", "namelist.py", "diagnostics.py",
+                "error.py", "run.py"):
         assert os.path.join("seaice_tpu_torch", new) in names
     for path in files:
         with open(path) as f:
@@ -95,6 +108,7 @@ def _public_constructors():
     """Every public constructor of the port that takes a device, as
     {name: call(device)}; `...` stands for "the argument left out"."""
     from seaice_tpu_torch.dynamics import evp, variational_fast as vf
+    from seaice_tpu_torch.io import load_checkpoint, load_sharded_checkpoint
     from seaice_tpu_torch.dynamics import variational_panel as vpn
     from seaice_tpu_torch.mesh.panels import panel_reorder
     from seaice_tpu_torch.mesh import icosahedral_mesh
@@ -112,6 +126,7 @@ def _public_constructors():
     geom = build_remap_geometry(mesh)
     bmesh = box.box_test_mesh(4, 4)
     f64 = torch.float64
+    ckpt = _checkpoints(mesh, cfg)
 
     def with_device(fn, *args):
         return lambda device: fn(*args) if device is ... else \
@@ -147,13 +162,44 @@ def _public_constructors():
         "box_forcing": with_device(
             lambda **kw: box.box_forcing(bmesh, 0.0, f64,
                                          **kw).air_density),
+        "load_checkpoint": with_device(
+            lambda **kw: load_checkpoint(ckpt["single"],
+                                         **kw)[0].velocity.u_velocity),
+        "load_sharded_checkpoint": with_device(
+            lambda **kw: load_sharded_checkpoint(
+                ckpt["dir"], "sharded", ckpt["part"], ckpt["template"],
+                **kw)[0][1].time),
     }
+
+
+_CKPT = {}
+
+
+def _checkpoints(mesh, cfg):
+    """A checkpoint and a 2-block sharded checkpoint of a small model,
+    written once (to a temporary directory) for the loaders above."""
+    import tempfile
+    from seaice_tpu_torch.io import save_checkpoint, save_sharded_checkpoint
+    from seaice_tpu_torch.model import SeaIceModel
+    from seaice_tpu_torch.parallel import ShardedSeaIceModel
+    if not _CKPT:
+        d = tempfile.mkdtemp(prefix="seaice_ckpt_")
+        model = SeaIceModel(mesh, cfg, torch.float64, device="cpu")
+        save_checkpoint(os.path.join(d, "single.npz"), model.init_state())
+        sm = ShardedSeaIceModel(mesh, cfg, 2, torch.float64, devices="cpu")
+        template = sm.init_state()
+        save_sharded_checkpoint(d, "sharded", template, sm.part,
+                                mesh.n_cells, mesh.n_vertices)
+        _CKPT.update(dir=d, single=os.path.join(d, "single.npz"),
+                     part=sm.part, template=template)
+    return _CKPT
 
 
 CONSTRUCTORS = ["SeaIceModel", "ShardedSeaIceModel", "Mesh.tensors",
             "build_dynamics_tensors", "init_velocity_state", "zero_forcing", "build_fast_tensors",
             "build_panel_tensors", "RemapGeometry.tensors",
-            "init_tracer_state", "box_forcing"]
+            "init_tracer_state", "box_forcing", "load_checkpoint",
+            "load_sharded_checkpoint"]
 
 
 def test_default_device_is_the_gpu_or_an_error():
@@ -189,9 +235,9 @@ def test_constructor_asked_for_the_cpu_gives_the_cpu(name):
 
 def test_column_package_is_the_next_slice():
     """The column package builds (the default config is the column
-    package with BL99 thermodynamics); an option of it that the port
-    leaves out raises, naming its roadmap item; the sharded step with the
-    column package is a later slice."""
+    package with BL99 thermodynamics), in the sharded model too (each
+    block carries it); an option of it that the port leaves out raises,
+    naming its roadmap item, in both."""
     import dataclasses
     from seaice_tpu_torch import config as C
     from seaice_tpu_torch.model import SeaIceModel
@@ -201,9 +247,11 @@ def test_column_package_is_the_next_slice():
     cfg = C.Config(column=C.ColumnConfig(use_snow_tracers=True))
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         SeaIceModel(mesh, cfg, device="cpu")
-    cfg = dataclasses.replace(cfg, column=C.ColumnConfig())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         ShardedSeaIceModel(mesh, cfg, 2, devices="cpu")
+    cfg = dataclasses.replace(cfg, column=C.ColumnConfig())
+    sm = ShardedSeaIceModel(mesh, cfg, 2, devices="cpu")
+    assert all(m.column is not None for m in sm.models)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():

@@ -13,6 +13,7 @@ where the kernel wrappers run their plain versions.
     `build_unstructured_loop_solver` on one block."""
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -305,3 +306,243 @@ def test_loop_form_matches_reference_and_whole_loop():
         w = np.asarray(w)
         assert g.shape == w.shape, name
         assert np.abs(g.numpy() - w).max() <= 1e-12 * np.abs(w).max(), name
+
+
+# -- the sharded step with the column physics ---------------------------------
+
+def _full_physics_box(nx=10, n_sub=2):
+    """`tests/test_sharded.py`'s 'base' case: the 10 x 10 box, 5
+    categories, 7 layers, mushy thermodynamics, dEdd, level ponds,
+    Rothrock strength, ridging; 2 subcycles."""
+    cfg = tconfig.Config(
+        run=tconfig.RunConfig(dt=1800.0, n_categories=5, n_ice_layers=7),
+        velocity=tconfig.VelocitySolverConfig(
+            elastic_subcycle_number=n_sub, rotate_cartesian_grid=False,
+            include_metric_terms=False, geostrophic_surface_tilt=False),
+        advection=tconfig.AdvectionConfig(),
+        column=tconfig.ColumnConfig(ktherm=2, shortwave="dEdd",
+                                    pond_scheme="lvl", kstrength=1))
+    mesh = tbox.box_test_mesh(nx, nx)
+    mesh.f_vertex = tbox.box_coriolis_parameter(mesh)
+    return mesh, cfg
+
+
+# JAX's own limits for the sharded full-physics step
+# (`tests/test_sharded.py::test_sharded_full_physics_matches_single_device`)
+U_LIMITS = dict(atol=1e-8, rtol=1e-6)
+TRACER_LIMITS = dict(atol=1e-7, rtol=1e-5)
+TRACERS = ("iceAreaCategory", "iceVolumeCategory", "surfaceTemperature",
+           "iceSalinity", "iceEnthalpy", "pondArea", "pondDepth",
+           "levelIceArea")
+
+
+def _hold_to_unsharded(label, sm, sstate, state):
+    """Every block's state gathered against the unsharded state at JAX's
+    limits; prints the distances."""
+    u, v = sm.gather_velocity(sstate)
+    tr = sm.gather_tracers(sstate)
+    dist = {"u": float(np.abs(u - state.velocity.u_velocity.numpy()).max()),
+            "v": float(np.abs(v - state.velocity.v_velocity.numpy()).max())}
+    dist.update({k: float(np.abs(tr[k] - state.tracers[k].numpy()).max())
+                 for k in TRACERS})
+    print(f"{label}: max |sharded - unsharded| {dist}")
+    assert np.abs(u).max() > 1e-3
+    np.testing.assert_allclose(u, state.velocity.u_velocity.numpy(),
+                               **U_LIMITS)
+    np.testing.assert_allclose(v, state.velocity.v_velocity.numpy(),
+                               **U_LIMITS)
+    for k in TRACERS:
+        np.testing.assert_allclose(tr[k], state.tracers[k].numpy(),
+                                   err_msg=k, **TRACER_LIMITS)
+
+
+def test_sharded_full_physics_matches_unsharded():
+    """Each block runs the column on its own cells: two steps of the
+    4-block step against the unsharded step, at JAX's own limits."""
+    from seaice_tpu_torch.parallel.sharded import full_physics_inputs
+    mesh, cfg = _full_physics_box()
+    area, vol, snow, extra, atm, ocn, coszen = full_physics_inputs(
+        mesh, cfg, F64, "cpu")
+    ref = SeaIceModel(mesh, cfg, F64, device="cpu")
+    state = ref.init_state(area, vol, snow)
+    state = state.replace(tracers=dict(state.tracers, **extra))
+    forcing = tbox.box_forcing(mesh, t=0.0, device="cpu")
+    sm = ShardedSeaIceModel(mesh, cfg, 4, F64, devices="cpu")
+    assert all(m.column is not None for m in sm.models)
+    sstate = sm.init_state(area, vol, snow)
+    ex = sm.scatter_cell_tree(extra)
+    sstate = [st.replace(tracers=dict(st.tracers, **e))
+              for st, e in zip(sstate, ex)]
+    sforcing = sm.scatter_forcing(
+        lambda m: tbox.box_forcing(m, t=0.0, device="cpu"))
+    satm, socn = sm.scatter_cell_tree(atm), sm.scatter_cell_tree(ocn)
+    scz = sm.scatter_cell_tree(coszen)
+    step, sstep = ref.make_step(), sm.make_step()
+    for _ in range(2):
+        state, diags = step(ref.tensors, state, forcing, atm, ocn,
+                            coszen=coszen)
+        sstate, sdiags = sstep(sm.tensors, sm.halo, sstate, sforcing, satm,
+                               socn, scz)
+    assert all("column_fluxes" in d and "coupling_prep" in d
+               for d in sdiags)
+    _hold_to_unsharded("sharded full physics", sm, sstate, state)
+    # the column did work: the ice is not where the dynamics alone put it
+    assert float(np.abs(sm.gather_tracers(sstate)["iceEnthalpy"] -
+                        sm.part.gather_cell_field(
+                            np.stack([e["iceEnthalpy"].numpy() for e in ex]),
+                            mesh.n_cells)).max()) > 1.0
+
+
+def _runner_forcing(mesh):
+    from seaice_tpu_torch.forcing.core import (CoreAtmosForcing,
+                                               ForcingSeries,
+                                               NcarOceanForcing,
+                                               constant_series,
+                                               monthly_times)
+    nc = mesh.n_cells
+    rng = np.random.default_rng(7)
+    six = ForcingSeries(
+        times=np.array([0.0, 21600.0]),
+        fields={"airTemperature": rng.uniform(245.0, 260.0, (2, nc)),
+                "airSpecificHumidity": np.full((2, nc), 4e-4),
+                "uAirVelocity": rng.uniform(2.0, 6.0, (2, nc)),
+                "vAirVelocity": rng.uniform(-2.0, 2.0, (2, nc))})
+    mon = ForcingSeries(
+        times=monthly_times(),
+        fields={"cloudFraction": rng.uniform(0.2, 0.8, (12, nc)),
+                "precipitationRate": np.full((12, nc), 1e-6)})
+    atmos = CoreAtmosForcing(six_hourly=six, monthly=mon,
+                             lon=mesh.lon_cell, lat=mesh.lat_cell)
+    ocean = NcarOceanForcing(monthly=constant_series(
+        nc, seaSurfaceTemperature=-1.7, seaSurfaceSalinity=34.0,
+        seaFreezingTemperature=-1.8, oceanMixedLayerDepth=20.0,
+        uOceanVelocity=0.0, vOceanVelocity=0.0))
+    return atmos, ocean
+
+
+def test_sharded_runner_matches_runner(tmp_path):
+    """ShardedStandaloneRunner (raw records scattered to the blocks, the
+    derived forcing per block) against StandaloneRunner: two full-physics
+    steps, at JAX's limits; its per-block restart reads back bitwise."""
+    from seaice_tpu_torch.io import (ShardedOutputStream, assemble_history,
+                                     load_sharded_checkpoint,
+                                     read_restart_timestamp)
+    from seaice_tpu_torch.namelist import RunSetup, initial_state_from_setup
+    from seaice_tpu_torch.run import (RunStreams, ShardedStandaloneRunner,
+                                      StandaloneRunner)
+    mesh, cfg = _full_physics_box()
+    mesh.lat_cell = np.deg2rad(np.linspace(70.0, 85.0, mesh.n_cells))
+    mesh.lon_cell = np.linspace(0.0, 1.0, mesh.n_cells)
+    atmos, ocean = _runner_forcing(mesh)
+    setup = RunSetup(initial_latitude_north=60.0)
+    ref = SeaIceModel(mesh, cfg, F64, device="cpu")
+    state = initial_state_from_setup(ref, setup)
+    r = StandaloneRunner(ref, state, atmos_forcing=atmos,
+                         ocean_forcing=ocean)
+    sm = ShardedSeaIceModel(mesh, cfg, 4, F64, devices="cpu")
+    arrays = {k: t.numpy() for k, t in state.tracers.items()}
+    sstate = [st.replace(tracers=t) for st, t in
+              zip(sm.init_state(), sm.scatter_cell_tree(arrays))]
+    out = ShardedOutputStream(str(tmp_path), "history", sm.part,
+                              mesh.n_cells, mesh.n_vertices)
+    sr = ShardedStandaloneRunner(
+        sm, sstate, atmos_forcing=atmos, ocean_forcing=ocean,
+        streams=RunStreams(output=out, output_interval=1800.0,
+                           restart_dir=str(tmp_path),
+                           restart_interval=2 * 1800.0))
+    r.run(2)
+    sr.run(2)
+    _hold_to_unsharded("sharded runner", sm, sr.state, r.state)
+    out.flush()
+    hist, xtime = assemble_history(str(tmp_path), "history")
+    assert xtime == ["0001-01-01_00:30:00", "0001-01-01_01:00:00"]
+    np.testing.assert_array_equal(hist["iceAreaCell"][1], torch.as_tensor(
+        sm.gather_tracers(sr.state)["iceAreaCategory"]).sum(-1).numpy())
+    ts = read_restart_timestamp(str(tmp_path))
+    assert ts == "0001-01-01_01:00:00"
+    back, clock = load_sharded_checkpoint(str(tmp_path), f"restart.{ts}",
+                                          sm.part, sm.init_state(),
+                                          device="cpu")
+    assert clock == {"year": 1, "seconds": 3600.0}
+    got, want = to_stacked_arrays(back), to_stacked_arrays(sr.state)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_sharded_runner_abort_gate(tmp_path):
+    """The sharded runner runs the state check of the unpartitioned one
+    on every block: a non-finite ice area in one block stops the run
+    with SeaIceAbort after the step, and the abort dump is written in the
+    per-block layout, with the failed checks in its manifest, and reads
+    back."""
+    from seaice_tpu_torch.error import SeaIceAbort
+    from seaice_tpu_torch.io import load_sharded_checkpoint
+    from seaice_tpu_torch.run import RunStreams, ShardedStandaloneRunner
+    sm = _port_box(4)
+    rng = np.random.default_rng(4)
+    area = rng.uniform(0.2, 0.9, (sm.global_mesh.n_cells, 1))
+    states = sm.init_state(area, area * 1.5, area * 0.1)
+    bad = states[2].tracers["iceAreaCategory"].clone()
+    bad[0, 0] = float("nan")
+    states[2] = states[2].replace(tracers=dict(states[2].tracers,
+                                               iceAreaCategory=bad))
+    runner = ShardedStandaloneRunner(
+        sm, states, streams=RunStreams(restart_dir=str(tmp_path)))
+    with pytest.raises(SeaIceAbort, match="finite_area") as ei:
+        runner.run(1)
+    name = os.path.basename(ei.value.dump_path)
+    assert name == "abort.0001-01-01_00:10:00"      # dt 600 s
+    back, meta = load_sharded_checkpoint(str(tmp_path), name, sm.part,
+                                         sm.init_state(), device="cpu")
+    assert "finite_area" in meta["failed_checks"]
+    assert meta["seconds"] == 600.0
+    got, want = sm.gather_tracers(back), sm.gather_tracers(runner.state)
+    assert np.isnan(want["iceAreaCategory"]).any()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for g, w in zip(sm.gather_velocity(back),
+                    sm.gather_velocity(runner.state)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_reference_sharded_checkpoint_loads_bitwise(tmp_path):
+    """A sharded restart written by the JAX package (its stacked state)
+    loads into the port's blocks bitwise, halos included; the port's
+    own writes the same part files (bitwise), and `assemble_checkpoint`
+    gives the global fields."""
+    from seaice_tpu.io.parallel import save_sharded_checkpoint as jsave
+    from seaice_tpu.parallel import ShardedSeaIceModel as JSharded
+    from seaice_tpu_torch.io import (assemble_checkpoint,
+                                     load_sharded_checkpoint,
+                                     save_sharded_checkpoint)
+    mesh = jbox.box_test_mesh(12, 12)
+    mesh.f_vertex = jbox.box_coriolis_parameter(mesh)
+    jm = JSharded(mesh, jbox_config(elastic_subcycles=2), 4,
+                  dtype=jnp.float64)
+    rng = np.random.default_rng(9)
+    area = rng.uniform(0.0, 1.0, (mesh.n_cells, 1))
+    jstate = jm.init_state(area, area * 2.0, area * 0.1)
+    jsave(str(tmp_path / "j"), "restart", jstate, jm.part, mesh.n_cells,
+          mesh.n_vertices, clock_metadata={"year": 1, "seconds": 60.0})
+    sm = _port_box(4)
+    states, clock = load_sharded_checkpoint(
+        str(tmp_path / "j"), "restart", sm.part, sm.init_state(),
+        device="cpu")
+    assert clock == {"year": 1, "seconds": 60.0}
+    got, want = to_stacked_arrays(states), flatten_arrays(jstate)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    save_sharded_checkpoint(str(tmp_path / "p"), "restart", states,
+                            sm.part, mesh.n_cells, mesh.n_vertices,
+                            clock_metadata={"year": 1, "seconds": 60.0})
+    for s in range(4):
+        name = f"restart.part-{s:04d}.npz"
+        with np.load(tmp_path / "j" / name) as a, \
+                np.load(tmp_path / "p" / name) as b:
+            assert set(a.files) == set(b.files)
+            for k in a.files:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    glob_, _ = assemble_checkpoint(str(tmp_path / "p"), "restart")
+    np.testing.assert_array_equal(glob_["tracers.iceAreaCategory"], area)
