@@ -6,9 +6,10 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
 
   1. builds the CUDA kernels from `seaice_tpu_torch/csrc/` (one nvcc per
      source, in parallel) and the host remap-stencil library;
-  2. drives seven paths at full width through `SeaIceModel.make_step()`,
-     `ShardedSeaIceModel.make_step()` and the runners of `run.py`,
-     float32, the first four with the column package off:
+  2. drives ten paths at full width through `SeaIceModel.make_step()`,
+     `ShardedSeaIceModel.make_step()`, the runners of `run.py` and the
+     drivers of `coupled.py`, float32, the first four with the column
+     package off:
        raw sphere   raw icosahedral subdiv 6 (40,962 cells), 5 categories,
                     7 ice + 1 snow layers, full enthalpy tracer tree, EVP
                     with 120 subcycles and metric terms, incremental
@@ -44,6 +45,19 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
                     (K6 + K2) against the unsharded step (K1), then two
                     steps of `ShardedStandaloneRunner` from forcing files,
                     whose per-block checkpoint reads back bitwise;
+       namelist run `config_from_namelist` on
+                    `examples/namelist.seaice.example` (the same column
+                    with ice age and first-year ice), the raw sphere,
+                    forcing files, `StandaloneRunner` with every analysis
+                    member, 12 steps (K1 + K2): the ice age and first-year
+                    area held every step, the members' results finite;
+       coupled run  `CoupledDriver` on that model, 2 substeps an interval,
+                    4 intervals (K1 + K2): the exports, the interval means
+                    bitwise the same steps by hand, one interval in
+                    prescribed mode;
+       sharded coupled run  `ShardedCoupledDriver`, 4 blocks, 1 interval
+                    (K6 + K2): the gathered export bitwise the same
+                    sharded steps by hand;
   3. holds each kernel against its plain PyTorch version on the card, on
      the very tensors the step hands it (float32, and the same tensors
      cast to float64), and times both with CUDA events; reports the
@@ -67,8 +81,9 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
      phase of the model's own step, counts the host syncs of a step, and holds the float32
      state against the same steps in float64 (BASELINE.md's budget);
   5. checks small float64 models (raw sphere, panel sphere by both routes,
-     box, sphere in 4 blocks, full-physics panel sphere) on the card
-     against the same models on the CPU (plain PyTorch throughout).
+     box, sphere in 4 blocks, full-physics panel sphere, `CoupledDriver`
+     on the 8 x 8 box with the column) on the card against the same
+     models on the CPU (plain PyTorch throughout).
 
 One JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1633,18 +1648,22 @@ def profile(model, state, forcing, step_ms):
 
 
 def trace_steps(label, model, state, forcing, step_ms, phases=None, n=2,
-                col=None, advance=None):
+                col=None, advance=None, host_events=True):
     """A torch.profiler trace of n whole steps of a path: device-busy ms
     and CUDA kernels per step, the device's idle share (1 - busy over
     `step_ms`, the path's UNTRACED median ms per step of this run: tracing
     slows the host severalfold, so the traced wall time would overstate
     the idle share), the package's own kernels and the top device
     kernels.  advance: a callable taking one step in place of the model's
-    step (a runner's run(1))."""
+    step (a runner's run(1)).  host_events=False records the device's
+    events alone: the idle share is the same sum, and the trace of a path
+    of tens of thousands of launches is processed in a fraction of the
+    time."""
     from torch.profiler import ProfilerActivity
     step = stepper(model, col)
     with torch.profiler.profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            activities=[ProfilerActivity.CUDA] + (
+                [ProfilerActivity.CPU] if host_events else [])) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             if advance is not None:
@@ -2336,6 +2355,551 @@ def sharded_full_physics(workdir, gap, card, reps):
     return counts, rcounts
 
 
+# -- the namelist run, the coupled run and the sharded coupled run ------------
+
+# the coupled phases: the coupling interval (2 steps of 1800 s), the
+# intervals of the single-device run, and its prescribed coverage
+COUPLING_INTERVAL, COUPLED_INTERVALS = 3600.0, 4
+# the namelist run: the analysis members' alarm, and the least share of
+# the category-2-and-up ice whose age rises by exactly dt in a step
+ANALYSIS_INTERVAL = 3 * 3600.0
+AGED_SHARE = 0.99
+
+
+def age_advance(before, after, dt, elapsed):
+    """How the ice age moved over one step on the device, fetched in one
+    copy: the share of category-2-and-up ice (area > 1e-3 before and
+    after; new ice forms in category 1) whose age rose by dt, to 1e-5 of
+    the age (the remap and ridging divide age x area by area again:
+    float32 rounding of a few ulps), the age's range over the ice, and
+    the first-year area's range.  Transport, ridging and the ITD remap
+    move age between cells and categories and may leave a few entries
+    off by more, so the share is held to AGED_SHARE (every reading so far
+    was 1); no ice may be older than the run (`elapsed` seconds, the age
+    starting at 0) nor younger than 0."""
+    a0 = before["iceAreaCategory"][:, 1:]
+    a1 = after.tracers["iceAreaCategory"][:, 1:]
+    g0 = before["iceAge"][:, 1:]
+    g1 = after.tracers["iceAge"][:, 1:]
+    ice = (a0 > 1e-3) & (a1 > 1e-3)
+    exact = ice & ((g1 - g0 - dt).abs() <= 1e-5 * g1.clamp(min=dt))
+    has = after.tracers["iceAreaCategory"] > 1e-3
+    age = after.tracers["iceAge"]
+    fy = after.tracers["firstYearIceArea"]
+    v = torch.stack([ice.sum().double(), exact.sum().double(),
+                     torch.where(has, age, -torch.inf).max().double(),
+                     torch.where(has, age, torch.inf).min().double(),
+                     fy.min().double(), fy.max().double()]).cpu().tolist()
+    out = {"aged_entries": int(v[0]), "aged_by_dt": int(v[1]),
+           "aged_share": v[1] / max(v[0], 1.0), "age_max_s": v[2],
+           "age_min_s": v[3], "elapsed_s": elapsed,
+           "first_year_min": v[4], "first_year_max": v[5]}
+    out["ok"] = (out["aged_share"] >= AGED_SHARE and
+                 v[2] <= elapsed * (1 + 1e-6) and v[3] >= 0.0 and
+                 0.0 <= v[4] <= v[5] <= 1.0)
+    return out
+
+
+def namelist_run(inputs_dir, reps, card):
+    """The namelist run (K1 + K2): `config_from_namelist` on the example
+    namelist, the example's raw subdiv-SUBDIV sphere and cice_default
+    state, CORE and NCAR forcing files for that mesh, and
+    `StandaloneRunner` with every analysis member (`default_members`,
+    alarm ANALYSIS_INTERVAL) for the namelist's run_duration, the state
+    checked after every step.  Step 1 from rest; step 2 recorded (K1 and
+    K2 against their plain versions on its inputs, `check_loop` and
+    `k2_on_path`); then the path (counts to 0, the remaining steps), with
+    the ice age and the first-year area held after every step
+    (`age_advance`); every member that computed holds finite results; the
+    conservation-check member's budget is printed.  Times: ms per runner
+    step and the analysis timer.  Returns (launch counts, the model): the
+    coupled phases reuse the model (the same column: mushy, dEdd,
+    level-ice ponds, Rothrock, ice age and first-year ice)."""
+    import os
+    from seaice_tpu_torch.analysis import AnalysisDriver, default_members
+    from seaice_tpu_torch.io.forcing_reader import (core_atmos_from_files,
+                                                    ncar_ocean_from_file)
+    from seaice_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from seaice_tpu_torch.mesh import icosahedral_mesh
+    from seaice_tpu_torch.model import SeaIceModel
+    from seaice_tpu_torch.namelist import (_parse_duration,
+                                           config_from_namelist,
+                                           initial_state_from_setup)
+    from seaice_tpu_torch.run import StandaloneRunner
+    label = "namelist run"
+    t0 = t_phase = time.perf_counter()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "namelist.seaice.example")
+    cfg, setup = config_from_namelist(path)
+    mesh = icosahedral_mesh(SUBDIV, radius=setup.earth_radius)
+    model = SeaIceModel(mesh, cfg, dtype=torch.float32)
+    state = initial_state_from_setup(model, setup)
+    fdir = os.path.join(inputs_dir, "namelist_run")
+    os.makedirs(fdir)
+    six, mon, ocn = write_forcing_files(fdir, mesh)
+    members = default_members(compute_interval=ANALYSIS_INTERVAL)
+    runner = StandaloneRunner(
+        model, state, atmos_forcing=core_atmos_from_files(
+            six, mon, mesh.lon_cell, mesh.lat_cell),
+        ocean_forcing=ncar_ocean_from_file(ocn),
+        analysis=AnalysisDriver(members))
+    n_steps = int(round(_parse_duration(setup.run_duration) / cfg.run.dt))
+    emit({"model": {"path": label, "seconds_to_build":
+                    time.perf_counter() - t0, "cells": mesh.n_cells,
+                    "dtype": "float32", "tracers": model.tree.names,
+                    "steps": n_steps, "namelist": "examples/"
+                    "namelist.seaice.example"}})
+    if not {"iceAge", "firstYearIceArea"} <= set(model.tree.names):
+        fail(f"{label}: the namelist's ice age and first-year ice are "
+             "not in the tracer tree")
+    runner_step(runner, label)
+    _, calls = capture_calls(lambda: runner_step(runner, label))
+    if set(calls) != {"evp_subcycle_loop", "integrate_fluxes_cuda"}:
+        fail(f"{label}: the step called {sorted(calls)}")
+    k1 = check_loop("evp_subcycle_loop", calls["evp_subcycle_loop"][0],
+                    min(reps, 3))
+    emit({"namelist_run_k1_against_plain": {
+        k: v for k, v in k1.items()
+        if "err" in k or k in ("ms", "plain_ms", "bound_ms", "shapes")}})
+    k2_on_path(label, calls["integrate_fluxes_cuda"])
+    del calls
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ms, ages = [], []
+    for _ in range(3, n_steps + 1):
+        before = {k: runner.state.tracers[k].clone() for k in (
+            "iceAreaCategory", "iceAge")}
+        ms.append(runner_step(runner, label))
+        ages.append(age_advance(before, runner.state, cfg.run.dt,
+                                runner.clock.seconds))
+    counts = launch_counts()
+    computed = {m.name: m.results for m in members if m.results}
+    from seaice_tpu_torch.utils.containers import to_host
+    bad = [f"{name}.{k}" for name, res in computed.items()
+           for k, v in to_host(res).items()
+           if not np.isfinite(np.asarray(v, np.float64)).all()]
+    budget = {k: float(v) for k, v in to_host(
+        computed.get("conservation_check", {})).items()}
+    f = global_fields(model, runner.state)
+    max_u = float(np.sqrt(f["u"] ** 2 + f["v"] ** 2).max())
+    out = {"path": label, "card": card, "steps": n_steps - 2,
+           "ms_per_runner_step": ms,
+           "ms_per_runner_step_median": float(np.median(ms)),
+           "launches": counts, "timers": runner.timers.totals,
+           "analysis_ms_total": 1e3 * runner.timers.totals["analysis"],
+           "members_computed": sorted(computed),
+           "conservation_check_budget": budget, "ice_age_per_step": ages,
+           "aged_share_min": min(a["aged_share"] for a in ages),
+           "max_speed": max_u,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit({"namelist_run": out})
+    if bad:
+        fail(f"{label}: analysis results not finite: {bad}")
+    if len(computed) < 15 or not budget:
+        fail(f"{label}: only {sorted(computed)} computed")
+    for i, a in enumerate(ages):
+        if not a["ok"]:
+            fail(f"{label}, step {i + 3}: ice age or first-year ice "
+                 f"wrong: {a}")
+    for name, t in f.items():
+        if not np.isfinite(t).all():
+            fail(f"{label}: {name} is not finite")
+    n_dyn = cfg.velocity.dynamics_subcycle_number
+    want = {"evp_subcycle_loop": n_dyn * (n_steps - 2),
+            "integrate_fluxes_cuda": n_dyn * (n_steps - 2)}
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            fail(f"{label}: {name} launched {n} times, expected "
+                 f"{want.get(name, 0)}")
+    return counts, model
+
+
+def coupled_imports(nc):
+    """The import fields of `examples/run_coupled.py` with So_u and So_v
+    as in `tests/test_coupled.py`, from a fixed seed, at nc cells."""
+    rng = np.random.default_rng(0)
+    return {
+        "So_t": np.full(nc, -1.6), "So_s": np.full(nc, 32.0),
+        "So_u": 0.02 * rng.standard_normal(nc),
+        "So_v": 0.02 * rng.standard_normal(nc),
+        "Sa_u": 6.0 + rng.standard_normal(nc),
+        "Sa_v": 2.0 + rng.standard_normal(nc),
+        "Sa_ptem": np.full(nc, 258.0), "Sa_shum": np.full(nc, 8e-4),
+        "Sa_dens": np.full(nc, 1.3), "Faxa_lwdn": np.full(nc, 200.0),
+        "Faxa_swvdr": np.full(nc, 30.0), "Faxa_swvdf": np.full(nc, 20.0),
+        "Faxa_swndr": np.full(nc, 25.0), "Faxa_swndf": np.full(nc, 15.0),
+        "Faxa_rain": np.zeros(nc), "Faxa_snow": np.full(nc, 1e-8)}
+
+
+# the exports of a driver with the column and the velocity solve
+COUPLED_EXPORTS = {
+    "Si_imask", "Si_ifrac", "Si_t", "Si_vice", "Si_vsno", "Si_avsdr",
+    "Si_avsdf", "Si_anidr", "Si_anidf", "Faii_lat", "Faii_sen",
+    "Faii_lwup", "Faii_evap", "Fioi_melth", "Fioi_swpen", "Fioi_meltw",
+    "Fioi_salt", "Fioi_taux", "Fioi_tauy"}
+
+
+def stepped_interval(model, state, fields, clock, n_sub, sharded=False):
+    """The interval mean of the exports taken through `make_step()` by
+    hand, from `state` with the import fields `fields` at `clock`: the
+    single-device driver's semantics (coszen and day of year per substep
+    from the interval-start clock) or, with `sharded`, the sharded
+    driver's (one coszen for the interval, no day of year).  Returns the
+    export dict and the state after the interval."""
+    from seaice_tpu_torch.column.orbital import compute_coszen
+    from seaice_tpu_torch.coupler import export_state, import_state
+    dt = model.cfg.run.dt
+    dev, dtype = model.device, model.dtype
+    dyn, atm, ocn = import_state(fields, dt, dtype, device=dev)
+    step = model.make_step()
+    sums, stress = None, None
+    if sharded:
+        gm = model.global_mesh
+        lat, lon = (torch.as_tensor(np.asarray(a, np.float64)).to(
+            device=dev, dtype=dtype) for a in (gm.lat_cell, gm.lon_cell))
+        cz, _ = compute_coszen(lat, lon, float(clock.day_of_year),
+                               clock.seconds_today)
+        dyn, atm, ocn, cz = (model.scatter_cells(x)
+                             for x in (dyn, atm, ocn, cz))
+    else:
+        lat, lon = (torch.as_tensor(np.asarray(a, np.float64)).to(
+            device=dev, dtype=dtype) for a in (model.mesh.lat_cell,
+                                               model.mesh.lon_cell))
+        sec0 = torch.tensor(clock.seconds_today, dtype=dtype, device=dev)
+        doy0 = torch.tensor(float(clock.day_of_year), dtype=dtype,
+                            device=dev)
+    for i in range(n_sub):
+        if sharded:
+            state, diags = step(model.tensors, model.halo, state, dyn, atm,
+                                ocn, cz)
+            fl = [d["column_fluxes"] for d in diags]
+        else:
+            secs = sec0 + (i + 0.5) * dt
+            doy = doy0 + torch.floor(secs / 86400.0)
+            coszen, _ = compute_coszen(lat, lon, doy,
+                                       torch.remainder(secs, 86400.0))
+            state, diags = step(model.tensors, state, dyn, atm, ocn,
+                                coszen=coszen, day_of_year=doy, lat=lat)
+            fl = [diags["column_fluxes"]]
+            su = (diags["ocean_stress_u"], diags["ocean_stress_v"])
+            stress = su if stress is None else (stress[0] + su[0],
+                                                stress[1] + su[1])
+        now = [{f: getattr(x, f) for f in FLUX_NAMES} for x in fl]
+        sums = now if sums is None else [
+            {f: s[f] + x[f] for f in FLUX_NAMES} for s, x in zip(sums, now)]
+    means = [{f: s[f] / float(n_sub) for f in FLUX_NAMES} for s in sums]
+    if sharded:
+        mean = {f: model.gather_cells([m[f] for m in means])
+                for f in FLUX_NAMES}
+        whole, diags = model.gather_state(state), None
+    else:
+        mean, whole = means[0], state
+        diags = {"ocean_stress_u": stress[0] / float(n_sub),
+                 "ocean_stress_v": stress[1] / float(n_sub)}
+    out = export_state(whole, _Fluxes(mean), diags,
+                       None if sharded else model.tensors.mesh)
+    return out, state
+
+
+# the column fluxes the export reads
+FLUX_NAMES = ("flat", "fsens", "flwout", "evap", "fhocn", "fswthru",
+              "fresh", "fsalt", "albedo_vis_dir", "albedo_vis_dif",
+              "albedo_ir_dir", "albedo_ir_dif")
+
+
+class _Fluxes:
+    def __init__(self, d):
+        self.__dict__.update(d)
+
+
+def copy_state(state):
+    """A State (or a list of block States) with every tensor cloned."""
+    if isinstance(state, list):
+        return [copy_state(s) for s in state]
+    vel = state.velocity
+    import dataclasses
+    return state.replace(
+        tracers={k: v.clone() for k, v in state.tracers.items()},
+        velocity=vel.replace(**{f.name: getattr(vel, f.name).clone()
+                                for f in dataclasses.fields(vel)}),
+        time=state.time.clone())
+
+
+def differing(got, want):
+    """{export: max |got - want|} over the exports that differ."""
+    return {k: float(np.abs(np.asarray(got[k], np.float64) -
+                            np.asarray(want[k], np.float64)).max())
+            for k in want if not np.array_equal(got[k], want[k])}
+
+
+def coupled_run(model, reps, card):
+    """The coupled run (K1 + K2): `CoupledDriver` on `model` (the namelist
+    run's: the raw subdiv-SUBDIV sphere, the example namelist's column
+    with ice age and first-year ice), coupling interval COUPLING_INTERVAL
+    (2 substeps), COUPLED_INTERVALS intervals of `coupled_imports`: counts to
+    0 over them (the second recorded), the export roster, shapes and
+    finiteness, the clock; K1 and K2 against their plain versions on the
+    recorded interval's first step; the first interval's exports against
+    the same two steps taken through `make_step()` by hand from the same
+    state (`stepped_interval`, bitwise expected: no atomics on this
+    path); one interval in prescribed mode (every substep starts from
+    the coverage and the prescribed thickness, velocities zero); ms per
+    interval and the device idle share of one traced interval."""
+    from seaice_tpu_torch.coupled import CoupledDriver
+    from seaice_tpu_torch.forcing.core import ForcingSeries
+    from seaice_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from seaice_tpu_torch.namelist import RunSetup, initial_state_from_setup
+    from seaice_tpu_torch.prescribed import COVERAGE_MIN
+    label = "coupled run"
+    t0 = time.perf_counter()
+    mesh = model.mesh
+    state0 = initial_state_from_setup(model, RunSetup(**FILE_SETUP))
+    fields = coupled_imports(mesh.n_cells)
+    drv = CoupledDriver(model, copy_state(state0),
+                        coupling_interval=COUPLING_INTERVAL)
+    n_sub = drv.n_substeps
+    emit({"model": {"path": label, "seconds_to_build":
+                    time.perf_counter() - t0, "cells": mesh.n_cells,
+                    "dtype": "float32", "tracers": model.tree.names,
+                    "substeps_per_interval": n_sub,
+                    "intervals": COUPLED_INTERVALS}})
+    clock0 = drv.clock.copy()
+    secs = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs, ms, calls = [], [], None
+    for i in range(COUPLED_INTERVALS):
+        t1 = time.perf_counter()
+        if i == 1:
+            out, calls = capture_calls(lambda: drv.advance(fields))
+        else:
+            out = drv.advance(fields)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t1))
+        outs.append(out)
+    counts = launch_counts()
+    res = {"path": label, "card": card, "intervals": COUPLED_INTERVALS,
+           "substeps_per_interval": n_sub, "ms_per_interval": ms,
+           "ms_per_interval_median": float(np.median(ms)),
+           "launches": counts, "clock_seconds": drv.clock.seconds,
+           "export_fields": sorted(outs[0])}
+    for i, out in enumerate(outs):
+        if set(out) != COUPLED_EXPORTS:
+            fail(f"{label}: exports {sorted(set(out) ^ COUPLED_EXPORTS)} "
+                 "missing or extra")
+        for k, v in out.items():
+            if v.shape != (mesh.n_cells,) or not np.isfinite(v).all():
+                fail(f"{label}, interval {i + 1}: export {k} has shape "
+                     f"{v.shape} or is not finite")
+    if drv.clock.seconds != COUPLED_INTERVALS * COUPLING_INTERVAL:
+        fail(f"{label}: the clock is at {drv.clock.seconds} s")
+    want = {"evp_subcycle_loop": COUPLED_INTERVALS * n_sub,
+            "integrate_fluxes_cuda": COUPLED_INTERVALS * n_sub}
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            fail(f"{label}: {name} launched {n} times in "
+                 f"{COUPLED_INTERVALS} intervals, expected "
+                 f"{want.get(name, 0)}")
+    if set(calls) != {"evp_subcycle_loop", "integrate_fluxes_cuda"}:
+        fail(f"{label}: the interval called {sorted(calls)}")
+    secs["intervals"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k1 = check_loop("evp_subcycle_loop", calls["evp_subcycle_loop"][0],
+                    min(reps, 3))
+    emit({"coupled_run_k1_against_plain": {
+        k: v for k, v in k1.items()
+        if "err" in k or k in ("ms", "plain_ms", "bound_ms", "shapes")}})
+    k2_on_path(label, calls["integrate_fluxes_cuda"])
+    del calls
+    secs["kernel_checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # the first interval by hand
+    want1, _ = stepped_interval(model, copy_state(state0), fields, clock0,
+                                n_sub)
+    diff = differing(outs[0], want1)
+    res["interval_mean_vs_stepped"] = {"bitwise": not diff,
+                                       "max_abs_diff": diff}
+
+    # one interval in prescribed mode
+    polar = np.abs(mesh.lat_cell) > np.deg2rad(70.0)
+    cov = np.where(polar, 0.85, 0.0)
+    pdrv = CoupledDriver(model, copy_state(state0),
+                         coupling_interval=COUPLING_INTERVAL,
+                         prescribed_coverage=ForcingSeries(
+                             times=np.array([0.0]),
+                             fields={"iceCoverage": cov[None, :]}))
+    seen, step = [], pdrv.step_fn
+
+    def recorder(tensors, st, *a, **kw):
+        tr = st.tracers
+        vel = st.velocity
+        seen.append(torch.stack([
+            torch.stack([getattr(vel, f).abs().max() for f in (
+                "u_velocity", "v_velocity", "stress11", "stress22",
+                "stress12", "solve_velocity_prev")]).max().double(),
+            (tr["iceAreaCategory"].sum(-1) - cov_t).abs().max().double(),
+            (tr["iceVolumeCategory"].sum(-1) -
+             h_t * tr["iceAreaCategory"].sum(-1)).abs().max().double()]))
+        return step(tensors, st, *a, **kw)
+
+    cov_t = torch.as_tensor(np.where(cov >= COVERAGE_MIN, cov, 0.0)).to(
+        device=model.device, dtype=model.dtype)
+    h_t = torch.as_tensor(np.where(mesh.lat_cell >= 0, 2.0, 1.0)).to(
+        device=model.device, dtype=model.dtype)
+    pdrv.step_fn = recorder
+    pout = pdrv.advance(fields)
+    heads = torch.stack(seen).cpu().numpy()
+    secs["by_hand_and_prescribed"] = time.perf_counter() - t0
+    res["seconds"] = secs
+    res["prescribed"] = {
+        "substeps": len(seen), "max_velocity_state": float(heads[:, 0].max()),
+        "max_coverage_error": float(heads[:, 1].max()),
+        "max_thickness_error_m": float(heads[:, 2].max()),
+        "aice_max_export": float(pout["Si_ifrac"].max())}
+
+    emit({"coupled_run": res})
+    if diff:
+        fail(f"{label}: the interval means differ from the same steps "
+             f"taken by hand: {diff}")
+    p = res["prescribed"]
+    if len(seen) != n_sub or p["max_velocity_state"] != 0.0 or \
+            p["max_coverage_error"] != 0.0 or \
+            not p["max_thickness_error_m"] <= 4 * np.finfo(np.float32).eps:
+        fail(f"{label}: prescribed mode did not impose its state: {p}")
+    t0 = time.perf_counter()
+    trace_steps(label, model, None, None, float(np.median(ms)), n=1,
+                advance=lambda: drv.advance(fields), host_events=False)
+    secs["trace"] = time.perf_counter() - t0
+    emit({"coupled_run_seconds": secs})
+    return counts, state0, fields
+
+
+def sharded_coupled_run(model, state0, fields, reps, card):
+    """The sharded coupled run (K6 + K2): `ShardedCoupledDriver` on
+    `model`'s mesh and config in SHARDS blocks on the card, from the
+    coupled run's initial state, one interval, counts to 0 around it (its second
+    substep recorded: K6 and K2 against their plain versions,
+    `check_k6` with the sharded full-physics limits, `k2_on_path`); the
+    gathered export against the same sharded step called twice by hand
+    with the interval-start coszen (`stepped_interval`, the driver's own
+    semantics; bitwise expected).  Also times `gather_state` of the
+    blocks' state (the sharded runner's analysis gather)."""
+    from seaice_tpu_torch.coupled import ShardedCoupledDriver
+    from seaice_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from seaice_tpu_torch.parallel import ShardedSeaIceModel
+    label = "sharded coupled run"
+    t0 = t_phase = time.perf_counter()
+    mesh = model.mesh
+    sm = ShardedSeaIceModel(mesh, model.cfg, SHARDS, dtype=torch.float32)
+    tr = {k: t.cpu().numpy() for k, t in state0.tracers.items()}
+    sstate0 = [st.replace(tracers=t) for st, t in
+               zip(sm.init_state(), sm.scatter_cell_tree(tr))]
+    drv = ShardedCoupledDriver(sm, copy_state(sstate0),
+                               coupling_interval=COUPLING_INTERVAL)
+    emit({"model": {"path": label, "seconds_to_build":
+                    time.perf_counter() - t0, "cells": mesh.n_cells,
+                    "blocks": SHARDS, "dtype": "float32",
+                    "tracers": sm.tree.names}})
+    clock0 = drv.clock.copy()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    out, calls = capture_calls(lambda: drv.advance(fields))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t1)
+    counts = launch_counts()
+    n_sub = drv.n_substeps
+    prep = calls.get("evp_subcycle_prepare", [])
+    if set(calls) != {"evp_subcycle_prepare", "integrate_fluxes_cuda"} \
+            or len(prep) != n_sub * SHARDS:
+        fail(f"{label}: the interval called "
+             f"{ {k: len(v) for k, v in calls.items()} }")
+    k6 = check_k6(sm, prep[SHARDS:2 * SHARDS], reps,
+                  short_loop_from_response=True)
+    emit({"sharded_coupled_k6_against_plain": {
+        k: v for k, v in k6.items() if "err" in k or k in (
+            "short_loop_limit", "ms", "plain_ms", "bound_ms", "shapes")}})
+    k2_on_path(label, calls["integrate_fluxes_cuda"])
+    del calls, prep
+    # the whole state gathered from the blocks on the card: what the
+    # sharded runner's analysis hook adds to a step where a member runs
+    gather_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sm.gather_state(drv.state)
+        torch.cuda.synchronize()
+        gather_ms.append(1e3 * (time.perf_counter() - t1))
+    want, _ = stepped_interval(sm, copy_state(sstate0), fields, clock0,
+                               n_sub, sharded=True)
+    diff = differing(out, want)
+    res = {"path": label, "card": card, "blocks": SHARDS,
+           "substeps": n_sub, "ms_per_interval": ms, "launches": counts,
+           "gather_state_ms": gather_ms,
+           "export_fields": sorted(out),
+           "export_vs_stepped": {"bitwise": not diff, "max_abs_diff": diff},
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit({"sharded_coupled_run": res})
+    if set(out) != COUPLED_EXPORTS - {"Fioi_taux", "Fioi_tauy"} or \
+            not all(np.isfinite(v).all() and v.shape == (mesh.n_cells,)
+                    for v in out.values()):
+        fail(f"{label}: exports {sorted(out)} wrong or not finite")
+    if diff:
+        fail(f"{label}: the gathered export differs from the same sharded "
+             f"steps taken by hand: {diff}")
+    n_dyn = sm.cfg.velocity.dynamics_subcycle_number
+    want_counts = {"evp_subcycle_step": N_SUBCYCLES * n_dyn * n_sub,
+                   "integrate_fluxes_cuda": SHARDS * n_dyn * n_sub}
+    for name, n in counts.items():
+        if n != want_counts.get(name, 0):
+            fail(f"{label}: {name} launched {n} times, expected "
+                 f"{want_counts.get(name, 0)}")
+    return counts
+
+
+def small_coupled_reference():
+    """`CoupledDriver` on the 8 x 8 box with the column, 2 intervals of 2
+    steps, float64 on the card against the same on the CPU: every export
+    of both intervals (fields under NOISE on the CPU held to NOISE)."""
+    import dataclasses
+    from seaice_tpu_torch.config import box_test_config
+    from seaice_tpu_torch.coupled import CoupledDriver
+    from seaice_tpu_torch.model import SeaIceModel
+    from seaice_tpu_torch.testcases import box
+    outs = {}
+    for device in ("cuda", "cpu"):
+        cfg = box_test_config(elastic_subcycles=8)
+        cfg = dataclasses.replace(cfg, column=dataclasses.replace(
+            cfg.column, use_column_package=True))
+        mesh = box.box_test_mesh(8, 8)
+        mesh.f_vertex = box.box_coriolis_parameter(mesh)
+        model = SeaIceModel(mesh, cfg, dtype=torch.float64, device=device)
+        area, vol, snow = box.box_initial_state(mesh, n_categories=1)
+        drv = CoupledDriver(model, model.init_state(area, vol, snow),
+                            coupling_interval=2 * cfg.run.dt)
+        f = coupled_imports(mesh.n_cells)
+        outs[device] = [drv.advance(f) for _ in range(2)]
+    worst, noise = 0.0, []
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        for k, ref in want.items():
+            scale = float(np.abs(ref).max())
+            if scale < NOISE:
+                noise.append(k)
+                if not float(np.abs(got[k]).max()) < NOISE:
+                    fail(f"small coupled box: {k} is noise on the CPU and "
+                         "not on the card")
+                continue
+            worst = max(worst, float(np.abs(got[k] - ref).max()) / scale)
+    emit({"small_reference": {"mesh": "box 8 x 8, CoupledDriver",
+                              "intervals": 2, "dtype": "float64",
+                              "max_rel_err_vs_cpu": worst,
+                              "noise_fields": sorted(set(noise))}})
+    if not worst <= 1e-9:
+        fail(f"small coupled box on the card differs from the CPU: {worst}")
+
+
 def add_launches(kernels, path, counts):
     """Record a path's launch counts on the kernels it launched:
     `launches_by_path[path]`, and `launches` the sum over the paths."""
@@ -2631,11 +3195,20 @@ def main():
                                                min(args.reps, 3))
         add_launches(kernels, "sharded full physics", counts)
         add_launches(kernels, "sharded runner", rcounts)
+        # the namelist and coupled entry points (K1 + K2, K6 + K2)
+        counts, model = namelist_run(workdir, args.reps, card)
+        add_launches(kernels, "namelist run", counts)
+        counts, state0, fields = coupled_run(model, args.reps, card)
+        add_launches(kernels, "coupled run", counts)
+        add_launches(kernels, "sharded coupled run", sharded_coupled_run(
+            model, state0, fields, min(args.reps, 3), card))
+        del state0, model
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
 
     small_reference()
+    small_coupled_reference()
 
     order = ("evp_subcycle_loop", "integrate_fluxes_cuda", "evp_panel_loop",
              "panel_cell_step", "evp_raster_loop", "evp_subcycle_step")

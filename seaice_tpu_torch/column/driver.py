@@ -41,12 +41,14 @@ from .itd import (category_boundaries, cleanup_small_ice,
                   ice_strength_hibler, ice_strength_rothrock,
                   linear_itd_remap)
 from .itd_thermo import add_new_ice, lateral_melt
+from .ponds import increment_age
 from .ridging import ridge_bounds, ridge_ice
 from .shortwave import ShortwaveResult, shortwave_ccsm3
 from .thermo_shared import salinity_profile
 from .vertical import (frzmlt_bottom_lateral, thermo_vertical,
                        thermo_vertical_noop)
 from ..utils.containers import tensor_dataclass
+from ..utils.device import resolve_device
 
 _LATER = "ROADMAP Queue 1 item 10"
 
@@ -204,7 +206,7 @@ class ColumnPhysics:
                  use_snow_liquid_ponds: bool = False,
                  include_pond_freshwater_feedback: bool = False,
                  use_modal_aerosols: bool = False,
-                 dtype=torch.float64, device="cpu"):
+                 dtype=torch.float64, device=None):
         if ktherm not in (0, 1, 2):
             raise ValueError(f"unsupported ktherm={ktherm}")
         if not calc_tsfc and ktherm == 2:
@@ -231,8 +233,6 @@ class ColumnPhysics:
             ktherm_0=ktherm == 0, calc_tsfc_false=not calc_tsfc,
             pond_scheme_cesm=pond_scheme == "cesm",
             pond_scheme_topo=pond_scheme == "topo",
-            use_ice_age=use_ice_age,
-            use_first_year_ice=use_first_year_ice,
             use_snow_tracers=use_snow_tracers,
             snwredist=snwredist != "none",
             n_aerosols=n_aerosols > 0,
@@ -248,7 +248,9 @@ class ColumnPhysics:
         self.ni = n_ice_layers
         self.ns = n_snow_layers
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+        self.use_ice_age = use_ice_age
+        self.use_first_year_ice = use_first_year_ice
         self.hin_max = category_boundaries(n_categories, kcatbound, kitd)
         # the bounds as Python floats (scalars never promote a tensor)
         self.hin_max_f = [float(h) for h in self.hin_max]
@@ -357,11 +359,14 @@ class ColumnPhysics:
 
     def step_thermodynamics(self, dt, tracers: Dict[str, Any],
                             atm: AtmosForcing, ocn: OceanForcing,
-                            strocnx=None, strocny=None, coszen=None):
+                            strocnx=None, strocny=None, coszen=None,
+                            day_of_year=None, lat=None):
         """Vertical + ITD thermodynamics for one coupling step.
 
         coszen: cosine solar zenith (cell field) for the dEdd shortwave
-        (compute with column.orbital.compute_coszen).  Returns (new
+        (compute with column.orbital.compute_coszen).  day_of_year (a
+        number or a 0-d tensor) and lat (cell latitudes, radians): the
+        first-year-ice reset, skipped without either.  Returns (new
         tracers, ColumnFluxes)."""
         aicen, vicen, vsnon, at, it_, st = _split_tracers(tracers)
         tsfc = at["surfaceTemperature"]
@@ -403,6 +408,20 @@ class ColumnPhysics:
                 pc(atm.v_air), pc(wind), pc(atm.air_level_height),
                 pc(atm.specific_humidity), pc(atm.air_density),
                 natmiter=self.natmiter)
+
+        # age / first-year tracers (reference :2186-2189)
+        if self.use_ice_age and "iceAge" in at:
+            at["iceAge"] = increment_age(dt, at["iceAge"], vicen)
+        if self.use_first_year_ice and "firstYearIceArea" in at and \
+                day_of_year is not None and lat is not None:
+            # day 265 in the north, day 81 in the south; day_of_year may
+            # be a 0-d tensor on the device (no host sync)
+            fy = at["firstYearIceArea"]
+            doy = torch.as_tensor(day_of_year, device=fy.device)
+            reset = torch.where((lat >= 0.0)[..., None], doy == 265,
+                                doy == 81)
+            at["firstYearIceArea"] = torch.where(reset, 0.0, fy).clamp(
+                0.0, 1.0)
 
         # ocean-ice bottom flux + lateral melt fraction
         aice = aicen.sum(-1)

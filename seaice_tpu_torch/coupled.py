@@ -1,0 +1,347 @@
+"""Coupled driver: the MCT/NUOPC ModelAdvance loop.
+
+The port of the JAX package's `coupled.py`, a re-design of the reference
+coupler drivers (`driver/ice_comp_mct.F`: ice_init_mct :118, ice_run_mct
+:1004; `driver_nuopc/ice_comp_nuopc.F90` ModelAdvance): the external
+coupler calls `advance(import_fields)` once per coupling interval; the ice
+model sub-cycles its own (shorter) timestep to the next couple alarm,
+accumulates the ocean and atmosphere fluxes over the interval on the
+device, and returns their time means in the export dict: the reference's
+flux-averaging semantics (`seaice_column_aggregate_fluxes` feeding the
+averaged `*_av` coupler fields).
+
+The JAX package runs the sub-loop as one jitted `lax.scan` whose
+accumulator is shaped by a probe step that XLA removes.  Here the sub-loop
+is a host loop over the model's step on the card, and the accumulator
+starts from the first substep's fluxes (0 + x = x, so the sums are those
+of the JAX loop).  Per interval: the imports and the clock's scalars go to
+the device in one copy; the substeps run without waiting for the card (the
+column's own convergence test aside, as in every step); the state-check
+flags and the export fields come back in one copy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .column.driver import ColumnFluxes
+from .column.orbital import compute_coszen
+from .coupler import (EXPORT_FIELDS, IMPORT_FIELDS, export_fields,
+                      export_state, host_exports, import_sfc_fluxes,
+                      import_with)
+from .diagnostics import check_state
+from .error import raise_on_failed_checks
+from .forcing.clock import Alarm, ModelClock
+from .io.checkpoint import save_checkpoint, write_restart_timestamp
+from .model import SeaIceModel, State
+from .prescribed import prescribe_ice_state
+from .utils.containers import to_host
+
+
+def _substeps(coupling_interval: float, dt: float) -> int:
+    n_sub = coupling_interval / dt
+    if abs(n_sub - round(n_sub)) > 1e-9 or n_sub < 1:
+        raise ValueError(
+            f"coupling_interval {coupling_interval} is not an integer "
+            f"multiple of the model dt {dt}")
+    return int(round(n_sub))
+
+
+class FluxMean:
+    """The interval's running sums of the column fluxes (every tensor
+    field), the warning masks OR-ed, on the device; `mean(n)` gives the
+    ColumnFluxes of the interval mean, its warnings the OR over the
+    substeps and `thermo_iterations` their sum."""
+
+    def __init__(self):
+        self.sums: Optional[Dict[str, torch.Tensor]] = None
+        self.warnings: Dict[str, torch.Tensor] = {}
+        self.iterations = 0
+        self.first: Optional[ColumnFluxes] = None
+
+    def add(self, fl: Optional[ColumnFluxes]):
+        if fl is None:
+            return
+        num = {f.name: getattr(fl, f.name) for f in dataclasses.fields(fl)
+               if isinstance(getattr(fl, f.name), torch.Tensor)}
+        if self.sums is None:
+            self.first, self.sums = fl, num
+        else:
+            self.sums = {k: self.sums[k] + v for k, v in num.items()}
+        for k, m in (fl.warnings or {}).items():
+            self.warnings[k] = self.warnings[k] | m \
+                if k in self.warnings else m
+        self.iterations += fl.thermo_iterations
+
+    def mean(self, n: int) -> Optional[ColumnFluxes]:
+        if self.sums is None:
+            return None
+        return dataclasses.replace(
+            self.first, **{k: v / float(n) for k, v in self.sums.items()},
+            warnings=self.warnings, thermo_iterations=self.iterations)
+
+
+class CoupledDriver:
+    """Owns the clock + couple alarm; the coupler owns the forcing.
+
+    Usage (a NUOPC cap or a Python E3SM harness):
+
+        drv = CoupledDriver(model, state, coupling_interval=3600.0)
+        imports, exports = drv.advertise()        # field rosters
+        for _ in range(n_couple_steps):
+            export = drv.advance(import_fields)   # one couple interval
+
+    The model runs where it was built (`SeaIceModel(..., device=None)`:
+    the card).  `coupling_interval` must be an integer multiple of the
+    model timestep (the reference requires the same of its couple
+    alarm).  Output and restart alarms are serviced at couple boundaries
+    (the couple interval divides the stream intervals in practice)."""
+
+    def __init__(self, model: SeaIceModel, state: State,
+                 coupling_interval: float,
+                 clock: Optional[ModelClock] = None,
+                 tfrz_option: str = "minus1p8",
+                 sst_in_kelvin: bool = False,
+                 streams=None,
+                 prescribed_coverage=None):
+        """prescribed_coverage: optional ForcingSeries with an
+        'iceCoverage' field: prescribed (data) ice mode inside the
+        coupled loop, the CIME _MPASSI%PRES compset behaviour.  The
+        coverage stream is interpolated at each couple boundary and
+        imposed on the category state at the start of every model
+        substep, with the velocity state zeroed (reference
+        `driver/ice_comp_mct.F`: ice_prescribed_init :812,
+        ice_prescribed_run in the run loop :1125, applied via
+        seaice_run_prescribed_ice at the head of each timestep,
+        `src/shared/mpas_seaice_time_integration.F:125`)."""
+        self.model = model
+        self.state = state
+        self.clock = clock or ModelClock(calendar=model.cfg.run.calendar)
+        self.tfrz_option = tfrz_option
+        self.sst_in_kelvin = sst_in_kelvin
+        self.streams = streams
+        self.prescribed_coverage = prescribed_coverage
+        if prescribed_coverage is not None and \
+                "iceEnthalpy" not in state.tracers:
+            raise ValueError(
+                "prescribed ice mode needs the column package "
+                "(enthalpy/salinity tracers) enabled")
+        self.n_substeps = _substeps(coupling_interval, model.cfg.run.dt)
+        self.coupling_interval = float(coupling_interval)
+        if streams is not None:
+            self._out_alarm = Alarm(streams.output_interval)
+            self._restart_alarm = Alarm(streams.restart_interval)
+        self.step_fn = model.make_step()
+        mesh = model.mesh
+        self._lat = self._lon = None
+        if getattr(mesh, "lat_cell", None) is not None:
+            def t(a):
+                return torch.as_tensor(np.asarray(a, np.float64)).to(
+                    device=model.device, dtype=model.dtype)
+            self._lat, self._lon = t(mesh.lat_cell), t(mesh.lon_cell)
+        self.last_fluxes: Optional[ColumnFluxes] = None
+        self.last_diags: Dict[str, Any] = {}
+
+    # -- NUOPC advertise/realize analog --------------------------------------
+
+    def advertise(self) -> Tuple[tuple, tuple]:
+        """Field rosters the cap advertises (reference
+        ice_import_export.F90:126-290)."""
+        return IMPORT_FIELDS, EXPORT_FIELDS
+
+    # -- ModelAdvance ---------------------------------------------------------
+
+    def _inputs(self, import_fields):
+        """The interval's forcing, clock scalars and coverage on the
+        device, in one copy."""
+        model = self.model
+        extra = [np.float64(self.clock.seconds_today),
+                 np.float64(self.clock.day_of_year)]
+        if self.prescribed_coverage is not None:
+            extra.append(self.prescribed_coverage.interpolate(
+                self.clock.seconds)["iceCoverage"])
+        dyn, atmf, ocnf, ex = import_with(
+            import_fields, model.cfg.run.dt, model.dtype, self.tfrz_option,
+            self.sst_in_kelvin, model.device, extra)
+        if not model.cfg.column.use_column_package:
+            atmf = ocnf = None
+        coverage = ex[2] if len(ex) > 2 else None
+        return dyn, atmf, ocnf, ex[0], ex[1], coverage
+
+    def substeps(self, dyn, atmf, ocnf, sec0, doy0, coverage=None,
+                 sfcf=None):
+        """The interval's sub-loop on the device from `self.state`:
+        returns (state, FluxMean, summed ocean stress u, v or None).
+        Solar zenith and day of year per substep from the interval-start
+        clock (sec0, doy0: 0-d tensors)."""
+        model, dt = self.model, self.model.cfg.run.dt
+        lat, lon = self._lat, self._lon
+        state = self.state
+        fluxes, stress = FluxMean(), None
+        for i in range(self.n_substeps):
+            if coverage is not None:
+                # impose the data-ice coverage at the head of every
+                # substep and zero the dynamics state (reference
+                # seaice_run_prescribed_ice,
+                # mpas_seaice_time_integration.F:125; PRES compsets run
+                # with dynamics off)
+                vel = state.velocity
+                state = state.replace(
+                    tracers=prescribe_ice_state(
+                        state.tracers, coverage,
+                        lat if lat is not None
+                        else torch.zeros_like(coverage),
+                        ocnf.freezing_temperature, model.column.hin_max),
+                    velocity=vel.replace(**{
+                        f.name: torch.zeros_like(getattr(vel, f.name))
+                        for f in dataclasses.fields(vel)}))
+            secs = sec0 + (i + 0.5) * dt
+            doy = doy0 + torch.floor(secs / 86400.0)
+            coszen = None
+            if lat is not None:
+                coszen, _ = compute_coszen(lat, lon, doy,
+                                           torch.remainder(secs, 86400.0))
+            state, diags = self.step_fn(
+                model.tensors, state, dyn, atmf, ocnf, coszen=coszen,
+                day_of_year=doy, lat=lat, sfc_fluxes=sfcf)
+            fluxes.add(diags.get("column_fluxes"))
+            su = diags.get("ocean_stress_u")
+            if su is not None:
+                sv = diags["ocean_stress_v"]
+                stress = (su, sv) if stress is None else \
+                    (stress[0] + su, stress[1] + sv)
+        return state, fluxes, stress
+
+    def advance(self, import_fields: Dict[str, Any]
+                ) -> Dict[str, np.ndarray]:
+        """One coupling interval: import -> sub-loop -> averaged export
+        (reference ice_run_mct :1004 / NUOPC ModelAdvance)."""
+        model = self.model
+        dyn, atmf, ocnf, sec0, doy0, coverage = self._inputs(import_fields)
+        sfcf = None
+        if model.cfg.column.use_column_package and \
+                not model.cfg.column.calc_surface_temperature:
+            sfcf = import_sfc_fluxes(import_fields, model.dtype,
+                                     model.device)
+        state, fluxes, stress = self.substeps(dyn, atmf, ocnf, sec0, doy0,
+                                              coverage, sfcf)
+        n = float(self.n_substeps)
+        if stress is None:
+            nv = state.velocity.u_velocity.shape[-1]
+            z = torch.zeros((nv,), dtype=model.dtype, device=model.device)
+            stress = (z, z)
+        mean_fl = fluxes.mean(self.n_substeps)
+        self.state = state
+        self.clock.advance(self.coupling_interval)
+        self.last_fluxes = mean_fl
+        self.last_diags = {"ocean_stress_u": stress[0] / n,
+                           "ocean_stress_v": stress[1] / n}
+        # the state-check flags and the export fields in one copy
+        checks = check_state(state)
+        fields = export_fields(state, mean_fl, self.last_diags,
+                               mesh_tensors=model.tensors.mesh)
+        flags = {"check_" + k: v.to(model.dtype) for k, v in checks.items()}
+        host = host_exports(to_host(dict(fields, **flags)))
+        raise_on_failed_checks(
+            {k: bool(host.pop("check_" + k)) for k in checks}, state,
+            self.clock.timestamp(),
+            run_dir=getattr(self.streams, "restart_dir", None))
+        self._service_alarms()
+        return host
+
+    def _service_alarms(self):
+        if self.streams is None:
+            return
+        if self.streams.output is not None and \
+                self._out_alarm.is_ringing(self.clock):
+            tr = self.state.tracers
+            self.streams.output.write(to_host({
+                "iceAreaCell": tr["iceAreaCategory"].sum(-1),
+                "iceVolumeCell": tr["iceVolumeCategory"].sum(-1),
+                "uVelocity": self.state.velocity.u_velocity,
+                "vVelocity": self.state.velocity.v_velocity,
+            }), self.clock.timestamp())
+        if getattr(self.streams, "restart_dir", None) is not None and \
+                self._restart_alarm.is_ringing(self.clock):
+            ts = self.clock.timestamp()
+            save_checkpoint(
+                os.path.join(self.streams.restart_dir, f"restart.{ts}.npz"),
+                self.state, {"year": self.clock.year,
+                             "seconds": self.clock.seconds})
+            write_restart_timestamp(self.streams.restart_dir, ts)
+
+
+class ShardedCoupledDriver:
+    """CoupledDriver over a ShardedSeaIceModel (blocks in lockstep on one
+    card): the import fields go to the device in one copy and are
+    scattered to the blocks there, the sub-loop runs the sharded step,
+    and the interval-mean fluxes and the state are gathered from their
+    owners on the device for the export, fetched in one copy (the
+    reference's decomposed ice_run_mct loop; gathers happen only at the
+    coupler boundary, where the MCT rearranger sits).
+
+    As in the JAX package's driver, the solar zenith is evaluated once
+    per couple interval, at the interval-start clock, not per substep,
+    and the step takes no day of year (no first-year-ice reset); there
+    is no state check and no output or restart stream."""
+
+    def __init__(self, model, state, coupling_interval: float,
+                 clock: Optional[ModelClock] = None,
+                 tfrz_option: str = "minus1p8",
+                 sst_in_kelvin: bool = False):
+        self.model = model
+        self.state = state
+        self.clock = clock or ModelClock(calendar=model.cfg.run.calendar)
+        self.tfrz_option = tfrz_option
+        self.sst_in_kelvin = sst_in_kelvin
+        self.n_substeps = _substeps(coupling_interval, model.cfg.run.dt)
+        self.coupling_interval = float(coupling_interval)
+        self.step_fn = model.make_step()
+        gm = model.global_mesh
+        lat = getattr(gm, "lat_cell", None)
+        lat = np.zeros(gm.n_cells) if lat is None else np.asarray(lat)
+        lon = getattr(gm, "lon_cell", None)
+        lon = np.zeros_like(lat) if lon is None else np.asarray(lon)
+        self._latlon = [torch.as_tensor(a.astype(np.float64)).to(
+            device=model.device, dtype=model.dtype) for a in (lat, lon)]
+
+    def inputs(self, import_fields):
+        """The interval's forcing per block and the interval-start coszen
+        per block (None without the column package)."""
+        model = self.model
+        dyn_g, atm_g, ocn_g, _ = import_with(
+            import_fields, model.cfg.run.dt, model.dtype, self.tfrz_option,
+            self.sst_in_kelvin, model.device)
+        dyn = model.scatter_cells(dyn_g)
+        if not model.cfg.column.use_column_package:
+            return dyn, None, None, None
+        cz, _ = compute_coszen(*self._latlon, float(self.clock.day_of_year),
+                               self.clock.seconds_today)
+        return (dyn, model.scatter_cells(atm_g), model.scatter_cells(ocn_g),
+                model.scatter_cells(cz))
+
+    def advance(self, import_fields: Dict[str, Any]
+                ) -> Dict[str, np.ndarray]:
+        model = self.model
+        dyn, atmf, ocnf, coszen = self.inputs(import_fields)
+        state = self.state
+        fluxes = [FluxMean() for _ in range(model.n_shards)]
+        for _ in range(self.n_substeps):
+            state, diags = self.step_fn(model.tensors, model.halo, state,
+                                        dyn, atmf, ocnf, coszen)
+            for acc, d in zip(fluxes, diags):
+                acc.add(d.get("column_fluxes"))
+        self.state = state
+        self.clock.advance(self.coupling_interval)
+        mean_fl = None
+        means = [acc.mean(self.n_substeps) for acc in fluxes]
+        if means[0] is not None:
+            mean_fl = dataclasses.replace(means[0], **{
+                k: model.gather_cells([getattr(m, k) for m in means])
+                for k in fluxes[0].sums}, warnings=None)
+        return export_state(model.gather_state(state), mean_fl)

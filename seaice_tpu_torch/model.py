@@ -297,7 +297,8 @@ class SeaIceModel:
                  forcing: DynamicsForcing,
                  atmos: Optional[AtmosForcing] = None,
                  ocean: Optional[OceanForcing] = None,
-                 coszen=None):
+                 coszen=None, day_of_year=None, lat=None,
+                 faero_atm=None, sfc_fluxes=None):
             """One coupling timestep (reference seaice_timestep,
             mpas_seaice_time_integration.F:42-175): column pre-dynamics
             -> (velocity solve -> transport -> ridging) x n_sub ->
@@ -305,15 +306,18 @@ class SeaIceModel:
             without `atmos`, the column phases before and after the
             dynamics are left out.
 
-            coszen: cell cosine solar zenith (dEdd shortwave).  The
-            JAX step's further inputs (day_of_year/lat, faero_atm,
-            sfc_fluxes) feed options the port does not run (first-year
-            ice, aerosols, calc_Tsfc=False), which raise when the model
-            is built (ROADMAP.md Queue 1 item 10)."""
+            coszen: cell cosine solar zenith (dEdd shortwave).
+            day_of_year (a number or a 0-d tensor) and lat (cell
+            latitudes, radians): the first-year-ice reset.  faero_atm
+            and sfc_fluxes (aerosol deposition, the calc_Tsfc=False
+            surface fluxes) feed options the port does not run: only
+            None is accepted (ROADMAP.md Queue 1 item 10)."""
+            check_unported_inputs(faero_atm, sfc_fluxes)
             thermo = column is not None and atmos is not None
             if thermo:
                 state, fluxes = column_before_dynamics(
-                    cfg, column, state, atmos, ocean, coszen)
+                    cfg, column, state, atmos, ocean, coszen,
+                    day_of_year, lat)
             new_state, diags = drive(body(tensors, state, forcing))
             if thermo:
                 new_state, diags = column_after_dynamics(
@@ -323,13 +327,25 @@ class SeaIceModel:
         return step
 
 
+def check_unported_inputs(faero_atm=None, sfc_fluxes=None):
+    """The step's inputs of options the port does not run: aerosol
+    deposition and the calc_Tsfc=False surface fluxes raise unless None."""
+    for name, value in (("faero_atm", faero_atm),
+                        ("sfc_fluxes", sfc_fluxes)):
+        if value is not None:
+            raise NotImplementedError(
+                f"step input {name}: its column option is not ported "
+                "(ROADMAP.md Queue 1 item 10)")
+
+
 def column_before_dynamics(cfg: Config, column: ColumnPhysics, state: State,
                            atmos: AtmosForcing, ocean: OceanForcing,
-                           coszen=None):
+                           coszen=None, day_of_year=None, lat=None):
     """The column phase before the dynamics: vertical and ITD
     thermodynamics, per cell.  Returns (state, ColumnFluxes)."""
     tr, fluxes = column.step_thermodynamics(
-        cfg.run.dt, dict(state.tracers), atmos, ocean, coszen=coszen)
+        cfg.run.dt, dict(state.tracers), atmos, ocean, coszen=coszen,
+        day_of_year=day_of_year, lat=lat)
     return state.replace(tracers=tr), fluxes
 
 

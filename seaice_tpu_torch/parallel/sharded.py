@@ -63,6 +63,7 @@ from ..dynamics.cuda_unstructured import (evp_subcycle_share_uv,
                                           evp_subcycle_step)
 from ..mesh.core import Mesh
 from ..model import (SeaIceModel, State, check_kernel_options,
+                     check_unported_inputs,
                      column_after_dynamics, column_before_dynamics,
                      dynamics_transport_steps)
 from ..transport.remap import make_remap_step
@@ -299,6 +300,87 @@ class ShardedSeaIceModel:
         return [t.to(self.dtype) if t.is_floating_point() else t
                 for t in out]
 
+    def _owner_rows(self, kind: str):
+        """Per block, (local rows, global rows) of the entities of `kind`
+        ("cell" or "vertex") it owns, as device index tensors (cached)."""
+        cache = self.__dict__.setdefault("_owner_row_cache", {})
+        if kind not in cache:
+            rows = []
+            for b in self.part.blocks:
+                n = (b.n_cells_owned if kind == "cell"
+                     else b.n_vertices_owned)
+                gid = getattr(b, f"{kind}_global")[:n]
+                loc = np.nonzero(gid >= 0)[0]
+                rows.append(tuple(torch.as_tensor(a.astype(np.int64)).to(
+                    self.device) for a in (loc, gid[loc])))
+            cache[kind] = rows
+        return cache[kind]
+
+    def scatter_cells(self, tree):
+        """A container of global [nCells, ...] tensors already on the
+        device (a tensor, a dict, or a dataclass such as DynamicsForcing)
+        -> one container per block, each block's cells taken on the
+        device, padded cells zero (the device counterpart of
+        `scatter_cell_tree`, bitwise)."""
+        if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+            parts = {f.name: self.scatter_cells(getattr(tree, f.name))
+                     for f in dataclasses.fields(tree)}
+            return [dataclasses.replace(tree, **{k: p[s]
+                                                 for k, p in parts.items()})
+                    for s in range(self.n_shards)]
+        if isinstance(tree, dict):
+            parts = {k: self.scatter_cells(v) for k, v in tree.items()}
+            return [{k: p[s] for k, p in parts.items()}
+                    for s in range(self.n_shards)]
+        cache = self.__dict__.setdefault("_scatter_cache", [])
+        if not cache:
+            for b in self.part.blocks:
+                gid = torch.as_tensor(b.cell_global.astype(np.int64)).to(
+                    self.device)
+                cache.append((gid.clamp(min=0), gid >= 0))
+        out = []
+        for idx, valid in cache:
+            loc = tree.index_select(0, idx)
+            valid = valid.reshape(valid.shape + (1,) * (loc.ndim - 1))
+            out.append(torch.where(valid, loc, torch.zeros_like(loc)))
+        return out
+
+    def _gather_rows(self, kind: str, n_global: int, blocks):
+        rows = self._owner_rows(kind)
+        b0 = blocks[0]
+        out = torch.zeros((n_global,) + tuple(b0.shape[1:]), dtype=b0.dtype,
+                          device=b0.device)
+        for (loc, gid), t in zip(rows, blocks):
+            out.index_copy_(0, gid, t.index_select(0, loc))
+        return out
+
+    def gather_cells(self, blocks: List[torch.Tensor]) -> torch.Tensor:
+        """The blocks' [nCellsLocal, ...] tensors -> the global [nCells,
+        ...] tensor on the device, each cell from its owner (the device
+        counterpart of `part.gather_cell_field`, bitwise)."""
+        return self._gather_rows("cell", self.global_mesh.n_cells, blocks)
+
+    def gather_vertices(self, blocks: List[torch.Tensor]) -> torch.Tensor:
+        return self._gather_rows("vertex", self.global_mesh.n_vertices,
+                                 blocks)
+
+    def gather_state(self, states: List[State]) -> State:
+        """The blocks' states -> one State of the whole mesh on the
+        device: the velocities and the tracers from their owners; the
+        corner stresses, in each block's own corner order, are left out
+        (None), as the JAX package's sharded coupled driver leaves them."""
+        def vert(name):
+            return self.gather_vertices([getattr(st.velocity, name)
+                                         for st in states])
+        return State(
+            velocity=states[0].velocity.replace(
+                u_velocity=vert("u_velocity"), v_velocity=vert("v_velocity"),
+                stress11=None, stress22=None, stress12=None,
+                solve_velocity_prev=vert("solve_velocity_prev")),
+            tracers={k: self.gather_cells([st.tracers[k] for st in states])
+                     for k in states[0].tracers},
+            time=states[0].time)
+
     def gather_tracers(self, states: List[State]) -> Dict[str, np.ndarray]:
         return {name: self.part.gather_cell_field(
                     np.stack([st.tracers[name].detach().cpu().numpy()
@@ -364,13 +446,15 @@ class ShardedSeaIceModel:
 
     def make_step(self):
         """Build step(tensors, halo, state, forcing, atmos=None,
-        ocean=None, coszen=None) -> (state, diags), each argument a list
-        with one entry per block: the step of `SeaIceModel` on every
-        block, in lockstep, the velocity solve by the one-subcycle EVP
-        kernel with the vertex halo refreshed between subcycles.  With
-        the column package and `atmos` (AtmosForcing, OceanForcing and
-        coszen per block, as `scatter_cell_tree` makes them) each block
-        runs the column phases on its own cells.  The config's optional
+        ocean=None, coszen=None, day_of_year=None, lat=None, faero_atm=None,
+        sfc_fluxes=None) -> (state, diags), each argument but day_of_year
+        (one number for all blocks) a list with one entry per block: the
+        step of `SeaIceModel` on every block, in lockstep, the velocity
+        solve by the one-subcycle EVP kernel with the vertex halo
+        refreshed between subcycles.  With the column package and
+        `atmos` (AtmosForcing, OceanForcing, coszen and lat per block, as
+        `scatter_cell_tree` makes them) each block runs the column phases
+        on its own cells.  The config's optional
         conservation and monotonicity checks sum over a block and are
         left out, as in the JAX package."""
         cfg = self.cfg
@@ -389,7 +473,9 @@ class ShardedSeaIceModel:
                                            column=col) for col in columns]
 
         def step(tensors, halo, state, forcing, atmos=None, ocean=None,
-                 coszen=None):
+                 coszen=None, day_of_year=None, lat=None, faero_atm=None,
+                 sfc_fluxes=None):
+            check_unported_inputs(faero_atm, sfc_fluxes)
             solve = {}          # the K6 loops of the solve under way
 
             def advance(kind, fields):
@@ -402,8 +488,10 @@ class ShardedSeaIceModel:
             thermo = columns[0] is not None and atmos is not None
             if thermo:
                 coszen = coszen or [None] * self.n_shards
+                lat = lat or [None] * self.n_shards
                 pre = [column_before_dynamics(cfg, columns[s], state[s],
-                                              atmos[s], ocean[s], coszen[s])
+                                              atmos[s], ocean[s], coszen[s],
+                                              day_of_year, lat[s])
                        for s in blocks]
                 state = [p[0] for p in pre]
             outs = drive_lockstep(
@@ -418,14 +506,39 @@ class ShardedSeaIceModel:
         return step
 
 
-def full_physics_inputs(mesh, cfg, dtype=torch.float64, device="cpu"):
+class GlobalView:
+    """A ShardedSeaIceModel seen as one model of its whole mesh, for the
+    analysis members (`analysis/`): `mesh`, `cfg`, `dtype`, `device`,
+    `column` (every block's is the same per-cell physics) and `tensors`
+    with the whole mesh's `area_cell` and `MeshTensors`."""
+
+    def __init__(self, sm: ShardedSeaIceModel):
+        self.mesh = sm.global_mesh
+        self.cfg = sm.cfg
+        self.dtype = sm.dtype
+        self.device = sm.device
+        self.column = sm.models[0].column
+        self.tensors = _ViewTensors(
+            mesh=self.mesh.tensors(sm.dtype, sm.device),
+            area_cell=torch.as_tensor(np.ascontiguousarray(
+                self.mesh.area_cell, np.float64)).to(
+                    device=sm.device, dtype=sm.dtype))
+
+
+@dataclasses.dataclass
+class _ViewTensors:
+    mesh: Any
+    area_cell: Any
+
+
+def full_physics_inputs(mesh, cfg, dtype=torch.float64, device=None):
     """Global initial state + forcing for a full-physics run: the port's
     copy of the JAX package's `parallel/sharded.py::full_physics_inputs`
     (its dryrun's and its sharding-invariance tests' inputs).
 
     Returns (area, vol, snow as numpy [nCells, nCat]; extra: the
     thermodynamic tracers as tensors; AtmosForcing, OceanForcing; coszen
-    [nCells]), the tensors in dtype on device."""
+    [nCells]), the tensors in dtype on device (None: the card)."""
     from ..column.driver import (AtmosForcing, OceanForcing,
                                  slab_ocean_frzmlt)
     from ..column.itd import category_boundaries
@@ -434,6 +547,7 @@ def full_physics_inputs(mesh, cfg, dtype=torch.float64, device="cpu"):
                                         salinity_profile,
                                         snow_enthalpy_from_temperature)
     from ..testcases import box
+    device = resolve_device(device)
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64)).to(

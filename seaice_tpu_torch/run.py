@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, List, Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -33,6 +33,7 @@ from .forcing.clock import Alarm, ModelClock
 from .forcing.core import (CoreAtmosForcing, NcarOceanForcing,
                            derive_atmos_fields)
 from .io.checkpoint import save_checkpoint, write_restart_timestamp
+from .utils.containers import upload
 
 
 @dataclasses.dataclass
@@ -44,24 +45,6 @@ class RunStreams:
     output_interval: float = 86400.0
     restart_dir: Optional[str] = None
     restart_interval: float = 5 * 86400.0
-
-
-def upload(arrays: List[np.ndarray], dtype, device) -> List[torch.Tensor]:
-    """The host arrays cast to dtype on the host (the JAX runner's
-    `jnp.asarray(v, d)`), moved to device in ONE copy (pinned and
-    asynchronous to a card); returns a view of each."""
-    npdt = torch.empty((), dtype=dtype).numpy().dtype
-    flat = np.concatenate([np.asarray(a, np.float64).ravel()
-                           for a in arrays]).astype(npdt)
-    buf = torch.from_numpy(flat)
-    if torch.device(device).type == "cuda":
-        buf = buf.pin_memory().to(device, non_blocking=True)
-    out, at = [], 0
-    for a in arrays:
-        n = int(np.prod(np.shape(a)))
-        out.append(buf[at:at + n].view(np.shape(a)))
-        at += n
-    return out
 
 
 def restore_clock(clock: ModelClock, alarms, clock_metadata):
@@ -176,19 +159,21 @@ def state_checks(state, diags):
 class _TimeLoop:
     """The time loop both runners share (reference timeLoop :314-371):
     the forcing records on the device, the device step, the clock, the
-    abort gate every `check_interval` steps, and the output and restart
+    abort gate every `check_interval` steps, the analysis members on their
+    own alarms (reference timeLoop :321-331), and the output and restart
     alarms.  A runner supplies `_to_device` (the records and the clock
     scalars, in one copy), `_advance` (the step and its state check),
-    `_abort_gate`, `_write_output` and `_write_restart`."""
+    `_abort_gate`, `_analyse`, `_write_output` and `_write_restart`."""
 
     def __init__(self, model, state, atmos_forcing, ocean_forcing, clock,
-                 streams):
+                 streams, analysis=None):
         self.model = model
         self.state = state
         self.atmos = atmos_forcing
         self.ocean = ocean_forcing
         self.clock = clock or ModelClock(calendar=model.cfg.run.calendar)
         self.streams = streams or RunStreams()
+        self.analysis = analysis
         self.step_fn = model.make_step()
         self.timers = PhaseTimers()
         self._out_alarm = Alarm(self.streams.output_interval)
@@ -237,6 +222,10 @@ class _TimeLoop:
                 with self.timers.time("state_check"):
                     self._abort_gate(checks, cell_masks)
 
+            if self.analysis is not None:
+                with self.timers.time("analysis"):
+                    self._analyse()
+
             if self.streams.output is not None and \
                     self._out_alarm.is_ringing(self.clock):
                 with self.timers.time("output"):
@@ -250,8 +239,8 @@ class _TimeLoop:
 
 class StandaloneRunner(_TimeLoop):
     """Owns the clock + forcing + model; `run(n_steps)` is the time
-    loop.  analysis: only None (the analysis members are ROADMAP Queue 1
-    item 11)."""
+    loop.  analysis: an `analysis.AnalysisDriver` whose members run on
+    their own alarms after every step, or None."""
 
     def __init__(self, model, state,
                  atmos_forcing: Optional[CoreAtmosForcing] = None,
@@ -259,12 +248,11 @@ class StandaloneRunner(_TimeLoop):
                  clock: Optional[ModelClock] = None,
                  streams: Optional[RunStreams] = None,
                  analysis=None):
-        if analysis is not None:
-            raise NotImplementedError(
-                "analysis members in the run loop: not ported yet "
-                "(ROADMAP Queue 1 item 11)")
         super().__init__(model, state, atmos_forcing, ocean_forcing, clock,
-                         streams)
+                         streams, analysis)
+        if analysis is not None:
+            analysis.bootstrap(model, state)
+            analysis.init(model, state)
         self._lon = self._lat = None
         if self.atmos is not None:
             self._lon, self._lat = upload([self.atmos.lon, self.atmos.lat],
@@ -298,7 +286,8 @@ class StandaloneRunner(_TimeLoop):
                 state, sixh, monthly, ocn_raw, lon, lat, seconds_today,
                 day_of_year, dt_step, use_col)
             state, diags = step_fn(tensors, state, dyn, atmf, ocnf,
-                                   coszen=coszen)
+                                   coszen=coszen, day_of_year=day_of_year,
+                                   lat=lat)
             return (state, diags, *state_checks(state, diags))
 
         return fn
@@ -318,6 +307,10 @@ class StandaloneRunner(_TimeLoop):
         raise_on_failed_checks(checks, self.state, self.clock.timestamp(),
                                run_dir=self.streams.restart_dir,
                                cell_masks=cell_masks)
+
+    def _analyse(self):
+        self.analysis.on_timestep(self.model, self.state, self.clock,
+                                  self.diags)
 
     def _write_output(self):
         tr = self.state.tracers
@@ -351,15 +344,25 @@ class ShardedStandaloneRunner(_TimeLoop):
     cells.  The state check runs on every block; a failure writes the
     abort dump in the per-block layout (no per-cell dump).  Output and
     restart use the per-block I/O (`io/parallel.py`): the step never
-    gathers the state."""
+    gathers the state.  analysis: an `analysis.AnalysisDriver`, or None;
+    its members see the whole mesh (`parallel.sharded.GlobalView`), the
+    state gathered on the device after a step in which one of them
+    precomputes or computes."""
 
     def __init__(self, model, state,
                  atmos_forcing: Optional[CoreAtmosForcing] = None,
                  ocean_forcing: Optional[NcarOceanForcing] = None,
                  clock: Optional[ModelClock] = None,
-                 streams: Optional[RunStreams] = None):
+                 streams: Optional[RunStreams] = None,
+                 analysis=None):
         super().__init__(model, state, atmos_forcing, ocean_forcing, clock,
-                         streams)
+                         streams, analysis)
+        if analysis is not None:
+            from .parallel.sharded import GlobalView
+            self._view = GlobalView(model)
+            whole = model.gather_state(state)
+            analysis.bootstrap(self._view, whole)
+            analysis.init(self._view, whole)
         gm = model.global_mesh
         nc = gm.n_cells
 
@@ -409,7 +412,8 @@ class ShardedStandaloneRunner(_TimeLoop):
         dyn, atmf, ocnf, coszen = (list(x) for x in zip(*ins))
         if atmf[0] is None:
             atmf = ocnf = coszen = None
-        return self.step_fn(tensors, halo, states, dyn, atmf, ocnf, coszen)
+        return self.step_fn(tensors, halo, states, dyn, atmf, ocnf, coszen,
+                            day_of_year, self._lat)
 
     def _advance(self, raw):
         model = self.model
@@ -425,6 +429,20 @@ class ShardedStandaloneRunner(_TimeLoop):
         raise_on_failed_checks(checks, self.state, self.clock.timestamp(),
                                run_dir=self.streams.restart_dir,
                                write_dump=self._write_abort_dump)
+
+    def _analyse(self):
+        """The members on the whole mesh: the state and the diagnostics
+        they read gathered on the device, cells from their owners, in a
+        step where a member precomputes or computes."""
+        model = self.model
+
+        def diags(keys):
+            return {k: model.gather_cells([d[k] for d in self.diags])
+                    for k in keys if k in self.diags[0]}
+
+        self.analysis.on_timestep(self._view,
+                                  lambda: model.gather_state(self.state),
+                                  self.clock, diags)
 
     def _write_abort_dump(self, run_dir, states, timestamp, failed):
         from .io.parallel import save_sharded_checkpoint

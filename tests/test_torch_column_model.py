@@ -259,7 +259,7 @@ def _port_sphere(subdiv, cfg, dtype=F64):
     mesh, _ = panel_reorder(icosahedral_mesh(subdiv), subdiv)
     model = SeaIceModel(mesh, cfg, dtype=dtype, device="cpu")
     area, vol, snow, extra, atm, ocn, coszen = full_physics_inputs(
-        mesh, cfg, dtype)
+        mesh, cfg, dtype, "cpu")
     state = model.init_state(area, vol, snow)
     state = state.replace(tracers=dict(state.tracers, **extra))
     forcing = DynamicsForcing(**{
@@ -376,6 +376,102 @@ def test_full_physics_step_matches_reference(reference_steps, melt):
                           fl.warnings["thermo_unconverged"].numpy())
 
 
+# ice age and first-year ice: the day of year of each case (265 resets
+# the northern first-year ice), and the limit of the step against
+# seaice_tpu with them
+AGE_DAYS = (100.0, 265.0)
+AGE_STEP_LIMIT = 1e-12
+
+
+def _age_cfg(C):
+    cfg = _sphere_cfg(C)
+    return dataclasses.replace(cfg, column=dataclasses.replace(
+        cfg.column, use_ice_age=True, use_first_year_ice=True))
+
+
+def _age_tracers(nc, ncat):
+    """Uniform initial ice age (s) and first-year area fraction (numpy):
+    transport and ridging keep a uniform tracer uniform, so where no new
+    ice forms the age after the step is the age before plus dt."""
+    return {"iceAge": np.full((nc, ncat), 1.0e7),
+            "firstYearIceArea": np.full((nc, ncat), 0.7)}
+
+
+@pytest.fixture(scope="module")
+def reference_age_steps():
+    """One full-physics step of `seaice_tpu` with ice age and first-year
+    ice on the subdiv-2 panel sphere, the winter atmosphere, from
+    `full_physics_inputs` with seeded age and first-year tracers, for
+    each day of AGE_DAYS, op by op: {day: fields as numpy}."""
+    import jax.numpy as jnp
+    from seaice_tpu import config as JC
+    from seaice_tpu.dynamics.evp import DynamicsForcing as JForcing
+    from seaice_tpu.mesh import icosahedral_mesh as jicos
+    from seaice_tpu.mesh.panels import panel_reorder as jreorder
+    from seaice_tpu.model import SeaIceModel as JModel
+    from seaice_tpu.parallel.sharded import full_physics_inputs as jinputs
+    from seaice_tpu.utils.pytree import replace
+
+    mesh_j, _ = jreorder(jicos(SUBDIV), SUBDIV)
+    jm = JModel(mesh_j, _age_cfg(JC), dtype=jnp.float64)
+    area, vol, snow, extra, atm, ocn, coszen = jinputs(
+        mesh_j, jm.cfg, jnp.float64)
+    jf = JForcing(**{k: jnp.asarray(v) for k, v in
+                     _sphere_forcing(mesh_j.n_cells).items()})
+    jstep = jm.make_step(jit=False)
+    js = jm.init_state(area, vol, snow)
+    age = {k: jnp.asarray(v) for k, v in _age_tracers(
+        mesh_j.n_cells, jm.cfg.run.n_categories).items()}
+    js = replace(js, tracers=dict(js.tracers, **extra, **age))
+    lat = jnp.asarray(mesh_j.lat_cell)
+    out = {}
+    for day in AGE_DAYS:
+        s1, _ = jstep(jm.tensors, js, jf, atm, ocn,
+                      coszen=jnp.asarray(coszen), day_of_year=day, lat=lat)
+        out[day] = _fields(s1)
+    return out
+
+
+@pytest.mark.parametrize("day", AGE_DAYS, ids=["day100", "day265"])
+def test_age_and_first_year_ice_match_reference(reference_age_steps, day):
+    """The full-physics step with ice age and first-year ice, day_of_year
+    and lat passed, against `seaice_tpu`: every tracer and u, v to
+    AGE_STEP_LIMIT (pond fields under NOISE).  Where a category keeps its
+    ice and takes no new ice, its age grows by dt; on day 265 the northern
+    first-year area is reset (only new ice, which is first-year, is left),
+    on day 100 it is not."""
+    model, state0, forcing, atm, ocn, coszen = _port_sphere(
+        SUBDIV, _age_cfg(C))
+    nc, ncat = model.mesh.n_cells, model.cfg.run.n_categories
+    age = {k: torch.as_tensor(v) for k, v in _age_tracers(nc, ncat).items()}
+    state0 = state0.replace(tracers=dict(state0.tracers, **age))
+    lat = torch.as_tensor(model.mesh.lat_cell)
+    state, _ = model.make_step()(model.tensors, state0, forcing, atm, ocn,
+                                 coszen=coszen, day_of_year=day, lat=lat)
+    ref = reference_age_steps[day]
+    got = _fields(state)
+    _compare_states(ref, got, AGE_STEP_LIMIT)
+    # categories 2 and up take no new ice (it forms in category 1)
+    a1 = got["iceAreaCategory"][:, 1:]
+    ice = a1 > 1e-3
+    assert ice.sum() > 10
+    np.testing.assert_allclose(got["iceAge"][:, 1:][ice],
+                               1.0e7 + model.cfg.run.dt, rtol=1e-12)
+    fy1 = got["firstYearIceArea"]
+    assert (fy1 >= 0.0).all() and (fy1 <= 1.0).all()
+    lat_c = model.mesh.lat_cell[:, None]
+    north = (lat_c >= 0.0) & (got["iceAreaCategory"] > 1e-3)
+    south = (lat_c < 0.0) & (got["iceAreaCategory"] > 1e-3)
+    assert north.sum() > 10 and south.sum() > 10
+    # day 265 resets the north (its first-year area is new ice only),
+    # not the south (where transport mixes in a little of the north's
+    # near the equator); on day 100 new ice only adds first-year area
+    if day == 265.0:
+        assert fy1[north].mean() < 0.2 and fy1[south].mean() > 0.65
+    else:
+        assert fy1[north | south].min() >= 0.7 - 1e-12
+
+
 def test_float32_step_keeps_float32():
     """A small float32 full-physics model: every tracer, the velocity and
     every column flux stay float32 (numpy's float64 tables must not
@@ -401,7 +497,7 @@ def test_float32_step_keeps_float32():
 @pytest.mark.parametrize("option, value", [
     ("ktherm", 0), ("calc_surface_temperature", False),
     ("pond_scheme", "cesm"), ("pond_scheme", "topo"),
-    ("use_ice_age", True), ("use_first_year_ice", True),
+    ("use_modal_aerosols", True), ("use_snow_liquid_ponds", True),
     ("use_snow_tracers", True), ("snwredist", "bulk"),
     ("n_aerosols", 2), ("use_snicar", True), ("use_form_drag", True),
     ("highfreq", True), ("use_brine_height", True),

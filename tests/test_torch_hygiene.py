@@ -48,8 +48,14 @@ MODULES = [
     "seaice_tpu_torch.io.output", "seaice_tpu_torch.io.parallel",
     "seaice_tpu_torch.testcases.ic", "seaice_tpu_torch.namelist",
     "seaice_tpu_torch.diagnostics", "seaice_tpu_torch.error",
-    "seaice_tpu_torch.run",
+    "seaice_tpu_torch.run", "seaice_tpu_torch.column.zbgc",
+    "seaice_tpu_torch.coupler", "seaice_tpu_torch.coupled",
+    "seaice_tpu_torch.prescribed", "seaice_tpu_torch.special_boundaries",
+    "seaice_tpu_torch.analysis", "seaice_tpu_torch.analysis.driver",
+    "seaice_tpu_torch.analysis.members",
 ]
+EXAMPLES = [os.path.join(ROOT, "examples", name) for name in (
+    "torch_run_from_namelist.py", "torch_run_coupled.py")]
 
 
 def test_import_leaves_jax_out():
@@ -73,7 +79,7 @@ def test_import_leaves_jax_out():
 def test_sources_do_not_name_the_jax_package_in_imports():
     import re
     pat = re.compile(r"^\s*(import|from)\s+(jax|seaice_tpu)(\s|\.|$)")
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")] + EXAMPLES
     for d, _, names in os.walk(os.path.join(ROOT, "seaice_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 30
@@ -86,12 +92,52 @@ def test_sources_do_not_name_the_jax_package_in_imports():
                 "io/forcing_reader.py", "io/state_reader.py",
                 "io/checkpoint.py", "io/output.py", "io/parallel.py",
                 "testcases/ic.py", "namelist.py", "diagnostics.py",
-                "error.py", "run.py"):
+                "error.py", "run.py", "coupler.py", "coupled.py",
+                "prescribed.py", "special_boundaries.py", "column/zbgc.py",
+                "analysis/driver.py", "analysis/members.py"):
         assert os.path.join("seaice_tpu_torch", new) in names
     for path in files:
         with open(path) as f:
             for i, line in enumerate(f, 1):
                 assert not pat.match(line), f"{path}:{i}: {line}"
+
+
+@pytest.mark.parametrize("example, args", [
+    ("torch_run_coupled.py", ["--nx", "4", "--hours", "1"]),
+    ("torch_run_from_namelist.py", [
+        "--namelist", os.path.join(ROOT, "examples",
+                                   "namelist.seaice.example"),
+        "--subdiv", "1"])], ids=["coupled", "namelist"])
+def test_examples_leave_jax_out_and_default_to_the_card(example, args,
+                                                        tmp_path):
+    """Each new example runs on the CPU when asked (`--device cpu`) and
+    loads nothing of JAX or of the JAX package while it runs; without
+    --device it asks for the card, and without one it fails (both in one
+    subprocess)."""
+    path = os.path.join(ROOT, "examples", example)
+    if "namelist" in example:
+        args = args + ["--outdir", str(tmp_path)]
+    code = (
+        "import runpy, sys, torch\n"
+        f"sys.argv = [{path!r}] + {args + ['--device', 'cpu']!r}\n"
+        f"runpy.run_path({path!r}, run_name='__main__')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'seaice_tpu')]\n"
+        "assert not bad, bad\n"
+        "if not torch.cuda.is_available():\n"
+        f"    sys.argv = [{path!r}] + {args!r}\n"
+        "    try:\n"
+        f"        runpy.run_path({path!r}, run_name='__main__')\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('ran without a card')\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True, timeout=300)
+    assert r.returncode == 0 and "clean" in r.stdout, r.stdout[-3000:]
 
 
 def _small_model_args():
@@ -119,6 +165,8 @@ def _public_constructors():
     from seaice_tpu_torch.transport.geometry import build_remap_geometry
     from seaice_tpu_torch.transport.tracers import (init_tracer_state,
                                                     mass_only_tree)
+    from seaice_tpu_torch.column.driver import ColumnPhysics
+    from seaice_tpu_torch.parallel.sharded import full_physics_inputs
     mesh, cfg = _small_model_args()
     pmesh, lay = panel_reorder(icosahedral_mesh(1), 1)
     vb = compute_variational_basis(mesh)
@@ -165,11 +213,23 @@ def _public_constructors():
         "load_checkpoint": with_device(
             lambda **kw: load_checkpoint(ckpt["single"],
                                          **kw)[0].velocity.u_velocity),
+        "ColumnPhysics": with_device(
+            lambda **kw: ColumnPhysics(3, 4, shortwave="dEdd",
+                                       dtype=f64, **kw).salin),
+        "full_physics_inputs": with_device(
+            lambda **kw: full_physics_inputs(
+                mesh, C_full(), f64, **kw)[3]["iceSalinity"]),
         "load_sharded_checkpoint": with_device(
             lambda **kw: load_sharded_checkpoint(
                 ckpt["dir"], "sharded", ckpt["part"], ckpt["template"],
                 **kw)[0][1].time),
     }
+
+
+def C_full():
+    """The small full-physics config of `full_physics_inputs`."""
+    from seaice_tpu_torch import config as C
+    return C.Config(run=C.RunConfig(n_categories=3, n_ice_layers=4))
 
 
 _CKPT = {}
@@ -199,7 +259,7 @@ CONSTRUCTORS = ["SeaIceModel", "ShardedSeaIceModel", "Mesh.tensors",
             "build_dynamics_tensors", "init_velocity_state", "zero_forcing", "build_fast_tensors",
             "build_panel_tensors", "RemapGeometry.tensors",
             "init_tracer_state", "box_forcing", "load_checkpoint",
-            "load_sharded_checkpoint"]
+            "load_sharded_checkpoint", "ColumnPhysics", "full_physics_inputs"]
 
 
 def test_default_device_is_the_gpu_or_an_error():

@@ -1,0 +1,190 @@
+"""The port's namelist module (`seaice_tpu_torch/namelist.py`) against the
+JAX package's: the Fortran-namelist parser, `config_from_namelist` on the
+example namelist and on a namelist that sets every supported option of
+the Registry table to a non-default legal value (equal `Config` and
+`RunSetup`, field by field, enums by value), the hard errors, the audit
+table and its summary, and the MPAS duration parser.  All host Python:
+no JAX computation runs."""
+
+import dataclasses
+import enum
+import os
+
+import pytest
+
+import seaice_tpu.namelist as J
+import seaice_tpu_torch.namelist as T
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+EXAMPLE = os.path.join(HERE, "..", "examples", "namelist.seaice.example")
+
+
+def _plain(x):
+    """A Config, RunSetup or ZbgcParams as nested dicts of plain values,
+    enums by value (the two packages' enum classes differ)."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {f.name: _plain(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if isinstance(x, enum.Enum):
+        return x.value
+    if isinstance(x, tuple):
+        return tuple(_plain(v) for v in x)
+    return x
+
+
+def _both(source):
+    (cj, sj), (ct, st) = J.config_from_namelist(source), \
+        T.config_from_namelist(source)
+    return _plain(cj), _plain(sj), _plain(ct), _plain(st)
+
+
+SYNTAX = [
+    """
+&seaice_model
+    config_dt = 1800.0
+    config_calendar_type = 'gregorian_noleap'  ! comment
+/
+&velocity_solver
+    config_elastic_subcycle_number = 60,
+    config_use_air_stress = .false.
+    config_slow = 5.0d-8
+/
+""",
+    "&Seaice_Model\n  CONFIG_DT = 3600\n  config_start_time = \"2001-02-03\"\n"
+    "/\n&end_record\n  config_x = T\n  config_y = f\n  config_z = 1.5D2\n/\n",
+    "! only comments\n\n&empty\n/\n&a\n config_v = word\n  config_w = -2\n"
+    "$end\n",
+]
+
+
+@pytest.mark.parametrize("case", range(len(SYNTAX)))
+def test_parse_namelist_matches_reference(case):
+    assert T.parse_namelist(SYNTAX[case]) == J.parse_namelist(SYNTAX[case])
+
+
+@pytest.mark.parametrize("text", [
+    "&a\n config_x = 1\n&b\n/\n",          # record not closed
+    "config_x = 1\n",                       # outside a record
+    "&a\n config_x 1\n/\n",                 # no '='
+    "&a\n config_x = 1\n"])                 # not closed at end
+def test_parse_namelist_syntax_errors(text):
+    with pytest.raises(J.NamelistError):
+        J.parse_namelist(text)
+    with pytest.raises(T.NamelistError):
+        T.parse_namelist(text)
+
+
+def test_example_namelist_gives_the_reference_config():
+    cj, sj, ct, st = _both(EXAMPLE)
+    assert ct == cj and st == sj
+    assert ct["column"]["use_ice_age"] and ct["column"]["use_first_year_ice"]
+    assert st["run_duration"] == "00-00-00_06:00:00"
+
+
+def _enum_keys(conv):
+    """The legal namelist values of an `_enum` converter."""
+    return sorted(conv.__closure__[0].cell_contents)
+
+
+def _every_option_namelist():
+    """{record: {option: value}}: every supported option of the table at
+    a non-default legal value, where it has one (one pond scheme on, the
+    topographic one)."""
+    records = {}
+    for o in T._TABLE:
+        if o.disposition != "supported":
+            continue
+        d = o.default
+        if isinstance(d, bool):
+            v = not d
+        elif isinstance(d, int):
+            v = d + 1
+        elif isinstance(d, float):
+            v = d * 1.5 + 0.25
+        elif o.conv is not None:
+            # an enum with one legal value keeps it
+            keys = [k for k in _enum_keys(o.conv) if k != d] or [d]
+            v = keys[0]
+        else:
+            v = d + "_x" if "time" not in o.name else "2001-02-03_04:05:06"
+        records.setdefault(o.record, {})[o.full_name] = v
+    ponds = {"config_use_cesm_meltponds": False,
+             "config_use_level_meltponds": False,
+             "config_use_topo_meltponds": True}
+    for rec in records.values():
+        for k in ponds:
+            if k in rec:
+                rec[k] = ponds[k]
+    return records
+
+
+def test_every_supported_option_gives_the_reference_config():
+    records = _every_option_namelist()
+    n = sum(len(r) for r in records.values())
+    assert n == T.audit_summary()["supported"] == 251
+    cj, sj, ct, st = _both(records)
+    assert ct == cj and st == sj
+    # the non-default values reached the config
+    assert ct["column"]["pond_scheme"] == "topo"
+    assert ct["column"]["zbgc_params"] is not None
+    assert ct["run"]["dt"] != 3600.0
+
+
+@pytest.mark.parametrize("text, match", [
+    ("&seaice_model\n config_bogus = 1\n/\n", "unknown namelist option"),
+    ("&seaice_model\n config_num_halos = 3\n/\n", "not supported"),
+    ("&itd\n config_category_bounds_type = 'asymptotic'\n/\n",
+     "not supported"),
+    ("&column_tracers\n config_use_cesm_meltponds = .true.\n"
+     " config_use_level_meltponds = .true.\n/\n", "pond")],
+    ids=["unknown", "unsupported_value", "unsupported_enum", "two_ponds"])
+def test_hard_errors_match_reference(text, match):
+    with pytest.raises(J.NamelistError, match=match):
+        J.config_from_namelist(text)
+    with pytest.raises(T.NamelistError, match=match):
+        T.config_from_namelist(text)
+
+
+def test_audit_table_and_summary_match_reference():
+    assert T.audit_summary() == J.audit_summary() == {
+        "supported": 251, "na": 30, "unsupported": 35, "total": 316}
+    rows_t, rows_j = list(T.audit_rows()), list(J.audit_rows())
+    assert len(rows_t) == len(rows_j) == 316
+    for t, j in zip(rows_t, rows_j):
+        # record, option, disposition and default equal; a supported
+        # option's target equal (the reasons name each package's files)
+        assert (t[0], t[1], t[2], t[4]) == (j[0], j[1], j[2], j[4])
+        if t[2] == "supported":
+            assert t[3] == j[3]
+    assert set(T.REGISTRY) == set(J.REGISTRY)
+
+
+@pytest.mark.parametrize("text, seconds", [
+    ("00-00-00_06:00:00", 21600.0), ("00-00-01_00:00:00", 86400.0),
+    ("1-00-02_00:00:30", 367 * 86400.0 + 30.0), ("03_01:00:00",
+                                                3 * 86400.0 + 3600.0),
+    ("12:30:05", 45005.0)])
+def test_parse_duration_matches_reference(text, seconds):
+    assert T._parse_duration(text) == J._parse_duration(text) == seconds
+
+
+def test_month_durations_are_rejected():
+    for mod in (J, T):
+        with pytest.raises(mod.NamelistError, match="month"):
+            mod._parse_duration("00-01-00_00:00:00")
+
+
+def test_unported_model_options_parse_and_raise_when_built():
+    """A supported option whose model option the port does not run parses
+    to the reference's Config; building the model raises, naming its
+    ROADMAP item."""
+    import torch
+    from seaice_tpu_torch.mesh import icosahedral_mesh
+    from seaice_tpu_torch.model import SeaIceModel
+    text = "&column_tracers\n config_use_snow_grain_radius = .true.\n/\n"
+    cj, sj, ct, st = _both(text)
+    assert ct == cj and ct["column"]["use_snow_tracers"]
+    cfg, _ = T.config_from_namelist(text)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        SeaIceModel(icosahedral_mesh(1), cfg, dtype=torch.float64,
+                    device="cpu")

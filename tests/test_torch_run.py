@@ -135,7 +135,7 @@ def test_runner_forcing_matches_reference(files):
             log.append(dict(flatten_arrays({
                 "dyn": dyn, "atm": atmf, "ocn": ocnf, "coszen": coszen}),
                 **{k: np.asarray(v) for k, v in kw.items()
-                   if v is not None and k == "day_of_year"}))
+                   if v is not None and k in ("day_of_year", "lat")}))
             return state, {}
         return step
 
@@ -160,7 +160,10 @@ def test_runner_forcing_matches_reference(files):
 
     assert len(logs["jax"]) == len(logs["port"]) == 2
     for i, (got, want) in enumerate(zip(logs["port"], logs["jax"])):
+        # the step's first-year-ice inputs, as the JAX runner passes them
         assert float(want.pop("day_of_year")) == 1.0
+        assert float(got.pop("day_of_year")) == 1.0
+        assert np.array_equal(got.pop("lat"), want.pop("lat"))
         assert set(got) == set(want)
         assert {"atm.longwave_down", "ocn.frzmlt", "coszen",
                 "dyn.u_air_velocity"} <= set(got)
@@ -438,8 +441,90 @@ def test_runner_column_off_matches_reference(tmp_path):
         sorted(os.listdir(tmp_path / "seaice_tpu"))
     assert {"forcing", "timestep", "state_check", "output",
             "restart_write"} <= set(r.timers.totals)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        type(r)(r.model, r.state, analysis=object())
+    # the analysis members run in the loop (held to JAX in
+    # test_torch_analysis.py)
+    from seaice_tpu_torch.analysis import AnalysisDriver, default_members
+    members = default_members(compute_interval=3600.0)
+    r2 = type(r)(r.model, r.state, analysis=AnalysisDriver(members))
+    r2.run(1)
+    assert "analysis" in r2.timers.totals
+    assert sum(bool(m.results) for m in members) >= 10
+
+
+# -- the runner's step with first-year ice ----------------------------------
+
+def test_runner_step_with_first_year_ice_matches_reference(files):
+    """A StandaloneRunner step with ice age and first-year ice on day 265:
+    the runner hands the step the day of year and the latitudes the JAX
+    runner hands its step (recorded in both, the JAX runner op by op);
+    the port runner's real step equals the model step called with them
+    bitwise (that step is held to JAX, day 265 included, by
+    test_torch_column_model.py), and it resets the northern first-year
+    ice while the south keeps it."""
+    import dataclasses
+    from seaice_tpu import config as J
+    from seaice_tpu.forcing.clock import ModelClock as JClock
+    from seaice_tpu.model import SeaIceModel as JModel
+    from seaice_tpu.namelist import RunSetup as JSetup
+    from seaice_tpu.namelist import initial_state_from_setup as jinit
+    from seaice_tpu.run import StandaloneRunner as JRunner
+    from seaice_tpu_torch.forcing.clock import ModelClock
+    from seaice_tpu_torch.namelist import RunSetup, initial_state_from_setup
+    from seaice_tpu_torch.run import StandaloneRunner
+
+    def cfg(P):
+        c = _full_physics_cfg(P)
+        return dataclasses.replace(c, column=dataclasses.replace(
+            c.column, use_ice_age=True, use_first_year_ice=True))
+
+    day265 = 264 * 86400.0
+    seen = {}
+
+    def recorder(key):
+        def step(tensors, state, *a, day_of_year=None, lat=None, **kw):
+            seen[key] = (float(np.asarray(day_of_year)),
+                         np.asarray(lat, np.float64))
+            return state, {}
+        return step
+
+    jmesh, jatm, jocn = _forcing("seaice_tpu", files)
+    jmodel = JModel(jmesh, cfg(J), dtype=jnp.float64)
+    jr = JRunner(jmodel, jinit(jmodel, JSetup(**SETUP)), atmos_forcing=jatm,
+                 ocean_forcing=jocn, clock=JClock(seconds=day265))
+    jr.step_fn = recorder("jax")
+    jr._device_step = jr._build_device_step()
+    with jax.disable_jit():
+        jr.run(1)
+
+    mesh, atm, ocn = _forcing("seaice_tpu_torch", files)
+    model = SeaIceModel(mesh, cfg(C), dtype=F64, device="cpu")
+    state = initial_state_from_setup(model, RunSetup(**SETUP))
+    tr = dict(state.tracers)
+    tr["firstYearIceArea"] = torch.full_like(tr["iceAreaCategory"], 0.6)
+    state = state.replace(tracers=tr)
+    r = StandaloneRunner(model, state, atmos_forcing=atm, ocean_forcing=ocn,
+                         clock=ModelClock(seconds=day265))
+    step = r.step_fn
+    r.step_fn = recorder("port")
+    r._device_step = r._build_device_step()
+    r.run(1)
+    assert seen["port"][0] == seen["jax"][0] == 265.0
+    assert np.array_equal(seen["port"][1], seen["jax"][1])
+
+    r = StandaloneRunner(model, state, atmos_forcing=atm, ocean_forcing=ocn,
+                         clock=ModelClock(seconds=day265))
+    dyn, atmf, ocnf, coszen = r.next_step_inputs()
+    want, _ = step(model.tensors, state, dyn, atmf, ocnf, coszen=coszen,
+                   day_of_year=265.0, lat=torch.as_tensor(atm.lat))
+    got = r.run(1)
+    for k in want.tracers:
+        assert torch.equal(got.tracers[k], want.tracers[k]), k
+    fy = got.tracers["firstYearIceArea"].numpy()
+    a = got.tracers["iceAreaCategory"].numpy()
+    lat = np.asarray(atm.lat)[:, None]
+    north, south = (lat >= 0) & (a > 1e-3), (lat < 0) & (a > 1e-3)
+    assert north.sum() and south.sum()
+    assert fy[north].mean() < 0.2 and fy[south].min() >= 0.6 - 1e-12
 
 
 # -- the runner, full physics from files: a bitwise restart -------------------
