@@ -6,7 +6,7 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
 
   1. builds the CUDA kernels from `seaice_tpu_torch/csrc/` (one nvcc per
      source, in parallel) and the host remap-stencil library;
-  2. drives ten paths at full width through `SeaIceModel.make_step()`,
+  2. drives these paths at full width through `SeaIceModel.make_step()`,
      `ShardedSeaIceModel.make_step()`, the runners of `run.py` and the
      drivers of `coupled.py`, float32, the first four with the column
      package off:
@@ -58,6 +58,19 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
        sharded coupled run  `ShardedCoupledDriver`, 4 blocks, 1 interval
                     (K6 + K2): the gathered export bitwise the same
                     sharded steps by hand;
+       solver variants  the options whose subcycle loop is plain torch
+                    (`evp.variant_subcycles`, the JAX package's XLA loop):
+                    a. revised EVP on the raw sphere with IR (K2, held
+                    against its plain version), moved off standard EVP's
+                    answer; d. linear ocean stress, no ocean stress, strain
+                    averaging and the linear relation, one step each;
+                    e. revised EVP in 4 blocks against the unsharded steps;
+                    b. the weak scheme with upwind transport under a 5 m/s
+                    zonal wind (no kernel); c. upwind transport on the
+                    panel sphere (K3, held against its plain version);
+                    f. the JFNK VP solver (`dynamics/implicit.py`) against
+                    EVP with 240 subcycles on the 168 x 168 box (K4, held),
+                    its GMRES cycles and host syncs a step printed;
   3. holds each kernel against its plain PyTorch version on the card, on
      the very tensors the step hands it (float32, and the same tensors
      cast to float64), and times both with CUDA events; reports the
@@ -82,8 +95,10 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
      state against the same steps in float64 (BASELINE.md's budget);
   5. checks small float64 models (raw sphere, panel sphere by both routes,
      box, sphere in 4 blocks, full-physics panel sphere, `CoupledDriver`
-     on the 8 x 8 box with the column) on the card against the same
-     models on the CPU (plain PyTorch throughout).
+     on the 8 x 8 box with the column; the raw sphere with revised EVP,
+     the weak scheme with upwind, the panel sphere with upwind, 2 blocks
+     with revised EVP, the VP solver on the 12 x 12 box) on the card
+     against the same models on the CPU (plain PyTorch throughout).
 
 One JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -223,9 +238,12 @@ def rel_err(a, b):
 
 
 def sphere_case(subdiv, n_cat, n_ice, n_sub, panel=False,
-                fused_panel_loop=None):
+                fused_panel_loop=None, vel=None, upwind=False, zonal=False):
     """The sphere configuration: mesh, config, tracer tree, and the global
-    initial ice (polar caps) and forcing (analytic wind) as numpy."""
+    initial ice (polar caps) and forcing (analytic wind) as numpy.  vel:
+    velocity-solver options over the defaults (a solver variant); upwind:
+    upwind advection in place of incremental remapping; zonal: the
+    forcing of `tests/test_sphere.py` (a 5 m/s zonal wind)."""
     from seaice_tpu_torch import config as C
     from seaice_tpu_torch.mesh import (icosahedral_mesh,
                                        latlon_vector_rotation_forward)
@@ -241,8 +259,10 @@ def sphere_case(subdiv, n_cat, n_ice, n_sub, panel=False,
         velocity=C.VelocitySolverConfig(
             elastic_subcycle_number=n_sub, rotate_cartesian_grid=True,
             include_metric_terms=True, geostrophic_surface_tilt=False,
-            use_fused_panel_loop=fused_panel_loop),
-        advection=C.AdvectionConfig(),
+            use_fused_panel_loop=fused_panel_loop, **(vel or {})),
+        advection=C.AdvectionConfig(advection_type=(
+            C.AdvectionType.UPWIND if upwind
+            else C.AdvectionType.INCREMENTAL_REMAP)),
         column=C.ColumnConfig(use_column_package=False))
     tree = standard_tracer_tree(n_ice_layers=n_ice, n_snow_layers=1)
     nc = mesh.n_cells
@@ -253,6 +273,8 @@ def sphere_case(subdiv, n_cat, n_ice, n_sub, panel=False,
     lat, lon = mesh.lat_cell, mesh.lon_cell
     u_t = 6.0 * np.cos(lat) + 2.0 * np.sin(lon)
     v_t = 1.5 * np.sin(2 * lon)
+    if zonal:
+        u_t, v_t = np.full(nc, 5.0), np.zeros(nc)
     uw, vw = latlon_vector_rotation_forward(
         u_t, v_t, mesh.x_cell, mesh.y_cell, mesh.z_cell)
     z = np.zeros(nc)
@@ -264,12 +286,13 @@ def sphere_case(subdiv, n_cat, n_ice, n_sub, panel=False,
 
 
 def build_model(subdiv, n_cat, n_ice, n_sub, dtype, device, panel=False,
-                fused_panel_loop=None):
-    """The sphere model: raw icosahedral mesh, or panel-reordered."""
+                fused_panel_loop=None, **case):
+    """The sphere model: raw icosahedral mesh, or panel-reordered; case:
+    `sphere_case`'s vel, upwind and zonal."""
     from seaice_tpu_torch.dynamics.evp import DynamicsForcing
     from seaice_tpu_torch.model import SeaIceModel
     mesh, cfg, tree, ice, forcing = sphere_case(
-        subdiv, n_cat, n_ice, n_sub, panel, fused_panel_loop)
+        subdiv, n_cat, n_ice, n_sub, panel, fused_panel_loop, **case)
     model = SeaIceModel(mesh, cfg, dtype=dtype, device=device,
                         tracer_tree=tree)
     device = model.device          # the card, where None was asked for
@@ -281,11 +304,13 @@ def build_model(subdiv, n_cat, n_ice, n_sub, dtype, device, panel=False,
 
 
 def build_sharded_model(subdiv, n_cat, n_ice, n_sub, dtype, device,
-                        n_shards):
-    """The raw sphere split into n_shards blocks on one device."""
+                        n_shards, vel=None):
+    """The raw sphere split into n_shards blocks on one device (vel: a
+    solver variant's options)."""
     from seaice_tpu_torch.dynamics.evp import DynamicsForcing
     from seaice_tpu_torch.parallel import ShardedSeaIceModel
-    mesh, cfg, tree, ice, forcing = sphere_case(subdiv, n_cat, n_ice, n_sub)
+    mesh, cfg, tree, ice, forcing = sphere_case(subdiv, n_cat, n_ice, n_sub,
+                                                vel=vel)
     model = ShardedSeaIceModel(mesh, cfg, n_shards, dtype=dtype,
                                devices=device, tracer_tree=tree)
     return (model, model.init_state(*ice),
@@ -2910,13 +2935,326 @@ def add_launches(kernels, path, counts):
             kernels[name]["launches"] = sum(by.values())
 
 
-def small_reference():
+# --- solver variants ---------------------------------------------------------
+
+# an option must move the answer off standard EVP's by more than this share
+# of max |u| for the path to show that the option ran
+VARIANT_MOVES = 1e-3
+# the VP solver's GMRES: restart cycles and Arnoldi steps a cycle
+VP_NEWTON, VP_GMRES_CYCLES, VP_GMRES_RESTART = 10, 30, 15
+# `tests/test_evp_box.py::test_implicit_vp_solver`'s limit on the VP
+# residual's 2-norm, set on the 12 x 12 box's 169 vertices
+VP_RESIDUAL_LIMIT, VP_TEST_VERTICES = 10.0, 169
+
+
+def _options():
+    from seaice_tpu_torch import config as C
+    return {
+        "revised EVP": dict(
+            constitutive_relation=C.ConstitutiveRelation.EVP_REVISED),
+        "weak": dict(strain_scheme=C.StrainScheme.WEAK,
+                     stress_divergence_scheme=C.StressDivergenceScheme.WEAK),
+        "linear ocean stress": dict(
+            ocean_stress_type=C.OceanStressType.LINEAR),
+        "no ocean stress": dict(use_ocean_stress=False),
+        "strain averaging": dict(average_variational_strains=True),
+        "linear relation": dict(
+            constitutive_relation=C.ConstitutiveRelation.LINEAR)}
+
+
+def with_velocity(model, **vel):
+    """The same model (same tensors) with velocity options over its
+    config: a variant that needs no tensors of its own."""
+    import copy
+    import dataclasses
+    out = copy.copy(model)
+    out.cfg = dataclasses.replace(model.cfg, velocity=dataclasses.replace(
+        model.cfg.velocity, **vel))
+    return out
+
+
+def moved_off(label, state, ref):
+    """The largest distance of u, v from the standard-EVP state `ref`,
+    relative to the reference's max |u|: must exceed VARIANT_MOVES."""
+    got = torch.stack([state.velocity.u_velocity, state.velocity.v_velocity])
+    want = torch.stack([ref.velocity.u_velocity, ref.velocity.v_velocity])
+    d = rel_err(got.double(), want.double())
+    if not d > VARIANT_MOVES:
+        fail(f"{label}: the answer lies {d} of max |u| from standard "
+             f"EVP's, not more than {VARIANT_MOVES}: the option did not run")
+    return d
+
+
+def speed_within(label, state, limit):
+    u, v = state.velocity.u_velocity, state.velocity.v_velocity
+    m = float(torch.sqrt(u * u + v * v).max())
+    if not 0.0 < m < limit:
+        fail(f"{label}: max |u| = {m} outside (0, {limit}) m/s")
+    return m
+
+
+def sharded_variant_against_unsharded(smodel, sstate, sforcing, state,
+                                      n_steps):
+    """The sharded revised-EVP state after n_steps against the unsharded
+    one (`state`, the same steps), at the limits of the CPU test
+    `tests/test_torch_sharded.py::test_sharded_variants_match_unsharded`:
+    u, v to 1e-11 absolute, every tracer to 1e-11 of its max in float64.
+    A float32 tracer is held to two float32 ulps of its max (2.4e-7): the
+    remap rounds a tracer of a block-edge cell one ulp otherwise than the
+    whole mesh does (ROADMAP Queue 3, fault 3; the JAX package's sharded
+    step does the same), and 1e-11 lies below one float32 ulp."""
+    got = global_fields(smodel, sstate)
+    want = {"u": state.velocity.u_velocity.cpu().numpy(),
+            "v": state.velocity.v_velocity.cpu().numpy(),
+            **{k: t.cpu().numpy() for k, t in state.tracers.items()}}
+    rows = {k: {"equal": bool(np.array_equal(got[k], want[k])),
+                "abs_diff": float(np.abs(got[k] - want[k]).max()),
+                "rel_diff": float(np.abs(got[k] - want[k]).max()) /
+                max(float(np.abs(want[k]).max()), 1e-300)} for k in want}
+    emit({"sharded_variant_against_unsharded": {
+        "option": "revised EVP", "blocks": smodel.n_shards,
+        "steps": n_steps, "dtype": str(smodel.dtype), "fields": rows}})
+    tracer_limit = 1e-11 if smodel.dtype == torch.float64 else \
+        2.0 * torch.finfo(torch.float32).eps
+    for k, r in rows.items():
+        bad = (r["abs_diff"] > 1e-11) if k in ("u", "v") else \
+            (r["rel_diff"] > tracer_limit)
+        if bad:
+            fail(f"sharded revised EVP: {k} differs from the unsharded "
+                 f"step by {r}")
+
+
+def solver_variants(reps, card, kernels):
+    """The solver variants and transport at full width, float32 (paths a
+    to f), each with its launch counts set to 0 before and read after;
+    prints the ms per step of every path beside the card."""
+    from seaice_tpu_torch.dynamics.implicit import make_vp_solver
+    from seaice_tpu_torch.kernels import launch_counts, reset_launch_counts
+    opts = _options()
+    ms, extra = {}, {}
+    f32 = torch.float32
+
+    # a. the raw sphere with revised EVP and IR: the plain loop, then K2
+    # (held against its plain version on the first step's tensors); the
+    # same model with standard EVP (K1) from the same state for scale
+    t0 = time.perf_counter()
+    model, state0, forcing = build_model(SUBDIV, N_CATEGORIES, N_ICE_LAYERS,
+                                         N_SUBCYCLES, f32, None)
+    emit({"model": {"path": "solver variants, raw sphere",
+                    "seconds_to_build": time.perf_counter() - t0,
+                    "cells": model.mesh.n_cells}})
+    std, rev = stepper(model), with_velocity(model, **opts["revised EVP"])
+    std_states = [state0]
+    for _ in range(3):
+        std_states.append(std(std_states[-1], forcing)[0])
+    state, calls = capture_kernel_inputs(rev, state0, forcing)
+    if set(calls) != {"integrate_fluxes_cuda"}:
+        fail(f"revised EVP raw sphere: the step called {sorted(calls)}")
+    k2_on_path("revised EVP raw sphere", calls["integrate_fluxes_cuda"])
+    del calls
+    rev_after_1 = state
+    state, counts, ms["a. revised EVP raw sphere"] = main_path(
+        "revised EVP raw sphere", rev, state, forcing, 2,
+        {"integrate_fluxes_cuda": 1})
+    add_launches(kernels, "revised EVP raw sphere", counts)
+    speed_within("revised EVP raw sphere", state, 3.0)
+    extra["a_moved_off_standard"] = moved_off("revised EVP raw sphere",
+                                              state, std_states[3])
+
+    # d. one step each of four more options on the same model
+    for name in ("linear ocean stress", "no ocean stress",
+                 "strain averaging", "linear relation"):
+        m = with_velocity(model, **opts[name])
+        s, counts, ms["d. " + name] = main_path(
+            name + " raw sphere", m, state0, forcing, 1,
+            {"integrate_fluxes_cuda": 1})
+        add_launches(kernels, name + " raw sphere", counts)
+        speed_within(name, s, 3.0)
+        extra["d_moved_off_standard_" + name.replace(" ", "_")] = \
+            moved_off(name, s, std_states[1])
+    del std_states, s, m
+
+    # e. the same sphere in SHARDS blocks with revised EVP: the per-block
+    # plain loop with the vertex exchange every subcycle, K2 per block,
+    # against the unsharded revised steps
+    rev_2 = stepper(rev)(rev_after_1, forcing)[0]
+    smodel, sstate, sforcing = build_sharded_model(
+        SUBDIV, N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES, f32, None, SHARDS,
+        vel=opts["revised EVP"])
+    sstate, counts, ms["e. revised EVP sharded sphere"] = main_path(
+        "revised EVP sharded sphere", smodel, sstate, sforcing, 2,
+        {"integrate_fluxes_cuda": SHARDS})
+    add_launches(kernels, "revised EVP sharded sphere", counts)
+    sharded_variant_against_unsharded(smodel, sstate, sforcing, rev_2, 2)
+    del smodel, sstate, sforcing, model, rev, state, state0, rev_2
+    del rev_after_1, forcing
+    torch.cuda.empty_cache()
+
+    # b. the weak scheme with upwind transport (tests/test_sphere.py's
+    # setup at full width): no kernel
+    model, state, forcing = build_model(
+        SUBDIV, N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES, f32, None,
+        vel=opts["weak"], upwind=True, zonal=True)
+    state, counts, ms["b. weak + upwind raw sphere"] = main_path(
+        "weak + upwind raw sphere", model, state, forcing, 3, {})
+    speed_within("weak + upwind raw sphere", state, 1.0)
+    del model, state, forcing
+    torch.cuda.empty_cache()
+
+    # c. the panel sphere, standard EVP with upwind transport: K3, held
+    # against its plain version on this path's first step
+    model, state, forcing = build_model(
+        SUBDIV, N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES, f32, None,
+        panel=True, upwind=True, zonal=True)
+    state, calls = capture_kernel_inputs(model, state, forcing)
+    if set(calls) != {"evp_panel_loop"}:
+        fail(f"panel sphere with upwind: the step called {sorted(calls)}")
+    k3 = check_loop("evp_panel_loop", calls["evp_panel_loop"][0],
+                    min(reps, 3))
+    emit({"upwind_k3_against_plain": {
+        k: v for k, v in k3.items()
+        if "err" in k or k in ("ms", "plain_ms", "bound_ms")}})
+    del calls
+    state, counts, ms["c. upwind panel sphere (K3)"] = main_path(
+        "upwind panel sphere", model, state, forcing, 2,
+        {"evp_panel_loop": 1})
+    add_launches(kernels, "upwind panel sphere", counts)
+    speed_within("upwind panel sphere", state, 1.0)
+    del model, state, forcing
+    torch.cuda.empty_cache()
+
+    # f. the 168 x 168 box: the JFNK VP solver against EVP with 240
+    # subcycles (K4, held against its plain version on the second step:
+    # from rest the stresses are rounding noise, as on the raster box
+    # path), two steps each; a third EVP step counts K4's launches
+    model, state0, forcing = build_box_model(BOX_NX, 2 * N_SUBCYCLES, f32,
+                                             None)
+    state, _ = stepper(model)(state0, forcing)
+    state, calls = capture_kernel_inputs(model, state, forcing)
+    if set(calls) != {"evp_raster_loop"}:
+        fail(f"VP box, EVP side: the step called {sorted(calls)}")
+    k4 = check_loop("evp_raster_loop", calls["evp_raster_loop"][0],
+                    min(reps, 3))
+    emit({"vp_box_k4_against_plain": {
+        k: v for k, v in k4.items()
+        if "err" in k or k in ("ms", "plain_ms", "bound_ms")}})
+    del calls
+    u_evp = state.velocity.u_velocity.double().cpu().numpy()
+    _, counts, ms["f. box, EVP side (K4)"] = main_path(
+        "VP box, EVP side", model, state, forcing, 1, {"evp_raster_loop": 1})
+    add_launches(kernels, "VP box, EVP side", counts)
+    vp = make_vp_solver(model.cfg, n_newton=VP_NEWTON,
+                        gmres_iters=VP_GMRES_CYCLES,
+                        gmres_restart=VP_GMRES_RESTART)
+    tr = state0.tracers
+    ice = (tr["iceAreaCategory"], tr["iceVolumeCategory"],
+           tr["snowVolumeCategory"])
+    vstate, rows, t_vp = state0.velocity, [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        vstate, d = vp(model.tensors.dynamics, vstate, forcing, *ice)
+        torch.cuda.synchronize()
+        t_vp.append(1e3 * (time.perf_counter() - t0))
+        rows.append({"vp_residual_norm": float(d["vp_residual_norm"]),
+                     "gmres_restarts": d["gmres_restarts"],
+                     "gmres_host_syncs": d["gmres_host_syncs"]})
+    if any(launch_counts().values()):
+        fail(f"VP box: the VP step launched {launch_counts()}")
+    # the first VP step carries torch.func's first-use cost
+    ms["f. box, VP solver (second step)"] = t_vp[-1]
+    u_vp = vstate.u_velocity.double().cpu().numpy()
+    if not np.isfinite(u_vp).all():
+        fail("VP box: u is not finite")
+    mask = np.abs(u_evp) > 1e-4
+    corr = float(np.corrcoef(u_evp[mask], u_vp[mask])[0, 1])
+    emit({"vp_box": {"newton": VP_NEWTON, "gmres_cycles": VP_GMRES_CYCLES,
+                     "gmres_restart": VP_GMRES_RESTART, "steps": rows,
+                     "ms_per_step": t_vp, "corr_with_evp": corr,
+                     "card": card}})
+    if not corr > 0.8:
+        fail(f"VP box: correlation with EVP {corr} <= 0.8")
+    # the 12 x 12 test's limit of 10 on the residual's 2-norm over its
+    # 169 vertices, as a limit on the root mean square a vertex
+    nv = model.mesh.n_vertices
+    limit = VP_RESIDUAL_LIMIT * np.sqrt(nv / VP_TEST_VERTICES)
+    if not rows[-1]["vp_residual_norm"] < limit:
+        fail(f"VP box: residual norm {rows[-1]['vp_residual_norm']} >= "
+             f"{limit} ({VP_RESIDUAL_LIMIT} over {VP_TEST_VERTICES} "
+             f"vertices, scaled to {nv})")
+    del model, state, state0, forcing, vstate, ice, tr
+    torch.cuda.empty_cache()
+    emit({"solver_variants": dict({"card": card, "ms_per_step": ms},
+                                  **extra)})
+
+
+def small_vp_reference():
+    """The VP solver on the 12 x 12 box in the setting of
+    `tests/test_evp_box.py::test_implicit_vp_solver` (12 Newton
+    iterations, 40 GMRES cycles, 3 steps), float64 on the card against
+    the same on the CPU: u, v to the small-model limit 1e-9, and the
+    test's residual limit (below 10) on the card."""
+    from seaice_tpu_torch.config import box_test_config
+    from seaice_tpu_torch.dynamics.evp import (build_dynamics_tensors,
+                                               init_velocity_state)
+    from seaice_tpu_torch.dynamics.implicit import make_vp_solver
+    from seaice_tpu_torch.testcases import box
+    out = {}
+    for device in ("cuda", "cpu"):
+        cfg = box_test_config(elastic_subcycles=8)
+        mesh = box.box_test_mesh(12, 12)
+        mesh.f_vertex = box.box_coriolis_parameter(mesh)
+        dyn = build_dynamics_tensors(mesh, cfg, torch.float64, device)
+        ice = [torch.as_tensor(a).to(dyn.area_cell.device)
+               for a in box.box_initial_state(mesh, 1)]
+        forcing = box.box_forcing(mesh, 0.0, torch.float64, device)
+        vp = make_vp_solver(cfg, n_newton=12, gmres_iters=40)
+        state = init_velocity_state(mesh, torch.float64, device)
+        for _ in range(3):
+            state, d = vp(dyn, state, forcing, *ice)
+        out[device] = (torch.stack([state.u_velocity,
+                                    state.v_velocity]).cpu(),
+                       float(d["vp_residual_norm"]))
+    worst = rel_err(out["cuda"][0], out["cpu"][0])
+    emit({"small_reference": {"mesh": "box 12 x 12, VP solver", "steps": 3,
+                              "dtype": "float64",
+                              "max_rel_err_vs_cpu": worst,
+                              "vp_residual_norm": out["cuda"][1]}})
+    if not worst <= 1e-9:
+        fail(f"small VP box on the card differs from the CPU: {worst}")
+    if not out["cuda"][1] < VP_RESIDUAL_LIMIT:
+        fail(f"small VP box: residual norm {out['cuda'][1]} >= "
+             f"{VP_RESIDUAL_LIMIT}")
+
+
+def variant_reference_cases():
+    """The small float64 models of the solver variants for
+    `small_reference`."""
+    opts = _options()
+    rev = opts["revised EVP"]
+    return {
+        "icos subdiv 3, revised EVP": lambda dev: build_model(
+            3, 3, 4, 8, torch.float64, dev, vel=rev),
+        "icos subdiv 3, weak + upwind": lambda dev: build_model(
+            3, 3, 4, 8, torch.float64, dev, vel=opts["weak"], upwind=True,
+            zonal=True),
+        "panel subdiv 3, upwind": lambda dev: build_model(
+            3, 3, 4, 8, torch.float64, dev, panel=True, upwind=True,
+            zonal=True),
+        "icos subdiv 3, 2 blocks, revised EVP": lambda dev:
+            build_sharded_model(3, 3, 4, 8, torch.float64, dev, 2, vel=rev),
+    }
+
+
+def small_reference(cases=None):
     """Small float64 models on the card (kernels) against the same models
     on the CPU (plain PyTorch): every velocity, stress and tracer field,
     for each of the four routes of the velocity solve, and the sphere
-    split into 4 blocks (the one-subcycle kernel with exchanges)."""
+    split into 4 blocks (the one-subcycle kernel with exchanges); or the
+    models of `cases` ({label: build(device)})."""
     from seaice_tpu_torch.convert import flatten_arrays, to_stacked_arrays
-    cases = {
+    cases = cases or {
         "icos subdiv 3": lambda dev: build_model(
             3, 3, 4, 8, torch.float64, dev),
         "panel subdiv 3, whole-loop kernel": lambda dev: build_model(
@@ -3207,8 +3545,13 @@ def main():
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # the solver variants and transport (paths a to f), then their small
+    # float64 models on the card against the CPU
+    solver_variants(args.reps, card, kernels)
     small_reference()
     small_coupled_reference()
+    small_reference(variant_reference_cases())
+    small_vp_reference()
 
     order = ("evp_subcycle_loop", "integrate_fluxes_cuda", "evp_panel_loop",
              "panel_cell_step", "evp_raster_loop", "evp_subcycle_step")

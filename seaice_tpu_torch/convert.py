@@ -29,18 +29,22 @@ from .dynamics.evp import (DynamicsForcing, DynamicsTensors,
                            VelocitySolverState)
 from .dynamics.variational_fast import FastTensors
 from .dynamics.variational_panel import PanelTensors, kernel_index_lists
+from .dynamics.weak import WeakTensors
 from .mesh.core import MeshTensors
 from .model import ModelTensors, State
 from .transport.geometry import RemapTensors
+from .transport.upwind import UpwindTensors
 
 # nested containers by (class, field name)
 _NESTED = {
     (ModelTensors, "mesh"): MeshTensors,
     (ModelTensors, "dynamics"): DynamicsTensors,
     (ModelTensors, "remap"): RemapTensors,
+    (ModelTensors, "upwind"): UpwindTensors,
     (DynamicsTensors, "mesh"): MeshTensors,
     (DynamicsTensors, "fast"): FastTensors,
     (DynamicsTensors, "panel"): PanelTensors,
+    (DynamicsTensors, "weak"): WeakTensors,
     (State, "velocity"): VelocitySolverState,
 }
 
@@ -109,8 +113,8 @@ def from_reference_arrays(tensors_np: Optional[Dict[str, np.ndarray]],
     """Build the port's (ModelTensors, State, DynamicsForcing) from the
     JAX package's `ModelTensors` / `State` / `DynamicsForcing` flattened
     by `flatten_arrays`.  A part passed as None comes back as None.
-    Fields the port does not have (the weak-scheme and gather-plan
-    tensors) are ignored; integer arrays become int64 index tensors."""
+    Fields the port does not have (the gather-plan tensors) are ignored;
+    integer arrays become int64 index tensors."""
     tensors = state = forcing = None
     if tensors_np is not None:
         tensors = _build(ModelTensors, tensors_np, "", device, dtype)

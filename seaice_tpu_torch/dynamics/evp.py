@@ -20,15 +20,26 @@ PyTorch version on the CPU:
     call for every block of the card) with the vertex-velocity halo
     refreshed between calls.
 
+Those routes carry standard EVP with quadratic ocean drag on the
+variational operators.  Every other option of the solver (the weak
+scheme, revised EVP, the linear and `none` relations, strain averaging,
+linear or no ocean stress) is a solver variant.  None of them reaches a
+Pallas kernel in the JAX package (its XLA loop, `evp.py:842-975`), and
+here their subcycle loop is plain torch on the tensors' device
+(`variant_subcycles`), routed as the JAX package routes it: the weak
+scheme and strain averaging through the generic gather operators, a
+panel-reordered sphere through the panel-shift operators
+(`variational_panel.strain_tensor_P`), a raster box through the raster
+shifts (`variational_fast.strain_tensor_S`), any other mesh through the
+transposed gathers (`strain_tensor_T`).  No option moves standard EVP
+onto that loop.
+
 The solve is written as a generator (`velocity_solve_steps`) that stops
 at each halo exchange (`utils/lockstep.py`); `make_velocity_solver` runs
 it with the caller's exchange functions, the partitioned model
-(`parallel/sharded.py`) runs one per block in lockstep.
-
-The port covers the variational scheme with standard EVP and quadratic
-ocean stress.  The weak scheme, revised EVP (and with it `min_dv_edge`),
-the linear relation, strain averaging and the interior/boundary overlap
-of the halo exchange (`halo_overlap`) raise NotImplementedError.
+(`parallel/sharded.py`) runs one per block in lockstep.  The
+interior/boundary overlap of the halo exchange (`halo_overlap`) raises
+NotImplementedError (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -46,14 +57,18 @@ from ..utils.containers import tensor_dataclass
 from ..utils.device import resolve_device
 from ..utils.lockstep import drive
 from . import constitutive, variational
+from . import variational_fast as vf
 from . import variational_panel as vpn
 from .cuda_panel import panel_cell_prepare, panel_cell_step
 from .cuda_panel_fused import evp_panel_loop
 from .cuda_raster import basis_tables, build_raster_loop
 from .cuda_unstructured import (evp_subcycle_finish, evp_subcycle_loop,
                                 evp_subcycle_prepare)
-from .momentum import momentum_update
+from .momentum import (momentum_update, ocean_stress_coefficient,
+                       solve_velocity_evp, solve_velocity_revised_evp)
 from .variational_fast import build_fast_tensors, strain_tensor_T
+from .weak import build_weak_tensors, strain_tensor_weak, \
+    stress_divergence_weak
 
 
 @tensor_dataclass
@@ -71,12 +86,24 @@ class DynamicsTensors:
     area_cell: Any               # [nCells]
     area_triangle: Any           # [nVertices]
     panel: Optional[Any] = None  # panel-shift tensors (icosahedral)
+    weak: Optional[Any] = None   # line-integral scheme tensors
 
 
 def _uses_weak(cfg: Config) -> bool:
     return (cfg.velocity.strain_scheme == StrainScheme.WEAK or
             cfg.velocity.stress_divergence_scheme ==
             StressDivergenceScheme.WEAK)
+
+
+def is_variant(cfg: Config) -> bool:
+    """Whether the velocity solve is a solver variant (plain torch,
+    `variant_subcycles`) rather than standard EVP with quadratic ocean
+    drag on the variational operators (a kernel's route)."""
+    v = cfg.velocity
+    return (_uses_weak(cfg) or
+            v.constitutive_relation != ConstitutiveRelation.EVP or
+            v.average_variational_strains or not v.use_ocean_stress or
+            v.ocean_stress_type != OceanStressType.QUADRATIC)
 
 
 def build_dynamics_tensors(mesh: Mesh, cfg: Config, dtype=torch.float32,
@@ -88,9 +115,6 @@ def build_dynamics_tensors(mesh: Mesh, cfg: Config, dtype=torch.float32,
     from ..ops.basis import compute_variational_basis
 
     device = resolve_device(device)
-    if _uses_weak(cfg):
-        raise NotImplementedError(
-            "weak strain/stress-divergence scheme: later slice of the port")
     vb = compute_variational_basis(
         mesh,
         basis_type=cfg.velocity.variational_basis.value,
@@ -105,15 +129,22 @@ def build_dynamics_tensors(mesh: Mesh, cfg: Config, dtype=torch.float32,
         return torch.as_tensor(np.ascontiguousarray(a, np.float64)).to(
             device=device, dtype=dtype)
 
-    # panel-shift tensors when the mesh carries a rhombic-panel layout
-    # (mesh/panels.panel_reorder attaches it)
+    # the weak scheme has its own tensors and neither the transposed nor
+    # the panel-shift ones; the panel-shift tensors are built when the
+    # mesh carries a rhombic-panel layout (mesh/panels.panel_reorder
+    # attaches it)
+    use_weak = _uses_weak(cfg)
     panel = None
     lay = getattr(mesh, "panel_layout", None)
-    if lay is not None and mesh.max_edges == 6:
+    if lay is not None and not use_weak and mesh.max_edges == 6:
         from .variational_panel import build_panel_tensors
         panel = build_panel_tensors(mesh, lay, vb, dtype, device)
     return DynamicsTensors(
         panel=panel,
+        weak=build_weak_tensors(
+            mesh, dtype,
+            rotate_cartesian_grid=cfg.velocity.rotate_cartesian_grid,
+            device=device) if use_weak else None,
         mesh=mesh.tensors(dtype, device),
         basis_gradient_u=fl(vb.basis_gradient_u),
         basis_gradient_v=fl(vb.basis_gradient_v),
@@ -122,7 +153,8 @@ def build_dynamics_tensors(mesh: Mesh, cfg: Config, dtype=torch.float32,
         basis_integrals_metric=fl(vb.basis_integrals_metric),
         variational_denominator=fl(vb.variational_denominator),
         tan_lat_vertex=fl(vb.tan_lat_vertex_over_radius),
-        fast=build_fast_tensors(mesh, vb, dtype, device),
+        fast=(None if use_weak
+              else build_fast_tensors(mesh, vb, dtype, device)),
         area_cell=fl(mesh.area_cell),
         area_triangle=fl(mesh.area_triangle),
     )
@@ -260,18 +292,21 @@ def _air_stress(forcing: DynamicsForcing, mass: IceMassState,
 def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
                          halo_exchange_vertex=None,
                          halo_exchange_cell_field=None,
-                         halo_exchange_vertex_field=None, halo_overlap=None,
+                         halo_exchange_vertex_field=None,
+                         min_dv_edge: Optional[float] = None,
+                         halo_overlap=None,
                          raster=None, use_pallas: Optional[bool] = None,
                          panel_n: Optional[int] = None, panel_mesh=None):
     """Build the dynamics-step function.
 
-    The subcycle loop goes through a kernel wrapper: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors; see
-    `velocity_solve_steps` for the routes and for raster, use_pallas,
-    panel_n and panel_mesh.
+    The subcycle loop of standard EVP goes through a kernel wrapper: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors; a
+    solver variant runs `variant_subcycles`.  See `velocity_solve_steps`
+    for the routes and for min_dv_edge, raster, use_pallas, panel_n and
+    panel_mesh.
     halo_exchange_vertex: optional (u, v) -> (u, v), the vertex-velocity
     halo refresh of one block of a partitioned mesh, run before the loop
-    and after every subcycle; with it the loop is one
+    and after every subcycle; with it the loop of standard EVP is one
     `evp_subcycle_step` per subcycle (K6).
     halo_exchange_cell_field / halo_exchange_vertex_field: optional
     f -> f refreshers of the solveStress (cell) and solveVelocity (vertex)
@@ -279,7 +314,7 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
     exchange groups, velocity_solver.F:257-345).  An exchange may refresh
     in place and return its argument, or return new tensors.
     halo_overlap: the interior/boundary overlap of the JAX package; not
-    ported, raises.
+    ported, raises NotImplementedError.
     dyn: optional; if given, returns a convenience wrapper with dyn bound.
 
     Returns step(dyn, state, forcing, ice_area_cat, ice_volume_cat,
@@ -289,14 +324,14 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
         raise NotImplementedError(
             "make_velocity_solver(halo_overlap=...): the interior/boundary "
             "overlap of the halo exchange needs CUDA streams; ROADMAP "
-            "Queue 1 item 10")
+            "Queue 1 item 9")
     exchanges = {"vertex_uv": halo_exchange_vertex,
                  "cell_field": halo_exchange_cell_field,
                  "vertex_field": halo_exchange_vertex_field}
     solve = velocity_solve_steps(
         cfg, halo=any(f is not None for f in exchanges.values()),
-        raster=raster, use_pallas=use_pallas, panel_n=panel_n,
-        panel_mesh=panel_mesh)
+        min_dv_edge=min_dv_edge, raster=raster, use_pallas=use_pallas,
+        panel_n=panel_n, panel_mesh=panel_mesh)
 
     def step(dyn, state, forcing, ice_area_cat, ice_volume_cat,
              snow_volume_cat, pressure_in=None):
@@ -309,7 +344,8 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
     return step  # call as step(dyn, state, forcing, area, vol, snow)
 
 
-def velocity_solve_steps(cfg: Config, *, halo: bool = False, raster=None,
+def velocity_solve_steps(cfg: Config, *, halo: bool = False,
+                         min_dv_edge: Optional[float] = None, raster=None,
                          use_pallas: Optional[bool] = None,
                          panel_n: Optional[int] = None, panel_mesh=None):
     """The velocity solve as a generator function (`utils/lockstep.py`).
@@ -321,66 +357,76 @@ def velocity_solve_steps(cfg: Config, *, halo: bool = False, raster=None,
     (`seaice_tpu/dynamics/evp.py:597-598, 608, 812`) and returns
     (state, diags).
 
-    The subcycle loop goes through a kernel wrapper.
-    halo: the solve runs on one block of a partitioned mesh: the loop is
-    `evp_subcycle_prepare`, then per subcycle ("evp_subcycle", (loop,)),
-    made `evp_subcycle_step` (one call for every block of the card) by
-    `drive` / `drive_lockstep`, and a ("vertex_uv", (u, v)) exchange, then
-    `evp_subcycle_finish` (K6).  The panel and raster routes take no
-    halo: with either, ValueError.
-    raster: optional mesh.structured.RasterQuad layout; the loop is then
-    `evp_raster_loop` (planar raster quad mesh, cell-constant basis, no
-    metric terms; the caller asserts the basis, as `SeaIceModel` does).
+    The subcycle loop of standard EVP goes through a kernel wrapper; a
+    solver variant (`is_variant`) runs `variant_subcycles`, which yields
+    ("vertex_uv", (u, v)) after every subcycle.
+    halo: the solve runs on one block of a partitioned mesh: the loop of
+    standard EVP is `evp_subcycle_prepare`, then per subcycle
+    ("evp_subcycle", (loop,)), made `evp_subcycle_step` (one call for
+    every block of the card) by `drive` / `drive_lockstep`, and a
+    ("vertex_uv", (u, v)) exchange, then `evp_subcycle_finish` (K6).  The
+    panel and raster routes take no halo: with either, ValueError.
+    min_dv_edge: the global minimum edge length, from which revised EVP
+    takes its numerical inertia brlx (reference
+    constitutive_relation.F:133-162); revised EVP without it raises
+    ValueError.
+    raster: optional mesh.structured.RasterQuad layout; the loop of
+    standard EVP is then `evp_raster_loop` (planar raster quad mesh,
+    cell-constant basis, no metric terms; the caller asserts the basis,
+    as `SeaIceModel` does), a variant's takes the raster shifts.
     panel_n: panel size N of a panel-reordered icosahedral mesh whose
-    `dyn.panel` tensors exist; the loop is then `evp_panel_loop` when
-    panel_mesh (the mesh object carrying `panel_layout`) is given and
-    `use_fused_panel_loop` is not False, else one `panel_cell_step` per
-    subcycle with the vertex side in torch.
-    use_pallas: False asks for a plain loop and raises; None and True
-    mean the kernel routes above.
+    `dyn.panel` tensors exist; the loop of standard EVP is then
+    `evp_panel_loop` when panel_mesh (the mesh object carrying
+    `panel_layout`) is given and `use_fused_panel_loop` is not False,
+    else one `panel_cell_step` per subcycle with the vertex side in
+    torch; a variant's takes the panel shifts.
+    use_pallas: False asks for a plain loop of standard EVP and raises;
+    None and True mean the kernel routes above.
     """
     if halo and (panel_n is not None or raster is not None):
         raise ValueError(
             "a halo exchange needs the any-connectivity loop: the panel "
             "and raster loops run on a whole, unpartitioned mesh")
-    if use_pallas is False:
-        raise NotImplementedError(
-            "use_pallas=False: every subcycle loop of the port is a "
-            "kernel wrapper that takes its CUDA kernel for CUDA tensors "
-            "and its plain version for CPU tensors; there is no option "
-            "that runs a plain version on the card")
     v_cfg = cfg.velocity
     dt_e = cfg.elastic_timestep
     damping_t = cfg.evp_damping_timescale
-    relation = v_cfg.constitutive_relation
-
-    if _uses_weak(cfg):
+    metric = v_cfg.include_metric_terms
+    n_sub = v_cfg.elastic_subcycle_number
+    if (v_cfg.strain_scheme == StrainScheme.WEAK) != \
+            (v_cfg.stress_divergence_scheme == StressDivergenceScheme.WEAK):
+        raise ValueError(
+            "mixed weak/variational strain and stress-divergence schemes "
+            "are not supported; choose one scheme for both")
+    variant = is_variant(cfg)
+    brlx = revised_evp_inertia(cfg, min_dv_edge)
+    # the options that ask for a plain loop of standard EVP
+    if not variant and use_pallas is False:
         raise NotImplementedError(
-            "weak strain/stress-divergence scheme: later slice of the port")
-    if relation != ConstitutiveRelation.EVP:
-        raise NotImplementedError(
-            f"constitutive relation {relation.value}: later slice of the "
-            "port (this slice has standard EVP)")
-    if v_cfg.average_variational_strains:
-        raise NotImplementedError(
-            "average_variational_strains: later slice of the port")
-    if not v_cfg.use_ocean_stress or \
-            v_cfg.ocean_stress_type != OceanStressType.QUADRATIC:
-        raise NotImplementedError(
-            "the subcycle loop of this slice has quadratic ocean stress "
-            "only; linear or no ocean stress: later slice of the port")
-    if v_cfg.use_fused_unstructured is False:
+            "use_pallas=False: every subcycle loop of standard EVP is a "
+            "kernel wrapper that takes its CUDA kernel for CUDA tensors "
+            "and its plain version for CPU tensors; there is no option "
+            "that runs a plain version on the card")
+    if not variant and v_cfg.use_fused_unstructured is False:
         raise NotImplementedError(
             "use_fused_unstructured=False: the any-connectivity subcycle "
             "loop is `evp_subcycle_loop`, which takes its CUDA kernel for "
             "CUDA tensors and its plain version for CPU tensors; there is "
             "no option that runs the plain version on the card")
-    metric = v_cfg.include_metric_terms
-    n_sub = v_cfg.elastic_subcycle_number
 
+    quadratic = v_cfg.ocean_stress_type == OceanStressType.QUADRATIC
     raster_loop = None
     panel_route = None           # "loop" or "cell"
-    if panel_n is not None:
+    variant_route = None         # the operators of a variant's loop
+    if variant:
+        if _uses_weak(cfg) or v_cfg.average_variational_strains:
+            variant_route = "gather"
+        elif panel_n is not None:
+            variant_route = "panel"
+        elif raster is not None and not metric:
+            variant_route = "raster"     # the raster shifts are planar
+        else:
+            variant_route = "transposed"
+    elif panel_n is not None:
         # panel-reordered sphere: the whole-loop kernel, or the
         # per-subcycle cell kernel with the vertex side in torch
         want_loop = v_cfg.use_fused_panel_loop
@@ -460,14 +506,17 @@ def velocity_solve_steps(cfg: Config, *, halo: bool = False, raster=None,
         # ocean stress rotation (reference :1802-1883)
         sgn_f = torch.sign(mesh.f_vertex)
         sgn_f = torch.where(sgn_f == 0, torch.ones_like(sgn_f), sgn_f)
-        ocean_u = torch.where(
-            sv,
-            uo_v * c.COS_OCEAN_TURNING_ANGLE -
-            vo_v * c.SIN_OCEAN_TURNING_ANGLE * sgn_f, zero_v)
-        ocean_v = torch.where(
-            sv,
-            uo_v * c.SIN_OCEAN_TURNING_ANGLE * sgn_f +
-            vo_v * c.COS_OCEAN_TURNING_ANGLE, zero_v)
+        if v_cfg.use_ocean_stress:
+            ocean_u = torch.where(
+                sv,
+                uo_v * c.COS_OCEAN_TURNING_ANGLE -
+                vo_v * c.SIN_OCEAN_TURNING_ANGLE * sgn_f, zero_v)
+            ocean_v = torch.where(
+                sv,
+                uo_v * c.SIN_OCEAN_TURNING_ANGLE * sgn_f +
+                vo_v * c.COS_OCEAN_TURNING_ANGLE, zero_v)
+        else:
+            ocean_u = ocean_v = zero_v
 
         # surface tilt (reference :1897-2213)
         if not v_cfg.use_surface_tilt:
@@ -500,10 +549,38 @@ def velocity_solve_steps(cfg: Config, *, halo: bool = False, raster=None,
                   n_subcycles=n_sub)
         sT = (s11.t().contiguous(), s22.t().contiguous(),
               s12.t().contiguous())
-        if panel_route is not None and dyn.panel is None:
+        if (panel_route is not None or variant_route == "panel") and \
+                dyn.panel is None:
             raise ValueError("panel_n given but the dynamics tensors carry "
                              "no panel tensors (mesh not panel-reordered)")
-        if panel_route == "loop":
+        if variant:
+            # a solver variant: plain torch, the halo refreshed after
+            # every subcycle
+            u_init, v_init = u, v
+
+            def momentum(u, v, div_u, div_v):
+                """The config's ocean drag, then the standard or the
+                revised-EVP point solve."""
+                oc = ocean_stress_coefficient(
+                    v_cfg.use_ocean_stress, quadratic, u, v, uo_v, vo_v,
+                    area_vertex, solve_velocity)
+                if v_cfg.constitutive_relation == \
+                        ConstitutiveRelation.EVP_REVISED:
+                    return solve_velocity_revised_evp(
+                        u, v, u_init, v_init, mass_vertex, mass_f, div_u,
+                        div_v, air_u, air_v, tilt_u, tilt_v, ocean_u,
+                        ocean_v, oc, solve_velocity, brlx,
+                        cfg.dynamics_timestep)
+                return solve_velocity_evp(
+                    u, v, mass_vertex, mass_f, div_u, div_v, air_u, air_v,
+                    tilt_u, tilt_v, ocean_u, ocean_v, oc, solve_velocity,
+                    dt_e)
+
+            u, v, t11, t22, t12 = yield from variant_subcycles(
+                cfg, variant_route, dyn, momentum, u, v, *sT, pressure,
+                solve_stress, solve_velocity, panel_n=panel_n,
+                raster=raster)
+        elif panel_route == "loop":
             # ONE call runs all subcycles on the panel lattice
             u, v, t11, t22, t12 = evp_panel_loop(
                 dyn.panel, u, v, *sT, pressure, solve_stress, uo_v, vo_v,
@@ -587,7 +664,9 @@ def velocity_solve_steps(cfg: Config, *, halo: bool = False, raster=None,
                          t12.t().contiguous())
 
         # --- post-subcycle (reference :3360-3700) ---
-        if panel_route is not None:
+        if variant_route == "gather":
+            e11, e22, e12 = gather_strain(cfg, dyn, u, v, solve_stress)
+        elif panel_route is not None or variant_route == "panel":
             # final diagnostic strain via the panel-shift formulation
             eS = vpn.strain_tensor_P(dyn.panel, panel_n, u, v, metric)
             e11, e22, e12 = (
@@ -611,9 +690,9 @@ def velocity_solve_steps(cfg: Config, *, halo: bool = False, raster=None,
         sig2 = mean - rad
 
         # final ocean stress for the coupler (reference :3624-3700)
-        ocean_coeff = (c.ICE_OCEAN_DRAG * c.DENSITY_SEAWATER * area_vertex *
-                       torch.sqrt((uo_v - u) ** 2 + (vo_v - v) ** 2))
-        ocean_coeff = torch.where(sv, ocean_coeff, zero_v)
+        ocean_coeff = ocean_stress_coefficient(
+            v_cfg.use_ocean_stress, quadratic, u, v, uo_v, vo_v,
+            area_vertex, solve_velocity)
         tau_ou = ocean_coeff * (
             (uo_v - u) * c.COS_OCEAN_TURNING_ANGLE -
             (vo_v - v) * c.SIN_OCEAN_TURNING_ANGLE * sgn_f)
@@ -639,3 +718,140 @@ def velocity_solve_steps(cfg: Config, *, halo: bool = False, raster=None,
         return new_state, diags
 
     return solve
+
+
+# -- solver variants ----------------------------------------------------------
+
+def revised_evp_inertia(cfg: Config, min_dv_edge: Optional[float]) -> float:
+    """Revised EVP's numerical inertia coefficient brlx (Bouillon et al.
+    2013; reference constitutive_relation.F:154-162), from the global
+    minimum edge length; 0 for every other relation."""
+    if cfg.velocity.constitutive_relation != \
+            ConstitutiveRelation.EVP_REVISED:
+        return 0.0
+    if min_dv_edge is None:
+        raise ValueError("revised EVP requires min_dv_edge")
+    gamma = 0.25 * 1.0e11 * cfg.dynamics_timestep
+    return (2.0 * c.REVISED_EVP_DAMPING_RATIO_DENOM *
+            c.REVISED_EVP_DAMPING_RATIO * gamma) / min_dv_edge ** 2
+
+
+def relax_stress(cfg: Config, s11, s22, s12, e11, e22, e12, pressure):
+    """The new stresses of the config's constitutive relation
+    (reference velocity_solver.F:2606-2863): standard EVP, revised EVP,
+    linear, or none (the stresses kept)."""
+    relation = cfg.velocity.constitutive_relation
+    if relation == ConstitutiveRelation.EVP:
+        return constitutive.evp_stress_update(
+            s11, s22, s12, e11, e22, e12, pressure, cfg.elastic_timestep,
+            cfg.evp_damping_timescale)[:3]
+    if relation == ConstitutiveRelation.EVP_REVISED:
+        return constitutive.evp_stress_update_revised(
+            s11, s22, s12, e11, e22, e12, pressure)[:3]
+    if relation == ConstitutiveRelation.LINEAR:
+        return constitutive.linear_stress(e11, e22, e12)
+    return s11, s22, s12
+
+
+def gather_strain(cfg: Config, dyn: DynamicsTensors, u, v, solve_stress):
+    """Strain by the generic gather operators, [nCells, maxEdges]: the
+    weak scheme's cell-mean strain in corner slot 0's place
+    ([nCells, 1]), or the variational corner strain (not averaged)."""
+    if dyn.weak is not None:
+        e = strain_tensor_weak(dyn.weak, dyn.mesh, u, v, dyn.area_cell,
+                               solve_stress)
+        return tuple(x[:, None] for x in e)
+    return variational.strain_tensor(u, v, dyn.tan_lat_vertex, dyn.mesh,
+                                     dyn.basis_gradient_u,
+                                     dyn.basis_gradient_v)
+
+
+def variant_subcycles(cfg: Config, route: str, dyn: DynamicsTensors,
+                      momentum, u, v, t11, t22, t12, pressure, solve_stress,
+                      solve_velocity, panel_n=None, raster=None):
+    """The elastic subcycles of a solver variant in plain torch, on the
+    tensors' device (the JAX package's XLA loop, `evp.py:842-975`): per
+    subcycle strain -> the config's relation -> stress divergence ->
+    momentum(u, v, div_u, div_v) (the config's ocean drag and point
+    solve), then a generator stop ("vertex_uv", (u, v)) for the halo
+    refresh of a partitioned mesh.
+
+    route: "gather" (the weak scheme, or strain averaging: the generic
+    gather operators, stresses [nCells, maxEdges], the weak scheme's in
+    corner slot 0), "panel" (the panel-shift operators on the padded
+    slot layout), "raster" (the raster shifts) or "transposed" (the
+    transposed gathers).  The corner stresses t** come and go in the
+    transposed [maxEdges, nCells] layout.  Returns (u, v, t11, t22, t12).
+    """
+    v_cfg = cfg.velocity
+    n_sub = v_cfg.elastic_subcycle_number
+    metric = v_cfg.include_metric_terms
+    mesh = dyn.mesh
+    sv = solve_velocity
+    if route == "gather":
+        s11, s22, s12 = t11.t(), t22.t(), t12.t()
+        ss = (solve_stress > 0)[:, None]
+        p = pressure[:, None]
+        for _ in range(n_sub):
+            e11, e22, e12 = gather_strain(cfg, dyn, u, v, solve_stress)
+            if v_cfg.average_variational_strains and dyn.weak is None:
+                e11, e22, e12 = variational.average_strains(e11, e22, e12,
+                                                            mesh)
+            n11, n22, n12 = relax_stress(cfg, s11, s22, s12, e11, e22, e12,
+                                         p)
+            s11 = torch.where(ss, n11, s11)
+            s22 = torch.where(ss, n22, s22)
+            s12 = torch.where(ss, n12, s12)
+            if dyn.weak is not None:
+                div_u, div_v = stress_divergence_weak(
+                    dyn.weak, mesh, s11[:, 0], s22[:, 0], s12[:, 0],
+                    dyn.area_triangle, sv)
+            else:
+                div_u, div_v = variational.stress_divergence(
+                    s11, s22, s12, dyn.tan_lat_vertex, mesh,
+                    dyn.basis_integrals_u, dyn.basis_integrals_v,
+                    dyn.basis_integrals_metric, dyn.variational_denominator,
+                    sv)
+            u, v = momentum(u, v, div_u, div_v)
+            yield "vertex_uv", (u, v)
+        return u, v, s11.t(), s22.t(), s12.t()
+
+    ft, pt = dyn.fast, dyn.panel
+    if route == "panel":
+        # cell fields live in the padded layout, the loop state is
+        # slot-indexed
+        ss_T = vpn.cells_to_padded(pt, solve_stress)[None, :]
+        p_T = vpn.cells_to_padded(pt, pressure)[None, :]
+        t11, t22, t12 = (vpn.stress_ring_to_slot(pt, t)
+                         for t in (t11, t22, t12))
+    else:
+        ss_T = solve_stress[None, :]
+        p_T = pressure[None, :]
+    ss_T = ss_T > 0
+    for _ in range(n_sub):
+        if route == "panel":
+            e11, e22, e12 = vpn.strain_tensor_P(pt, panel_n, u, v, metric)
+        elif route == "raster":
+            e11, e22, e12 = vf.strain_tensor_S(ft, raster, u, v)
+        else:
+            e11, e22, e12 = vf.strain_tensor_T(ft, u, v, metric)
+        n11, n22, n12 = relax_stress(cfg, t11, t22, t12, e11, e22, e12,
+                                     p_T)
+        t11 = torch.where(ss_T, n11, t11)
+        t22 = torch.where(ss_T, n22, t22)
+        t12 = torch.where(ss_T, n12, t12)
+        if route == "panel":
+            div_u, div_v = vpn.stress_divergence_P(pt, panel_n, t11, t22,
+                                                   t12, sv, metric)
+        elif route == "raster":
+            div_u, div_v = vf.stress_divergence_S(ft, raster, t11, t22,
+                                                  t12, sv)
+        else:
+            div_u, div_v = vf.stress_divergence_T(ft, t11, t22, t12, sv,
+                                                  metric)
+        u, v = momentum(u, v, div_u, div_v)
+        yield "vertex_uv", (u, v)
+    if route == "panel":
+        t11, t22, t12 = (vpn.stress_slot_to_ring(pt, t)
+                         for t in (t11, t22, t12))
+    return u, v, t11, t22, t12

@@ -54,6 +54,24 @@ def strain_tensor(u_vertex, v_vertex, tan_lat_vertex, mesh: MeshTensors,
     return e11, e22, e12
 
 
+def average_strains(e11, e22, e12, mesh: MeshTensors):
+    """Replace corner strains with the area-weighted average over the
+    corners meeting at each vertex
+    (reference seaice_average_strains_on_vertex, variational.F:684-763)."""
+    cov = mesh.cells_on_vertex
+    cva = mesh.cell_vertices_at_vertex
+    w = mesh.cells_on_vertex_mask * mesh.area_cell[cov]
+    denom = w.sum(dim=1).clamp(min=1e-300)
+
+    def avg(e):
+        g = e[cov, cva]                      # [nVertices, vertexDegree]
+        vert_avg = (g * w).sum(dim=1) / denom
+        # scatter back: corner (c, k) takes the average at its vertex
+        return vert_avg[mesh.vertices_on_cell] * mesh.vertices_on_cell_mask
+
+    return avg(e11), avg(e22), avg(e12)
+
+
 def stress_divergence(s11, s22, s12, tan_lat_vertex, mesh: MeshTensors,
                       basis_integrals_u, basis_integrals_v,
                       basis_integrals_metric, variational_denominator,

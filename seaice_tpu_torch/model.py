@@ -38,6 +38,7 @@ from .transport.remap import (global_conserved_sums, local_extrema,
                               make_remap_step, monotonicity_violation)
 from .transport.tracers import (TracerTree, mass_only_tree,
                                 standard_tracer_tree)
+from .transport.upwind import build_upwind_tensors, make_upwind_step
 from .utils.containers import tensor_dataclass
 from .utils.device import resolve_device
 from .utils.lockstep import drive
@@ -166,16 +167,18 @@ class SeaIceModel:
         mesh_t = mesh.tensors(dtype, dev)
         dyn_t = build_dynamics_tensors(mesh, cfg, dtype, dev)
         remap_t = None
+        upwind_t = None
         if cfg.advection.advection_type == AdvectionType.INCREMENTAL_REMAP:
             remap_t = build_remap_geometry(
                 mesh,
                 rotate_cartesian_grid=cfg.velocity.rotate_cartesian_grid
             ).tensors(dtype, dev)
         elif cfg.advection.advection_type == AdvectionType.UPWIND:
-            raise NotImplementedError(
-                "upwind advection: later slice of the port")
+            # the JAX package builds these with the builder's default
+            # grid rotation, whatever the config says
+            upwind_t = build_upwind_tensors(mesh, dtype, device=dev)
         self.tensors = ModelTensors(
-            mesh=mesh_t, dynamics=dyn_t, remap=remap_t, upwind=None,
+            mesh=mesh_t, dynamics=dyn_t, remap=remap_t, upwind=upwind_t,
             area_cell=torch.as_tensor(
                 np.ascontiguousarray(mesh.area_cell, np.float64)).to(
                     device=dev, dtype=dtype))
@@ -229,11 +232,11 @@ class SeaIceModel:
     # -- step ----------------------------------------------------------------
 
     def _raster_loop_eligible(self, raster) -> bool:
-        """Whether the velocity solve takes the raster loop
-        (`dynamics/cuda_raster.py`): a planar raster-quad mesh with a
-        cell-constant basis, standard EVP with quadratic ocean stress, no
-        metric terms.  `use_pallas_subcycle=True` on a raster mesh that is
-        ineligible raises instead of falling back."""
+        """Whether the velocity solve of standard EVP takes the raster
+        loop (`dynamics/cuda_raster.py`): a planar raster-quad mesh with
+        a cell-constant basis, standard EVP with quadratic ocean stress,
+        no metric terms.  `use_pallas_subcycle=True` on a raster mesh
+        that is ineligible raises instead of falling back."""
         from .config import (ConstitutiveRelation, OceanStressType,
                              StrainScheme)
         from .dynamics.cuda_raster import basis_is_cell_constant
@@ -265,7 +268,10 @@ class SeaIceModel:
         panel-reordered sphere (`mesh.panel_layout`) takes the whole-loop
         panel kernel, or with `use_fused_panel_loop=False` the
         per-subcycle cell kernel; an eligible raster quad mesh takes the
-        raster loop; any other mesh the any-connectivity loop.  The
+        raster loop; any other mesh the any-connectivity loop.  A solver
+        variant (`evp.is_variant`) runs its plain-torch loop instead,
+        and upwind advection (`transport/upwind.py`) takes the place of
+        the remap.  The
         config's `use_pallas_subcycle` / `use_fused_unstructured` /
         `use_pallas_flux` = False raise: no option runs a plain version on
         the card."""
@@ -278,20 +284,28 @@ class SeaIceModel:
                    and self.tensors.dynamics.panel is not None else None)
         raster = None
         if panel_n is None:
+            # a solver variant takes the raster shifts on any raster
+            # layout, standard EVP the raster loop where it is eligible
             raster = detect_raster_quad(self.mesh)
-            if not self._raster_loop_eligible(raster):
+            if not (self._raster_loop_eligible(raster) or
+                    evp.is_variant(cfg)):
                 raster = None
+        dv = self.mesh.dv_edge
         vel_solve = evp.velocity_solve_steps(
-            cfg, raster=raster, panel_n=panel_n,
+            cfg, min_dv_edge=float(np.min(dv[dv > 0])), raster=raster,
+            panel_n=panel_n,
             panel_mesh=self.mesh if panel_n is not None else None)
-        remap_step = None
+        remap_step = upwind_step = None
         if cfg.advection.advection_type == AdvectionType.INCREMENTAL_REMAP:
             remap_step = make_remap_step(
                 tree, self.mesh.vertex_degree,
                 monotonic=cfg.advection.monotonic)
+        elif cfg.advection.advection_type == AdvectionType.UPWIND:
+            upwind_step = make_upwind_step(tree)
         column = self.column
         body = dynamics_transport_steps(cfg, tree, vel_solve, remap_step,
-                                        column=column)
+                                        column=column,
+                                        upwind_step=upwind_step)
 
         def step(tensors: ModelTensors, state: State,
                  forcing: DynamicsForcing,
@@ -381,13 +395,17 @@ def check_kernel_options(cfg: Config):
 
 def dynamics_transport_steps(cfg: Config, tree: TracerTree, vel_solve,
                              remap_step, adv_checks: bool = True,
-                             column: Optional[ColumnPhysics] = None):
+                             column: Optional[ColumnPhysics] = None,
+                             upwind_step=None):
     """The body of the dynamics-transport step as a generator function:
     (velocity solve -> incremental remap -> tracer halo refresh ->
     ridging) x dynamics_subcycle_number, returning (state, diags).
 
     vel_solve: from `evp.velocity_solve_steps`; remap_step: from
-    `make_remap_step`, or None without transport.  It yields where the
+    `make_remap_step`, or None; upwind_step: from
+    `transport.upwind.make_upwind_step`, run where the remap would be
+    (on a whole mesh: no halo refresh follows it), or None; neither:
+    no transport.  It yields where the
     velocity solve does, and ("cell_field", tracers) after each remap (the
     2-deep tracer halo refresh of a partitioned mesh; the remap returns new
     tensors, so the refresh may write them in place).  adv_checks=False
@@ -421,6 +439,9 @@ def dynamics_transport_steps(cfg: Config, tree: TracerTree, vel_solve,
                     tr["snowVolumeCategory"], pressure_in=pressure_in)
             if remap_step is not None:
                 tr, diags = yield from _transport(tensors, tr, vel, diags)
+            elif upwind_step is not None:
+                tr = upwind_step(tensors.upwind, tensors.area_cell, tr,
+                                 vel.u_velocity, vel.v_velocity, dt_dyn)
             if use_ridging and diags:
                 tr, rdg = column.step_ridging(
                     dt_dyn, tr, diags["ridge_convergence"],

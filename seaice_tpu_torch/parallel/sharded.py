@@ -36,7 +36,14 @@ those buffers, through a table fixed when the model is built:
 
 Both give every real halo slot the same value, bitwise.  All blocks live
 on one device: several devices (peer copies or NCCL) and `overlap=True`
-raise NotImplementedError (ROADMAP Queue 1 item 10).
+raise NotImplementedError (ROADMAP Queue 1 item 9).
+
+Every option of the velocity solve runs on the blocks: standard EVP by
+K6, each solver variant by its plain-torch loop (`evp.variant_subcycles`)
+with the vertex halo exchanged after every subcycle, revised EVP with the
+global minimum edge length.  Upwind advection raises ValueError: the JAX
+package's sharded step advects only by incremental remapping and skips
+transport under upwind (ROADMAP Queue 3, fault 10).
 
 With the column package each block runs the column physics on all its
 local cells (owned and halo), as the JAX package's `shard_body` does:
@@ -72,7 +79,7 @@ from ..utils.device import resolve_device
 from ..utils.lockstep import drive_lockstep
 from .partition import partition_mesh
 
-_LATER = "ROADMAP Queue 1 item 10"
+_LATER = "ROADMAP Queue 1 item 9"
 
 
 @tensor_dataclass
@@ -163,6 +170,13 @@ class ShardedSeaIceModel:
         one), one device, or a list of devices that names one device.
         halo_mode: "ring" (rounds of neighbour copies, default) or
         "allgather".  tracer_tree: as `SeaIceModel` takes it."""
+        if cfg.advection.advection_type == AdvectionType.UPWIND:
+            raise ValueError(
+                "upwind advection on a partitioned mesh: the JAX "
+                "package's sharded step advects only by incremental "
+                "remapping and leaves the tracers unmoved under upwind; "
+                "the port does not copy a step that drops transport "
+                "(ROADMAP Queue 3, fault 10)")
         if overlap:
             raise NotImplementedError(
                 "overlap=True: the interior/boundary overlap of the halo "
@@ -450,8 +464,8 @@ class ShardedSeaIceModel:
         sfc_fluxes=None) -> (state, diags), each argument but day_of_year
         (one number for all blocks) a list with one entry per block: the
         step of `SeaIceModel` on every block, in lockstep, the velocity
-        solve by the one-subcycle EVP kernel with the vertex halo
-        refreshed between subcycles.  With the column package and
+        solve by the one-subcycle EVP kernel (a solver variant by its
+        plain loop) with the vertex halo refreshed between subcycles.  With the column package and
         `atmos` (AtmosForcing, OceanForcing, coszen and lat per block, as
         `scatter_cell_tree` makes them) each block runs the column phases
         on its own cells.  The config's optional
@@ -459,7 +473,8 @@ class ShardedSeaIceModel:
         left out, as in the JAX package."""
         cfg = self.cfg
         check_kernel_options(cfg)
-        vel_solve = evp.velocity_solve_steps(cfg, halo=True)
+        vel_solve = evp.velocity_solve_steps(
+            cfg, halo=True, min_dv_edge=self.part.min_dv_edge)
         remap_step = None
         if cfg.advection.advection_type == AdvectionType.INCREMENTAL_REMAP:
             # the departure-triangle search is sized by the global mesh's

@@ -52,7 +52,9 @@ MODULES = [
     "seaice_tpu_torch.coupler", "seaice_tpu_torch.coupled",
     "seaice_tpu_torch.prescribed", "seaice_tpu_torch.special_boundaries",
     "seaice_tpu_torch.analysis", "seaice_tpu_torch.analysis.driver",
-    "seaice_tpu_torch.analysis.members",
+    "seaice_tpu_torch.analysis.members", "seaice_tpu_torch.dynamics.weak",
+    "seaice_tpu_torch.dynamics.implicit",
+    "seaice_tpu_torch.transport.upwind",
 ]
 EXAMPLES = [os.path.join(ROOT, "examples", name) for name in (
     "torch_run_from_namelist.py", "torch_run_coupled.py")]
@@ -94,7 +96,9 @@ def test_sources_do_not_name_the_jax_package_in_imports():
                 "testcases/ic.py", "namelist.py", "diagnostics.py",
                 "error.py", "run.py", "coupler.py", "coupled.py",
                 "prescribed.py", "special_boundaries.py", "column/zbgc.py",
-                "analysis/driver.py", "analysis/members.py"):
+                "analysis/driver.py", "analysis/members.py",
+                "dynamics/weak.py", "dynamics/implicit.py",
+                "transport/upwind.py"):
         assert os.path.join("seaice_tpu_torch", new) in names
     for path in files:
         with open(path) as f:
@@ -167,6 +171,8 @@ def _public_constructors():
                                                     mass_only_tree)
     from seaice_tpu_torch.column.driver import ColumnPhysics
     from seaice_tpu_torch.parallel.sharded import full_physics_inputs
+    from seaice_tpu_torch.dynamics.weak import build_weak_tensors
+    from seaice_tpu_torch.transport.upwind import build_upwind_tensors
     mesh, cfg = _small_model_args()
     pmesh, lay = panel_reorder(icosahedral_mesh(1), 1)
     vb = compute_variational_basis(mesh)
@@ -219,6 +225,11 @@ def _public_constructors():
         "full_physics_inputs": with_device(
             lambda **kw: full_physics_inputs(
                 mesh, C_full(), f64, **kw)[3]["iceSalinity"]),
+        "build_weak_tensors": with_device(
+            lambda **kw: build_weak_tensors(mesh, f64,
+                                            **kw).tan_lat_vertex),
+        "build_upwind_tensors": with_device(
+            lambda **kw: build_upwind_tensors(mesh, f64, **kw).dv_edge),
         "load_sharded_checkpoint": with_device(
             lambda **kw: load_sharded_checkpoint(
                 ckpt["dir"], "sharded", ckpt["part"], ckpt["template"],
@@ -259,7 +270,8 @@ CONSTRUCTORS = ["SeaIceModel", "ShardedSeaIceModel", "Mesh.tensors",
             "build_dynamics_tensors", "init_velocity_state", "zero_forcing", "build_fast_tensors",
             "build_panel_tensors", "RemapGeometry.tensors",
             "init_tracer_state", "box_forcing", "load_checkpoint",
-            "load_sharded_checkpoint", "ColumnPhysics", "full_physics_inputs"]
+            "load_sharded_checkpoint", "ColumnPhysics", "full_physics_inputs",
+            "build_weak_tensors", "build_upwind_tensors"]
 
 
 def test_default_device_is_the_gpu_or_an_error():

@@ -188,3 +188,66 @@ def test_unported_model_options_parse_and_raise_when_built():
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         SeaIceModel(icosahedral_mesh(1), cfg, dtype=torch.float64,
                     device="cpu")
+
+
+def test_revised_evp_linear_ocean_stress_namelist_builds_and_steps():
+    """A namelist with revised EVP and the linear ocean stress parses to
+    the reference's Config, and the model it configures (the subdiv-2
+    sphere, column package off) builds and steps in both packages: two
+    steps, u and v to 1e-11 of their max, every tracer to 1e-12."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+    from seaice_tpu.dynamics.evp import DynamicsForcing as JForcing
+    from seaice_tpu.mesh import icosahedral_mesh as jsphere
+    from seaice_tpu.model import SeaIceModel as JModel
+    from seaice_tpu_torch.dynamics.evp import DynamicsForcing as TForcing
+    from seaice_tpu_torch.mesh import icosahedral_mesh as tsphere
+    from seaice_tpu_torch.model import SeaIceModel as TModel
+    text = ("&seaice_model\n config_dt = 1800.0\n/\n"
+            "&use_sections\n config_use_column_package = .false.\n/\n"
+            "&velocity_solver\n config_elastic_subcycle_number = 6\n"
+            " config_constitutive_relation_type = 'revised_evp'\n"
+            " config_ocean_stress_type = 'linear'\n/\n")
+    cj, sj, ct, st = _both(text)
+    assert ct == cj
+    assert ct["velocity"]["constitutive_relation"] == "evp_revised"
+    assert ct["velocity"]["ocean_stress_type"] == "linear"
+    (cfg_j, _), (cfg_t, _) = J.config_from_namelist(text), \
+        T.config_from_namelist(text)
+    mj, mt = jsphere(2), tsphere(2)
+    J_ = JModel(mj, cfg_j, dtype=jnp.float64, build_unstructured=False)
+    T_ = TModel(mt, cfg_t, dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(9)
+    nc, ncat = mt.n_cells, cfg_t.run.n_categories
+    polar = np.abs(mt.lat_cell) > np.deg2rad(50.0)
+    area = np.where(polar[:, None], rng.uniform(0.1, 0.19, (nc, ncat)), 0.)
+    vol = area * rng.uniform(0.5, 3.0, (nc, ncat))
+    f = dict(u_air_velocity=5.0 * rng.standard_normal(nc),
+             v_air_velocity=5.0 * rng.standard_normal(nc),
+             air_density=np.full(nc, 1.3),
+             u_ocean_velocity=0.05 * rng.standard_normal(nc),
+             v_ocean_velocity=0.05 * rng.standard_normal(nc),
+             sea_surface_tilt_u=np.zeros(nc),
+             sea_surface_tilt_v=np.zeros(nc), land_ice_mask=np.zeros(nc))
+    s_j, s_t = J_.init_state(area, vol, area * 0.1), \
+        T_.init_state(area, vol, area * 0.1)
+    fj = JForcing(**{k: jnp.asarray(a) for k, a in f.items()})
+    ft = TForcing(**{k: torch.as_tensor(a) for k, a in f.items()})
+    step_j, step_t = jax.jit(J_.make_step(jit=False)), T_.make_step()
+    for _ in range(2):
+        s_j, _ = step_j(J_.tensors, s_j, fj)
+        s_t, _ = step_t(T_.tensors, s_t, ft)
+    scale = np.abs(np.asarray(s_j.velocity.u_velocity)).max()
+    assert scale > 1e-3
+    for k in ("u_velocity", "v_velocity"):
+        np.testing.assert_allclose(
+            getattr(s_t.velocity, k).numpy(),
+            np.asarray(getattr(s_j.velocity, k)), rtol=0,
+            atol=1e-11 * scale, err_msg=k)
+    for k, w in s_j.tracers.items():
+        w = np.asarray(w)
+        np.testing.assert_allclose(
+            s_t.tracers[k].numpy(), w, rtol=0,
+            atol=1e-12 * max(np.abs(w).max(), 1e-300), err_msg=k)
