@@ -71,6 +71,20 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
                     f. the JFNK VP solver (`dynamics/implicit.py`) against
                     EVP with 240 subcycles on the 168 x 168 box (K4, held),
                     its GMRES cycles and host syncs a step printed;
+       column options  the full-physics panel sphere with the column's
+                    thermodynamics, surface and snow options (K3 + K2):
+                    a. the snow tracers with ITDrdg snow redistribution,
+                    form drag and high-frequency coupling, 2 steps (K3 and
+                    K2 held against their plain versions on step 2's
+                    inputs, K2's table width printed), then bulk and
+                    ITDsd one step each; b. the zero-layer thermodynamics,
+                    2 steps, held likewise; a and b each with the remap's
+                    conservation by tracer product, the host syncs of a
+                    step, the idle share and float32 against float64 by
+                    ROADMAP Queue 3 fault 6's rule; c. one CoupledDriver
+                    interval with BL99 and prescribed per-category surface
+                    fluxes, bitwise the same steps by hand, float32
+                    against float64;
   3. holds each kernel against its plain PyTorch version on the card, on
      the very tensors the step hands it (float32, and the same tensors
      cast to float64), and times both with CUDA events; reports the
@@ -372,14 +386,7 @@ def full_physics_case(subdiv, n_cat, n_ice, n_sub, dtype, device,
     Returns (model, state, forcing, (AtmosForcing, OceanForcing,
     coszen))."""
     from seaice_tpu_torch import config as C
-    from seaice_tpu_torch.column.driver import (AtmosForcing, OceanForcing,
-                                                slab_ocean_frzmlt)
-    from seaice_tpu_torch.column.thermo_shared import (
-        ice_enthalpy_from_temperature, melting_temperature,
-        salinity_profile, snow_enthalpy_from_temperature)
-    from seaice_tpu_torch.dynamics.evp import DynamicsForcing
-    from seaice_tpu_torch.mesh import (icosahedral_mesh,
-                                       latlon_vector_rotation_forward)
+    from seaice_tpu_torch.mesh import icosahedral_mesh
     from seaice_tpu_torch.mesh.panels import panel_reorder
     from seaice_tpu_torch.model import SeaIceModel
 
@@ -396,7 +403,23 @@ def full_physics_case(subdiv, n_cat, n_ice, n_sub, dtype, device,
         column=C.ColumnConfig(ktherm=2, shortwave="dEdd",
                               pond_scheme="lvl", kstrength=1))
     model = SeaIceModel(mesh, cfg, dtype=dtype, device=device)
-    dev = model.device
+    return (model,) + full_physics_inputs(model)
+
+
+def full_physics_inputs(model):
+    """The initial state, forcing and column forcing of
+    `full_physics_case` for a full-physics model of the panel sphere:
+    (state, forcing, (AtmosForcing, OceanForcing, coszen))."""
+    from seaice_tpu_torch.column.driver import (AtmosForcing, OceanForcing,
+                                                slab_ocean_frzmlt)
+    from seaice_tpu_torch.column.thermo_shared import (
+        ice_enthalpy_from_temperature, melting_temperature,
+        salinity_profile, snow_enthalpy_from_temperature)
+    from seaice_tpu_torch.dynamics.evp import DynamicsForcing
+    from seaice_tpu_torch.mesh import latlon_vector_rotation_forward
+    mesh, dtype, dev = model.mesh, model.dtype, model.device
+    dt = model.cfg.run.dt
+    n_cat, n_ice = model.cfg.run.n_categories, model.cfg.run.n_ice_layers
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64)).to(
@@ -444,7 +467,7 @@ def full_physics_case(subdiv, n_cat, n_ice, n_sub, dtype, device,
         frzmlt=slab_ocean_frzmlt(sst, Tf, t(20.0 * one), dt),
         mixed_layer_depth=t(20.0 * one))
     coszen = t(np.clip(np.cos(lat - 0.3), 0.0, 1.0))
-    return model, state, forcing, (atm, ocn, coszen)
+    return state, forcing, (atm, ocn, coszen)
 
 
 def count_host_syncs(fn):
@@ -463,23 +486,31 @@ def count_host_syncs(fn):
     return out, n
 
 
-def full_physics_path(label, model, state, forcing, col, n_steps):
+def full_physics_path(label, model, state, forcing, col, n_steps,
+                      capture_last=False, sums=None):
     """Drive the full-physics step: counts to 0, n_steps steps, read the
     counts, check the state (finite, |u| < 3 m/s, aice <= 1 + 1e-6, the
     remap's conservation error <= IR_CONSERVATION_LIMIT, no column left
     unconverged) and that K3 and K2 ran once per velocity solve and
-    remap.  Returns (state, median ms per step, the BL99/Picard
-    iterations of each step)."""
+    remap.  capture_last: record the kernel calls of the last step
+    (`capture_calls`); sums: a RemapSums whose errors are held by tracer
+    product after the steps (`hold_products`).  Returns (state, median
+    ms per step, the BL99/Picard/zero-layer iterations of each step, the
+    last step's kernel calls or None, the launch counts read)."""
     from seaice_tpu_torch.kernels import launch_counts, reset_launch_counts
     step = stepper(model, col)
     n_dyn = model.cfg.velocity.dynamics_subcycle_number
     torch.cuda.synchronize()
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()     # the path's own peak
-    ms, diags_all = [], []
-    for _ in range(n_steps):
+    ms, diags_all, calls = [], [], None
+    for i in range(n_steps):
         t0 = time.perf_counter()
-        state, diags = step(state, forcing)
+        if capture_last and i == n_steps - 1:
+            (state, diags), calls = capture_calls(
+                lambda: step(state, forcing))
+        else:
+            state, diags = step(state, forcing)
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
         diags_all.append(diags)
@@ -499,6 +530,9 @@ def full_physics_path(label, model, state, forcing, col, n_steps):
            "thermo_iterations_per_step": iters,
            "ice_area_sum": float(fields["iceAreaCategory"].sum()),
            "peak_mem_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+    if sums is not None:
+        out["ir_conservation_by_product"] = hold_products(
+            label, state.tracers, model.tensors.area_cell, sums)
     emit({"main_path": out})
     for name, t in list(fields.items()) + [("u", u), ("v", v)]:
         if not np.isfinite(t).all():
@@ -518,7 +552,7 @@ def full_physics_path(label, model, state, forcing, col, n_steps):
         if n != want.get(name, 0):
             fail(f"{label}: {name} launched {n} times in {n_steps} steps, "
                  f"expected {want.get(name, 0)}")
-    return state, float(np.median(ms)), iters
+    return state, float(np.median(ms)), iters, calls, counts
 
 
 def full_physics_phases(model, state, forcing, col, reps=3):
@@ -769,7 +803,7 @@ def inputs_one_ulp(args, first):
     return list(args[:first]) + [up(x) for x in args[first:]]
 
 
-def check_loop(name, call, reps):
+def check_loop(name, call, reps, short_loop_from_response=False):
     """A whole-loop EVP kernel (K1, K3 or K4) against its plain version,
     twice over.
 
@@ -805,7 +839,11 @@ def check_loop(name, call, reps):
     SHORT_LOOP subcycles, where the amplification has barely begun, holds
     the float32 kernel to the float32 plain version at SHORT_LOOP_TOL, so
     that a fault of the float32 instantiation in the loop (carrying state
-    from one subcycle to the next) is caught as well.  `max_abs_err` and
+    from one subcycle to the next) is caught as well; with
+    short_loop_from_response (the column options' full-physics states,
+    as K6's on the sharded full-physics step) at the larger of it and ten
+    times the float32 plain loop's response to its state or its inputs
+    one ulp larger (ROADMAP Queue 3, fault 2).  `max_abs_err` and
     `max_rel_err_f32` of the result are those of the one-subcycle float32
     comparison, the one held to TOL; the whole-loop distances are reported
     under `loop_rel_err_*`."""
@@ -844,9 +882,12 @@ def check_loop(name, call, reps):
     out["short_loop_rel_err_f32"] = e
     out["short_loop_rel_err_f32_plain_one_ulp"] = resp["state"]
     out["short_loop_rel_err_f32_plain_inputs_one_ulp"] = resp["inputs"]
-    if not max(e.values()) <= SHORT_LOOP_TOL:
+    lim = {n: max(SHORT_LOOP_TOL, 10.0 * max(r[n] for r in resp.values()))
+           if short_loop_from_response else SHORT_LOOP_TOL for n in e}
+    out["short_loop_limit"] = lim
+    if any(not e[n] <= lim[n] for n in e):
         fail(f"{tag0} f32, {SHORT_LOOP} subcycles: kernel and plain "
-             f"version disagree, {e} > {SHORT_LOOP_TOL} (the plain "
+             f"version disagree, {e} > {lim} (the plain "
              f"loop's one-ulp response "
              f"{out['short_loop_rel_err_f32_plain_one_ulp']})")
 
@@ -1916,19 +1957,18 @@ class RemapSums:
                 for k in pre[0]}
 
 
-def held_conservation_error(runner, sums):
-    """The remap's conservation error of the runner's last step (from
-    `sums`, a RemapSums), held by tracer product: every product to
+def hold_products(label, tr, area, sums):
+    """The remap's conservation error by tracer product over the remaps
+    `sums` (a RemapSums) recorded: every product to
     IR_CONSERVATION_LIMIT, but the three pond tracers, while the ponds'
     water per unit ice area is under NOISE, to POND_NOISE_LIMIT (ROADMAP
     Queue 3, fault 7: the remap's sliver repair clamps the pond depth of
     slivers to the range of the meaningful cells, which is not
     conservative; under cold forcing the ponds are rounding noise,
-    fault 4).  Returns (the largest error over the products other than
-    the ponds, the ponds' largest error, the pond water in metres, the
-    ponds' limit); fails when a product exceeds its limit."""
-    tr = runner.state.tracers
-    area = runner.model.tensors.area_cell
+    fault 4).  tr: the state's tracers after the remaps, area: the
+    cells' areas.  Returns {"by_product", "max_error_but_ponds",
+    "ponds_max_error", "pond_water_m", "ponds_limit"}; fails when a
+    product exceeds its limit."""
     a = tr["iceAreaCategory"]
     water = ((a * tr["levelIceArea"] * tr["pondArea"] * tr["pondDepth"])
              .sum(-1) * area).sum() / ((a.sum(-1) * area).sum())
@@ -1939,13 +1979,15 @@ def held_conservation_error(runner, sums):
     pond = max(e for k, e in zip(by, errs) if k in PONDS)
     pond_limit = IR_CONSERVATION_LIMIT if water >= NOISE else POND_NOISE_LIMIT
     if not err <= IR_CONSERVATION_LIMIT:
-        fail(f"file-driven run: ir_conservation_error {err} > "
+        fail(f"{label}: ir_conservation_error {err} > "
              f"{IR_CONSERVATION_LIMIT} ({dict(zip(by, errs))})")
     if not pond <= pond_limit:
-        fail(f"file-driven run: the pond tracers' conservation error "
+        fail(f"{label}: the pond tracers' conservation error "
              f"{pond} > {pond_limit} (pond water {water} m per unit ice "
              f"area)")
-    return err, pond, water, pond_limit
+    return {"by_product": dict(zip(by, errs)), "max_error_but_ponds": err,
+            "ponds_max_error": pond, "pond_water_m": water,
+            "ponds_limit": pond_limit}
 
 
 def bare_step_ms(runner, reps=3):
@@ -2029,11 +2071,12 @@ def file_driven_run(inputs, n_steps, reps, card, workdir):
     with RemapSums() as sums:
         for i in range(3, n_steps + 1):
             ms.append(runner_step(runner, label))
-            err, perr, water, plim = held_conservation_error(runner, sums)
-            ir_err.append(err)
-            pond_err.append(perr)
-            ponds.append(water)
-            pond_lim.append(plim)
+            held = hold_products(label, runner.state.tracers,
+                                 runner.model.tensors.area_cell, sums)
+            ir_err.append(held["max_error_but_ponds"])
+            pond_err.append(held["ponds_max_error"])
+            ponds.append(held["pond_water_m"])
+            pond_lim.append(held["ponds_limit"])
             iters.append(runner.diags["column_fluxes"].thermo_iterations)
             if i == half:
                 save_checkpoint(ckpt, runner.state, {
@@ -2175,7 +2218,8 @@ def rounded(state, dtype):
                                 for f in dataclasses.fields(vel)}))
 
 
-def hold_file_run_to_f64(label, f32, f64, f64r, area_cell, n_steps, extra):
+def hold_file_run_to_f64(label, f32, f64, f64r, area_cell, n_steps, extra,
+                         key="file_run_f32_vs_f64"):
     """The float32 file-driven run (f32) against the same steps in
     float64 (f64), beside the float64 run with its state rounded to
     float32 once after step 1 (f64r: the float64 run's own response to
@@ -2210,7 +2254,7 @@ def hold_file_run_to_f64(label, f32, f64, f64r, area_cell, n_steps, extra):
     for k, budget in F32_F64_BUDGET.items():
         k = k + "_where_area_ge_floor"
         limits[k] = max(budget, 10.0 * resp[k])
-    emit({"file_run_f32_vs_f64": dict(
+    emit({key: dict(
         out, steps=n_steps, limits=limits, f64_rounded_to_f32_once=resp,
         pointwise_unheld=unheld, **extra)})
     for k, lim in limits.items():
@@ -2564,12 +2608,14 @@ COUPLED_EXPORTS = {
     "Fioi_salt", "Fioi_taux", "Fioi_tauy"}
 
 
-def stepped_interval(model, state, fields, clock, n_sub, sharded=False):
+def stepped_interval(model, state, fields, clock, n_sub, sharded=False,
+                     sfc_fluxes=None):
     """The interval mean of the exports taken through `make_step()` by
     hand, from `state` with the import fields `fields` at `clock`: the
     single-device driver's semantics (coszen and day of year per substep
     from the interval-start clock) or, with `sharded`, the sharded
-    driver's (one coszen for the interval, no day of year).  Returns the
+    driver's (one coszen for the interval, no day of year).  sfc_fluxes:
+    the calc_Tsfc=False surface fluxes (single device).  Returns the
     export dict and the state after the interval."""
     from seaice_tpu_torch.column.orbital import compute_coszen
     from seaice_tpu_torch.coupler import export_state, import_state
@@ -2604,7 +2650,8 @@ def stepped_interval(model, state, fields, clock, n_sub, sharded=False):
             coszen, _ = compute_coszen(lat, lon, doy,
                                        torch.remainder(secs, 86400.0))
             state, diags = step(model.tensors, state, dyn, atm, ocn,
-                                coszen=coszen, day_of_year=doy, lat=lat)
+                                coszen=coszen, day_of_year=doy, lat=lat,
+                                sfc_fluxes=sfc_fluxes)
             fl = [diags["column_fluxes"]]
             su = (diags["ocean_stress_u"], diags["ocean_stress_v"])
             stress = su if stress is None else (stress[0] + su[0],
@@ -2933,6 +2980,259 @@ def add_launches(kernels, path, counts):
             by = kernels[name].setdefault("launches_by_path", {})
             by[path] = n
             kernels[name]["launches"] = sum(by.values())
+
+
+# --- column options ----------------------------------------------------------
+
+# the column options of the thermodynamics, surface and snow on the
+# full-physics panel sphere: (a) the snow tracers with ITDrdg
+# redistribution, form drag and high-frequency coupling (the bulk and
+# ITDsd schemes one step each after it), (b) the zero-layer
+# thermodynamics, (c) the prescribed surface fluxes of calc_Tsfc=False
+# (BL99) through one CoupledDriver interval
+OPTIONS_SNOW = dict(use_snow_tracers=True, snwredist="ITDrdg",
+                    use_form_drag=True, highfreq=True)
+OPTIONS_ZERO_LAYER = dict(ktherm=0)
+OPTIONS_PRESCRIBED = dict(ktherm=1, calc_surface_temperature=False)
+OPTION_STEPS = 2
+
+
+def option_states(model, n_steps, round_after=None):
+    """n_steps of a full-physics model of the panel sphere from its
+    initial state (`full_physics_inputs`): the global fields after them
+    and the steps' thermo iterations; round_after: round the state to
+    float32 once after that many steps (the float64 run's own response
+    to one float32 rounding, ROADMAP Queue 3 fault 6)."""
+    state, forcing, col = full_physics_inputs(model)
+    step = stepper(model, col)
+    iters = []
+    for i in range(n_steps):
+        if round_after == i:
+            state = rounded(state, torch.float32)
+        state, diags = step(state, forcing)
+        iters.append(diags["column_fluxes"].thermo_iterations)
+    return global_fields(model, state), iters
+
+
+def option_f32_against_f64(label, model64, f32, n_steps, area_cell, extra):
+    """The float32 fields `f32` after n_steps against the same steps of
+    the float64 model `model64` and of it rounded to float32 once after
+    step 1, held by fault 6's rule (`hold_file_run_to_f64`); the thermo
+    iterations of the float64 steps beside the float32 ones (`extra`)."""
+    f64, it64 = option_states(model64, n_steps)
+    f64r, _ = option_states(model64, n_steps, round_after=1)
+    torch.cuda.empty_cache()
+    hold_file_run_to_f64(label, f32, f64, f64r, area_cell, n_steps,
+                         dict(extra, thermo_iterations_f64=it64),
+                         key="column_options_f32_vs_f64")
+
+
+def option_path(label, bases, opts, reps, card, kernels, main_syncs):
+    """One path of the column-options phase, float32: the full-physics
+    panel sphere with the column options `opts`, counts to 0 before its
+    OPTION_STEPS steps from rest and read after them (the last recorded:
+    K3 and K2 against their plain versions on its inputs), the checks of
+    `full_physics_path` and the remap's conservation by tracer product;
+    K2's table width and shared memory, the host syncs of a step beside
+    the main path's, ms per step and the device's idle share; then the
+    float32 state against float64 by fault 6's rule.  bases: the
+    float32 and float64 full-physics models the path's models are taken
+    from (`SeaIceModel.with_column`).  Returns (model, state, forcing,
+    col) after the path."""
+    from seaice_tpu_torch.transport.cuda_flux import flux_layout
+    t0 = time.perf_counter()
+    model = bases[torch.float32].with_column(**opts)
+    state, forcing, col = full_physics_inputs(model)
+    emit({"model": {"path": label, "options": opts,
+                    "seconds_to_build": time.perf_counter() - t0,
+                    "cells": model.mesh.n_cells, "dtype": "float32",
+                    "tracers": model.tree.names}})
+    with RemapSums() as sums:
+        state, ms, iters, calls, counts = full_physics_path(
+            label, model, state, forcing, col, OPTION_STEPS,
+            capture_last=True, sums=sums)
+    add_launches(kernels, label, counts)
+    if set(calls) != {"evp_panel_loop", "integrate_fluxes_cuda"}:
+        fail(f"{label}: step {OPTION_STEPS} called {sorted(calls)}")
+    k3 = check_loop("evp_panel_loop", calls["evp_panel_loop"][0],
+                    min(reps, 3), short_loop_from_response=True)
+    k2_on_path(label, calls["integrate_fluxes_cuda"])
+    k2 = check_k2(calls["integrate_fluxes_cuda"][0], min(reps, 3))
+    tree, recon = calls["integrate_fluxes_cuda"][0][0][:2]
+    _, out2d, out3d = flux_layout(tree, recon)
+    t2 = sum(n for _, n, _ in out2d)
+    t3 = sum(n * nl for _, n, nl, _ in out3d)
+    # csrc/ir_flux.cu: 4 warps a block, (7 T2 + T3 + 18) values a warp
+    shmem = {tag: 4 * (7 * t2 + t3 + 18) * size
+             for tag, size in (("f32", 4), ("f64", 8))}
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block
+    del calls
+    _, syncs = count_host_syncs(lambda: stepper(model, col)(state, forcing))
+    emit({"column_options_kernels": {
+        "path": label, "card": card,
+        "k3_against_plain": {k: v for k, v in k3.items()
+                             if "err" in k or k in ("ms", "plain_ms",
+                                                    "bound_ms",
+                                                    "short_loop_limit")},
+        "k2": {k: v for k, v in k2.items()
+               if "err" in k or k in ("ms", "plain_ms", "kernel_ms",
+                                      "bound_ms", "bound_by", "shapes",
+                                      "device_kernels_per_call")},
+        "k2_table": {"columns_2d": t2, "columns_3d": t3,
+                     "width": t2 + t3, "shared_bytes": shmem,
+                     "shared_bytes_per_block_limit": limit}}})
+    if not max(shmem.values()) <= limit:
+        fail(f"{label}: K2's shared memory {shmem} exceeds {limit} bytes")
+    f32 = global_fields(model, state)
+    emit({"column_options_path": {
+        "path": label, "card": card, "ms_per_step_untraced": ms,
+        "host_syncs_per_step": syncs,
+        "host_syncs_per_step_main_path": main_syncs,
+        "thermo_iterations_per_step": iters}})
+    trace_steps(label, model, state, forcing, ms, n=1, col=col,
+                host_events=False)
+    option_f32_against_f64(label,
+                           bases[torch.float64].with_column(**opts),
+                           f32, OPTION_STEPS,
+                           model.tensors.area_cell.double().cpu().numpy(),
+                           {"thermo_iterations_f32": iters})
+    return model, state, forcing, col
+
+
+def prescribed_flux_imports(nc, ncat):
+    """The calc_Tsfc=False imports of an atmosphere model: per-category
+    surface fluxes (W/m^2) from a fixed seed."""
+    rng = np.random.default_rng(4)
+    return {"surfaceHeatFluxCouple": rng.uniform(-30.0, 10.0, (nc, ncat)),
+            "surfaceConductiveFluxCouple": rng.uniform(-25.0, 5.0,
+                                                       (nc, ncat)),
+            "latentHeatFluxCouple": rng.uniform(-6.0, 0.0, (nc, ncat)),
+            "sensibleHeatFluxCouple": rng.uniform(-15.0, 5.0, (nc, ncat))}
+
+
+def prescribed_flux_interval(bases, card, kernels):
+    """Path (c): one CoupledDriver interval (COUPLING_INTERVAL) of the
+    full-physics panel sphere with ktherm=1 and calc_Tsfc=False, the
+    import fields of `coupled_imports` and per-category surface fluxes;
+    counts to 0 around it (K3 and K2 once a substep), the exports finite,
+    the interval mean bitwise the same steps taken by hand with the same
+    fluxes (`stepped_interval`), ms of it and of a second interval, and
+    the float32 state (after the first interval) against float64
+    (the same interval, and float64 rounded to float32 once after the
+    first substep) by fault 6's rule."""
+    from seaice_tpu_torch.coupled import CoupledDriver
+    from seaice_tpu_torch.coupler import import_sfc_fluxes
+    from seaice_tpu_torch.kernels import launch_counts, reset_launch_counts
+    label = "column options (c) prescribed surface fluxes"
+    fields = None
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        for round_once in ((False,) if dtype == torch.float32
+                           else (False, True)):
+            model = bases[dtype].with_column(**OPTIONS_PRESCRIBED)
+            state0 = full_physics_inputs(model)[0]
+            nc, ncat = model.mesh.n_cells, model.cfg.run.n_categories
+            if fields is None:
+                fields = dict(coupled_imports(nc),
+                              **prescribed_flux_imports(nc, ncat))
+            drv = CoupledDriver(model, copy_state(state0),
+                                coupling_interval=COUPLING_INTERVAL)
+            if round_once:
+                inner, seen = drv.step_fn, []
+
+                def rounding(tensors, st, *a, **kw):
+                    if seen:
+                        st = rounded(st, torch.float32)
+                    seen.append(1)
+                    return inner(tensors, st, *a, **kw)
+                drv.step_fn = rounding
+            clock0 = drv.clock.copy()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = drv.advance(fields)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            counts = launch_counts()
+            runs[dtype, round_once] = global_fields(model, drv.state)
+            if dtype != torch.float32:
+                continue
+            n_sub = drv.n_substeps
+            want = {"evp_panel_loop": n_sub, "integrate_fluxes_cuda": n_sub}
+            for name, n in counts.items():
+                if n != want.get(name, 0):
+                    fail(f"{label}: {name} launched {n} times in one "
+                         f"interval, expected {want.get(name, 0)}")
+            add_launches(kernels, label, counts)
+            bad = [k for k, v in out.items() if not np.isfinite(v).all()]
+            if bad or set(out) != COUPLED_EXPORTS:
+                fail(f"{label}: exports {sorted(out)} ({bad} not finite)")
+            sfc = import_sfc_fluxes(fields, model.dtype, model.device)
+            by_hand, _ = stepped_interval(model, copy_state(state0), fields,
+                                          clock0, n_sub, sfc_fluxes=sfc)
+            diff = differing(out, by_hand)
+            # a second interval of the same driver, timed alone
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drv.advance(fields)
+            torch.cuda.synchronize()
+            emit({"column_options_coupled": {
+                "path": label, "card": card,
+                "ms_per_interval": [ms, 1e3 * (time.perf_counter() - t0)],
+                "substeps": n_sub, "launches": counts,
+                "interval_mean_vs_stepped": {"bitwise": not diff,
+                                             "max_abs_diff": diff}}})
+            if diff:
+                fail(f"{label}: the interval means differ from the same "
+                     f"steps taken by hand: {diff}")
+            area_cell = model.tensors.area_cell.double().cpu().numpy()
+            del by_hand, sfc
+        del model, state0, drv
+        torch.cuda.empty_cache()
+    hold_file_run_to_f64(label, runs[torch.float32, False],
+                         runs[torch.float64, False],
+                         runs[torch.float64, True], area_cell, 2, {},
+                         key="column_options_f32_vs_f64")
+
+
+def column_options(reps, card, kernels, main_syncs):
+    """The column-options phase at full width (paths a to c): every path
+    with its launch counts set to 0 before and read after.  One float32
+    and one float64 model of the sphere are built; each path takes its
+    column options on a copy (`SeaIceModel.with_column`)."""
+    t0 = time.perf_counter()
+    bases = {dtype: full_physics_case(
+        SUBDIV, N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES, dtype, None)[0]
+        for dtype in (torch.float32, torch.float64)}
+    emit({"model": {"path": "column options", "cells":
+                    bases[torch.float32].mesh.n_cells,
+                    "seconds_to_build": time.perf_counter() - t0}})
+    label = "column options (a) snow, form drag, highfreq"
+    model, state, forcing, col = option_path(
+        label, bases, OPTIONS_SNOW, reps, card, kernels, main_syncs)
+    # the other two redistribution schemes, one step each on the same
+    # sphere from path (a)'s state
+    rdg = stepper(model, col)(state, forcing)[0].tracers[
+        "snowVolumeCategory"].cpu().numpy()
+    for scheme in ("bulk", "ITDsd"):
+        m = model.with_column(snwredist=scheme)
+        with RemapSums() as sums:
+            label = f"column options (a) snwredist={scheme}"
+            s, _, _, _, counts = full_physics_path(
+                label, m, state, forcing, col, 1, sums=sums)
+        add_launches(kernels, label, counts)
+        if np.array_equal(s.tracers["snowVolumeCategory"].cpu().numpy(),
+                          rdg):
+            fail(f"snwredist={scheme}: the snow equals ITDrdg's")
+    del model, state, forcing, col, m, s, rdg
+    torch.cuda.empty_cache()
+    option_path("column options (b) zero-layer", bases, OPTIONS_ZERO_LAYER,
+                reps, card, kernels, main_syncs)
+    torch.cuda.empty_cache()
+    prescribed_flux_interval(bases, card, kernels)
+    del bases
+    torch.cuda.empty_cache()
+    emit({"column_options_seconds": time.perf_counter() - t0})
 
 
 # --- solver variants ---------------------------------------------------------
@@ -3499,8 +3799,9 @@ def main():
         if "err" in k or k in ("ms", "plain_ms", "bound_ms")}})
     k2_on_path("full-physics panel sphere", calls["integrate_fluxes_cuda"])
     del calls
-    state, fp_ms, iters = full_physics_path(
+    state, fp_ms, iters, _, counts = full_physics_path(
         "full-physics panel sphere", model, state, forcing, col, args.steps)
+    add_launches(kernels, "full-physics panel sphere", counts)
     f32_fields = global_fields(model, state)
     phases = full_physics_phases(model, state, forcing, col)
     _, syncs = count_host_syncs(lambda: step(state, forcing))
@@ -3544,6 +3845,9 @@ def main():
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
+
+    # the column's thermodynamics, surface and snow options (paths a to c)
+    column_options(args.reps, card, kernels, syncs)
 
     # the solver variants and transport (paths a to f), then their small
     # float64 models on the card against the CPU

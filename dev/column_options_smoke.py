@@ -1,0 +1,62 @@
+#!/usr/bin/env python3
+"""Run the column-options phase of `chip_smoke.py` alone on the GPU: the
+full-physics panel sphere with the snow tracers, ITDrdg snow
+redistribution, form drag and high-frequency coupling (then bulk and ITDsd
+one step each), with the zero-layer thermodynamics, and one CoupledDriver
+interval with prescribed surface fluxes (BL99); each held as
+`chip_smoke.py` holds it.
+
+    python3 dev/column_options_smoke.py [--reps 3]
+
+Builds the kernels, prints the JSON lines of the phase and the card
+(`nvidia-smi --query-gpu=name,power.limit`), and exits non-zero where a
+check fails, as `chip_smoke.py` does: the quicker rerun of the phase after
+a change to the column options.
+"""
+
+import argparse
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args()
+    import torch
+    import chip_smoke as cs
+    if not torch.cuda.is_available():
+        print("column_options_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = cs.card_line()
+    from seaice_tpu_torch.kernels import build
+    t0 = time.perf_counter()
+    build.build_cuda()
+    build.get_native_stencil_lib()
+    cs.emit({"build": {"seconds": time.perf_counter() - t0}})
+    kernels = {name: {} for name in (
+        "evp_subcycle_loop", "integrate_fluxes_cuda", "evp_panel_loop",
+        "panel_cell_step", "evp_raster_loop", "evp_subcycle_step")}
+    # the main path's host syncs of a step, for comparison
+    model, state, forcing, col = cs.full_physics_case(
+        cs.SUBDIV, cs.N_CATEGORIES, cs.N_ICE_LAYERS, cs.N_SUBCYCLES,
+        torch.float32, None)
+    step = cs.stepper(model, col)
+    state, _ = step(state, forcing)
+    _, syncs = cs.count_host_syncs(lambda: step(state, forcing))
+    del model, state, forcing, col, step
+    torch.cuda.empty_cache()
+    cs.column_options(args.reps, card, kernels, syncs)
+    cs.emit({"launches_by_path": {k: v.get("launches_by_path")
+                                  for k, v in kernels.items()}})
+    print(card, flush=True)
+
+
+if __name__ == "__main__":
+    main()

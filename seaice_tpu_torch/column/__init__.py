@@ -3,10 +3,11 @@
 Port of the JAX package's `column/` (the CICE column package, API facade
 `ice_colpkg.F90:19-68`): every routine works on dense tensors over the
 leading batch dims [nCells, nCategories] with the vertical layer axis
-last.  The modules of the main path: thermodynamics (BL99 `bl99`,
-mushy `mushy` + `mushy_solver`, `vertical`, `itd_thermo`), radiation
-(`shortwave`, `dedd`, `orbital`), level-ice ponds (`ponds`), the
-atmosphere boundary layer (`atmo`), the ITD, strength and ridging
+last.  The modules of the main path: thermodynamics (zero-layer
+`zerolayer`, BL99 `bl99`, mushy `mushy` + `mushy_solver`, `vertical`,
+`itd_thermo`), radiation (`shortwave`, `dedd`, `orbital`), level-ice
+ponds (`ponds`), the atmosphere boundary layer and form drag (`atmo`),
+snow physics and redistribution (`snow`), the ITD, strength and ridging
 (`itd`, `ridging`), and the phase drivers (`driver`).
 """
 

@@ -92,16 +92,17 @@ def freeze_converged(converged, new, old):
     return torch.where(cexp, old, new)
 
 
-def run_until_converged(one_iteration, carry, converged_index: int):
+def run_until_converged(one_iteration, carry, converged_index: int,
+                        nitermax: int = NITERMAX):
     """Run `carry = one_iteration(carry, niter)` for niter = 1, 2, ...
     until carry[converged_index] is all True (tested every
-    CONVERGENCE_CHECK_EVERY iterations) or niter == NITERMAX has run.
+    CONVERGENCE_CHECK_EVERY iterations) or niter == nitermax has run.
     Returns (carry, iterations run)."""
     niter = 0
-    while niter < NITERMAX:
+    while niter < nitermax:
         niter += 1
         carry = one_iteration(carry, niter)
-        if (niter % CONVERGENCE_CHECK_EVERY == 0 or niter == NITERMAX) \
+        if (niter % CONVERGENCE_CHECK_EVERY == 0 or niter == nitermax) \
                 and bool(carry[converged_index].all()):
             break
     return carry, niter
@@ -131,12 +132,28 @@ def temperature_changes(dt, rhoa, flw, potT, Qa, shcoef, lhcoef,
                         fswsfc, fswint, Sswabs, Iswabs,
                         hilyr, hslyr, zqin, zTin, zqsn, zTsn, zSin,
                         Tsf, Tbot, einit,
-                        conduct: str = "bl99") -> ThermoSolveResult:
+                        conduct: str = "bl99",
+                        calc_tsfc: bool = True,
+                        fsurfn_f=None, fcondtopn_f=None,
+                        flatn_f=None, fsensn_f=None) -> ThermoSolveResult:
     """Solve for new temperatures/enthalpies in all columns at once.
 
     Shapes: scalars/fluxes [*B]; zq*/zT*/zS* [*B, nLayers]; all float.
-    The surface temperature is solved for (calc_Tsfc; the prescribed
-    surface fluxes of calc_Tsfc=False are not ported)."""
+
+    calc_tsfc=False is the coupled prescribed-surface-flux mode
+    (reference `get_matrix_elements_know_Tsfc`,
+    ice_therm_bl99.F90:1242-1447 + the `.not. calc_Tsfc` branches of
+    `temperature_changes` :377-684): the surface temperature row drops
+    out of the tridiagonal system, the prescribed downward conductive
+    flux `fcondtopn_f` enters the top snow (or bare-ice) layer rhs
+    directly, Tsf stays at its coupler-provided value, and convergence
+    replaces the Tsf conditions (1,3,4) with the oscillating-zTin(1)
+    check (condition 2b, :618-631).  fsurfn_f/flatn_f/fsensn_f are the
+    coupler's turbulent/radiative fluxes (set_sfcflux,
+    ice_flux_colpkg.F90:174-288) and flow through unchanged."""
+    if not calc_tsfc and fcondtopn_f is None:
+        raise ValueError("calc_tsfc=False requires prescribed "
+                         "fcondtopn_f/fsurfn_f/flatn_f/fsensn_f")
     ns = zTsn.shape[-1]
     ni = zTin.shape[-1]
     dtype = Tsf.dtype
@@ -193,15 +210,24 @@ def temperature_changes(dt, rhoa, flw, potT, Qa, shcoef, lhcoef,
         etai = dt_rhoi_hlyr[..., None] / ci       # [*B, ni]
         etas = etas_base
 
-        flwoutn, fsensn, flatn, fsurfn = surface_heat_flux(
-            Tsf, fswsfc, rhoa, flw, potT, Qa, shcoef, lhcoef)
-        _, _, _, dfsurf_dT = dsurface_heat_flux_dTsf(
-            Tsf, rhoa, shcoef, lhcoef)
+        if calc_tsfc:
+            flwoutn, fsensn, flatn, fsurfn = surface_heat_flux(
+                Tsf, fswsfc, rhoa, flw, potT, Qa, shcoef, lhcoef)
+            _, _, _, dfsurf_dT = dsurface_heat_flux_dTsf(
+                Tsf, rhoa, shcoef, lhcoef)
 
-        fcondtop0 = torch.where(l_snow, kh[..., 0] * (Tsf - zTsn[..., 0]),
-                                kh[..., ns] * (Tsf - zTin[..., 0]))
-        Tsf = torch.where((Tsf >= 0.0) & (fsurfn < fcondtop0),
-                          -c.PUNY, Tsf)
+            fcondtop0 = torch.where(
+                l_snow, kh[..., 0] * (Tsf - zTsn[..., 0]),
+                kh[..., ns] * (Tsf - zTin[..., 0]))
+            Tsf = torch.where((Tsf >= 0.0) & (fsurfn < fcondtop0),
+                              -c.PUNY, Tsf)
+        else:
+            # prescribed coupler fluxes; nothing depends on Tsf
+            flwoutn = zeros
+            fsensn = fsensn_f
+            flatn = flatn_f
+            fsurfn = fsurfn_f
+            dfsurf_dT = zeros
         Tsf_start = Tsf
         l_cold = Tsf < 0.0
 
@@ -217,7 +243,7 @@ def temperature_changes(dt, rhoa, flw, potT, Qa, shcoef, lhcoef,
         tsf_sp = torch.where(l_snow, kh[..., 0], kh[..., ns])
         tsf_rhs = dfsurf_dT * Tsf - fsurfn
 
-        row0_is_tsf = l_snow & l_cold
+        row0_is_tsf = l_snow & l_cold & calc_tsfc
         D[0] = torch.where(row0_is_tsf, tsf_diag, 1.0)
         SP[0] = torch.where(row0_is_tsf, tsf_sp, 0.0)
         R[0] = torch.where(row0_is_tsf, tsf_rhs, 0.0)
@@ -228,13 +254,21 @@ def temperature_changes(dt, rhoa, flw, potT, Qa, shcoef, lhcoef,
             kh_up = kh[..., k]
             kh_dn = kh[..., k + 1]
             diag_s = 1.0 + etas * (kh_up + kh_dn)
-            if k == 0:
+            if k == 0 and calc_tsfc:
                 sb_cold = -etas * kh_up
                 rhs_cold = Tsn_init[..., 0] + etas * Sswabs[..., 0]
                 rhs_warm = Tsn_init[..., 0] + etas * kh_up * Tsf + \
                     etas * Sswabs[..., 0]
                 sb = torch.where(l_cold, sb_cold, 0.0)
                 rhs = torch.where(l_cold, rhs_cold, rhs_warm)
+            elif k == 0:
+                # know_Tsfc: the prescribed conductive flux is the top
+                # boundary condition; no coupling through kh[0]
+                # (reference get_matrix_elements_know_Tsfc :1322-1330)
+                sb = zeros
+                diag_s = 1.0 + etas * kh_dn
+                rhs = Tsn_init[..., 0] + etas * Sswabs[..., 0] + \
+                    etas * fcondtopn_f
             else:
                 sb = -etas * kh_up
                 rhs = Tsn_init[..., k] + etas * Sswabs[..., k]
@@ -244,7 +278,7 @@ def temperature_changes(dt, rhoa, flw, potT, Qa, shcoef, lhcoef,
             R[r] = torch.where(l_snow, rhs, 0.0)
 
         # row ns doubles as the Tsf equation when there is no snow
-        rowns_is_tsf = (~l_snow) & l_cold
+        rowns_is_tsf = (~l_snow) & l_cold & calc_tsfc
         SB[ns] = torch.where(rowns_is_tsf, 0.0, SB[ns])
         D[ns] = torch.where(rowns_is_tsf, tsf_diag, D[ns])
         SP[ns] = torch.where(rowns_is_tsf, tsf_sp, SP[ns])
@@ -260,11 +294,18 @@ def temperature_changes(dt, rhoa, flw, potT, Qa, shcoef, lhcoef,
             rhs = Tin_init[..., k] + et * Iswabs[..., k]
             sb = -et * kh_up
             sp = -et * kh_dn
-            if k == 0:
+            if k == 0 and calc_tsfc:
                 # bare warm ice: Tsf is known (0), enters the rhs
                 warm_bare = (~l_snow) & (~l_cold)
                 sb = torch.where(warm_bare, 0.0, sb)
                 rhs = torch.where(warm_bare, rhs + et * kh_up * Tsf, rhs)
+            elif k == 0:
+                # know_Tsfc bare ice: prescribed flux enters the top
+                # ice layer directly (reference :1360-1374)
+                bare = ~l_snow
+                sb = torch.where(bare, 0.0, sb)
+                diag_i = torch.where(bare, 1.0 + et * kh_dn, diag_i)
+                rhs = torch.where(bare, rhs + et * fcondtopn_f, rhs)
             if k == ni - 1:
                 sp = zeros
                 rhs = rhs + et * kh_dn * Tbot
@@ -277,25 +318,31 @@ def temperature_changes(dt, rhoa, flw, potT, Qa, shcoef, lhcoef,
         conv = torch.ones_like(converged)
         avg_Tsf = zeros
         avg_Tsi = zeros
-        Tsf_new = torch.where(
-            l_cold, torch.where(l_snow, Tmat[..., 0], Tmat[..., ns]), 0.0)
-        dTsf = Tsf_new - Tsf_start
+        if calc_tsfc:
+            Tsf_new = torch.where(
+                l_cold, torch.where(l_snow, Tmat[..., 0], Tmat[..., ns]),
+                0.0)
+            dTsf = Tsf_new - Tsf_start
 
-        cond1 = Tsf_new > c.PUNY
-        Tsf_new = torch.where(cond1, 0.0, Tsf_new)
-        dTsf = torch.where(cond1, -Tsf_start, dTsf)
-        avg_Tsi = torch.where(cond1, 1.0, avg_Tsi)
-        conv = conv & ~cond1
+            cond1 = Tsf_new > c.PUNY
+            Tsf_new = torch.where(cond1, 0.0, Tsf_new)
+            dTsf = torch.where(cond1, -Tsf_start, dTsf)
+            avg_Tsi = torch.where(cond1, 1.0, avg_Tsi)
+            conv = conv & ~cond1
 
-        cond2 = ((niter > 1) & (Tsf_start <= -c.PUNY) &
-                 (dTsf.abs() > c.PUNY) & (dTsf_prev.abs() > c.PUNY) &
-                 (-dTsf / (dTsf_prev + c.PUNY * c.PUNY) > 0.5))
-        avg_Tsf = torch.where(cond2, 1.0, avg_Tsf)
-        avg_Tsi = torch.where(cond2, 1.0, avg_Tsi)
-        dTsf = torch.where(cond2, 0.5 * dTsf, dTsf)
-        conv = conv & ~cond2
+            cond2 = ((niter > 1) & (Tsf_start <= -c.PUNY) &
+                     (dTsf.abs() > c.PUNY) & (dTsf_prev.abs() > c.PUNY) &
+                     (-dTsf / (dTsf_prev + c.PUNY * c.PUNY) > 0.5))
+            avg_Tsf = torch.where(cond2, 1.0, avg_Tsf)
+            avg_Tsi = torch.where(cond2, 1.0, avg_Tsi)
+            dTsf = torch.where(cond2, 0.5 * dTsf, dTsf)
+            conv = conv & ~cond2
 
-        Tsf_new = Tsf_new + avg_Tsf * 0.5 * (Tsf_start - Tsf_new)
+            Tsf_new = Tsf_new + avg_Tsf * 0.5 * (Tsf_start - Tsf_new)
+        else:
+            # Tsf is the coupler's; it never moves
+            Tsf_new = Tsf
+            dTsf = zeros
 
         # snow temps / enthalpies
         zTsn_new = torch.where(l_snow[..., None], Tmat[..., 1:ns + 1], 0.0)
@@ -314,21 +361,35 @@ def temperature_changes(dt, rhoa, flw, potT, Qa, shcoef, lhcoef,
             c.RHOI * dTmat * (c.CP_ICE - c.LFRESH * Tmlts /
                               zTin_m.clamp(max=-c.PUNY) ** 2), 0.0)
         zTin_new = torch.where(over, Tmlts, zTin_m)
+        if not calc_tsfc:
+            # condition 2b (reference :618-631): oscillating zTin(1);
+            # the dTsf_prev carry slot holds dTi1_prev in this mode
+            dTi1 = zTin_new[..., 0] - Tin_start_i[..., 0]
+            cond2b = ((niter > 1) & (dTi1.abs() > c.PUNY) &
+                      (dTsf_prev.abs() > c.PUNY) &
+                      (-dTi1 / (dTsf_prev + c.PUNY * c.PUNY) > 0.5))
+            avg_Tsi = torch.where(cond2b, 1.0, avg_Tsi)
+            dTi1 = torch.where(cond2b, 0.5 * dTi1, dTi1)
+            conv = conv & ~cond2b
+            dTsf = dTi1    # carried as dTsf_prev for the next iterate
         zTin_new = zTin_new + avg_Tsi[..., None] * 0.5 * \
             (Tin_start_i - zTin_new)
         zqin_new = ice_enthalpy_from_temperature(zTin_new, Tmlts)
         enew = enew + (hilyr[..., None] * zqin_new).sum(-1)
         einex = (hilyr[..., None] * dqmat).sum(-1)
 
-        cond3 = dTsf.abs() > TSF_ERRMAX
-        conv = conv & ~cond3
+        if calc_tsfc:
+            cond3 = dTsf.abs() > TSF_ERRMAX
+            conv = conv & ~cond3
 
-        fsurfn = fsurfn + dTsf * dfsurf_dT
-        fcondtopn = torch.where(
-            l_snow, kh[..., 0] * (Tsf_new - zTsn_new[..., 0]),
-            kh[..., ns] * (Tsf_new - zTin_new[..., 0]))
-        cond4 = (Tsf_new >= 0.0) & (fsurfn < fcondtopn)
-        conv = conv & ~cond4
+            fsurfn = fsurfn + dTsf * dfsurf_dT
+            fcondtopn = torch.where(
+                l_snow, kh[..., 0] * (Tsf_new - zTsn_new[..., 0]),
+                kh[..., ns] * (Tsf_new - zTin_new[..., 0]))
+            cond4 = (Tsf_new >= 0.0) & (fsurfn < fcondtopn)
+            conv = conv & ~cond4
+        else:
+            fcondtopn = fcondtopn_f
 
         fcondbot = kh[..., ns + ni] * (zTin_new[..., ni - 1] - Tbot) + \
             einex / dt

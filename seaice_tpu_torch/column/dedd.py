@@ -18,9 +18,10 @@ The snow-grain tables are gathered by tensor index, so they live on the
 state's device in its dtype: `dedd_optics(dtype, device)` makes them
 once (`ColumnPhysics` does so at construction) and `shortwave_dedd`
 takes the result; every other table entry enters as a Python scalar.
-Not ported (`ColumnPhysics` raises for them, ROADMAP Queue 1 item 10):
-aerosol mixing (bulk and modal), the snow grain-radius tracer and
-SNICAR.
+The snow grain radius is the snow grain-radius tracer where the column
+carries it, else the reference's parametric radius.  Not ported
+(`ColumnPhysics` raises for them, ROADMAP Queue 1 item 10): aerosol
+mixing (bulk and modal) and SNICAR.
 """
 
 from __future__ import annotations
@@ -287,7 +288,7 @@ def _tune_iops(k_mn, w_mn, R, fp, fm):
 def shortwave_dedd(aicen, vicen, vsnon, Tsfcn, coszen,
                    swvdr, swvdf, swidr, swidf,
                    n_ice_layers: int, n_snow_layers: int = 1,
-                   apnd=None, hpnd=None,
+                   apnd=None, hpnd=None, rsnw=None,
                    R_ice: float = 0.0, R_pnd: float = 0.0,
                    R_snw: float = 1.5, dT_mlt: float = 1.5,
                    rsnw_mlt: float = 1500.0, hs0: float = 0.0,
@@ -313,9 +314,11 @@ def shortwave_dedd(aicen, vicen, vsnon, Tsfcn, coszen,
     and pond depth; enables the ponded surface type (srftyp==2) with
     pond-water layers above ponded-ice IOPs and a Fresnel layer at the
     pond surface (kfrsnl=0), with the hpmin<=hp<=hp0 transition
-    blending (:2873-2900).  The snow grain radius is the reference's
-    Tsfc-dependent parametric radius (set_snow :3693-3711) with tuning
-    R_snw.  optics: from `dedd_optics` (made here when None).
+    blending (:2873-2900).
+    rsnw: per-snow-layer grain radius tracer [*B, nCat, ns]; default
+    is the reference's Tsfc-dependent parametric radius (set_snow
+    :3693-3711) with tuning R_snw.
+    optics: from `dedd_optics` (made here when None).
     """
     from .shortwave import ShortwaveResult
 
@@ -346,12 +349,17 @@ def shortwave_dedd(aicen, vicen, vsnon, Tsfcn, coszen,
     fi = (1.0 - fs - fp).clamp(min=0.0)
 
     # snow grain radius per optical snow row (SSL + body use the top
-    # layer's radius; deeper rows their own): the parametric radius
-    dTs = c.TIMELT - Tsfcn
-    fT = -(dTs / dT_mlt - 1.0).clamp(max=0.0)
-    rsnw_nm = float(np.clip(500.0 - R_snw * 250.0, 100.0, rsnw_mlt))
-    r_par = (rsnw_nm + (rsnw_mlt - rsnw_nm) * fT).clamp(100.0, rsnw_mlt)
-    r_rows = [r_par] * (ns_l + 1)
+    # layer's radius; deeper rows their own)
+    if rsnw is not None:
+        r_rows = [rsnw[..., 0].clamp(54.526, 1500.0)] * 2 + \
+            [rsnw[..., k].clamp(54.526, 1500.0) for k in range(1, ns_l)]
+    else:
+        dTs = c.TIMELT - Tsfcn
+        fT = -(dTs / dT_mlt - 1.0).clamp(max=0.0)
+        rsnw_nm = float(np.clip(500.0 - R_snw * 250.0, 100.0, rsnw_mlt))
+        r_par = (rsnw_nm + (rsnw_mlt - rsnw_nm) * fT).clamp(100.0,
+                                                            rsnw_mlt)
+        r_rows = [r_par] * (ns_l + 1)
 
     # band weights (reference :2252-2255)
     fnidr = swidr / (swidr + swidf).clamp(min=c.PUNY)

@@ -10,14 +10,17 @@ colpkg routines, each phase is one vectorized pass over
 [nCells, nCategories] columns.
 
 Scheme selectors mirror `ice_colpkg_shared.F90:20-150`.  The port runs
-BL99 and mushy thermodynamics (`ktherm` 1, 2), the CCSM3 and
-delta-Eddington shortwave, Hibler and Rothrock strength, level-ice
-ponds and ITD thermodynamics + ridging; every other option raises
+zero-layer, BL99 and mushy thermodynamics (`ktherm` 0, 1, 2), the
+prescribed surface fluxes of calc_Tsfc=False (with ktherm 0 or 1), the
+CCSM3 and delta-Eddington shortwave (with the snow grain-radius
+tracer), Hibler and Rothrock strength, level-ice ponds, ice age,
+first-year ice, the snow tracers with their physics and the three snow
+redistribution schemes, form drag, high-frequency coupling and ITD
+thermodynamics + ridging; every other option raises
 `NotImplementedError` naming ROADMAP Queue 1 item 10 when the
-`ColumnPhysics` is built: ktherm=0, calc_Tsfc=False, the CESM and
-topographic ponds, ice age, first-year ice, snow tracers and snow
-redistribution, aerosols (bulk, modal, z-layer), SNICAR, form drag,
-high-frequency coupling, brine height, z-salinity and biogeochemistry.
+`ColumnPhysics` is built: the CESM and topographic ponds, snow-liquid
+ponds, aerosols (bulk, modal, z-layer), SNICAR, brine height,
+z-salinity and biogeochemistry.
 
 Deviation from the reference phasing (as in the JAX package): shortwave
 radiation is computed at the START of therm1 from the current forcing;
@@ -36,7 +39,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from . import constants as c
-from .atmo import atmo_boundary_layer, atmo_constant_coefficients
+from .atmo import (atmo_boundary_layer, atmo_constant_coefficients,
+                   neutral_drag_coeffs)
 from .itd import (category_boundaries, cleanup_small_ice,
                   ice_strength_hibler, ice_strength_rothrock,
                   linear_itd_remap)
@@ -44,7 +48,10 @@ from .itd_thermo import add_new_ice, lateral_melt
 from .ponds import increment_age
 from .ridging import ridge_bounds, ridge_ice
 from .shortwave import ShortwaveResult, shortwave_ccsm3
-from .thermo_shared import salinity_profile
+from .snow import (drain_snow, snow_effective_density,
+                   snow_redistribution, update_snow_radius,
+                   wind_compaction, wind_snow_loss)
+from .thermo_shared import ice_temperature_from_enthalpy, salinity_profile
 from .vertical import (frzmlt_bottom_lateral, thermo_vertical,
                        thermo_vertical_noop)
 from ..utils.containers import tensor_dataclass
@@ -105,8 +112,8 @@ class ColumnFluxes:
     albedo_ir_dif: Any
     fpond: Any                 # freshwater into melt ponds (kg/m^2/s)
     faero_ocn: Any             # aerosol flux to ocean (not ported: None)
-    Cdn_atm: Any               # neutral atm drag (form drag; None)
-    Cdn_ocn: Any               # neutral ocn drag (form drag; None)
+    Cdn_atm: Any               # neutral atm drag (form drag) or None
+    Cdn_ocn: Any               # neutral ocn drag (form drag) or None
     bgc: Any                   # BGC diagnostics (not ported: None)
     # per-cell warning masks (True = problem), the column warning
     # buffer analog (reference ice_warnings.F90 + the per-cell abort
@@ -229,16 +236,18 @@ class ColumnPhysics:
                          else use_level_ice)
         if pond_scheme == "lvl" and not use_level_ice:
             raise ValueError("level-ice ponds require level ice tracers")
+        if use_snow_liquid_ponds and not use_snow_tracers:
+            raise ValueError(
+                "config_use_snow_liquid_ponds requires the snow "
+                "mass/liquid tracers (config_use_effective_snow_"
+                "density; reference config check, "
+                "mpas_seaice_column.F:1915-1925)")
         _not_ported(
-            ktherm_0=ktherm == 0, calc_tsfc_false=not calc_tsfc,
             pond_scheme_cesm=pond_scheme == "cesm",
             pond_scheme_topo=pond_scheme == "topo",
-            use_snow_tracers=use_snow_tracers,
-            snwredist=snwredist != "none",
             n_aerosols=n_aerosols > 0,
             use_modal_aerosols=use_modal_aerosols,
-            use_snicar=use_snicar, use_form_drag=use_form_drag,
-            highfreq=highfreq, use_brine_height=use_brine_height,
+            use_snicar=use_snicar, use_brine_height=use_brine_height,
             use_biogeochemistry=use_biogeochemistry,
             use_skeletal_bgc=use_skeletal_bgc,
             solve_zsalinity=solve_zsalinity,
@@ -251,6 +260,11 @@ class ColumnPhysics:
         self.device = resolve_device(device)
         self.use_ice_age = use_ice_age
         self.use_first_year_ice = use_first_year_ice
+        self.use_snow_tracers = use_snow_tracers
+        self.snwredist = snwredist
+        self.use_form_drag = use_form_drag
+        self.highfreq = highfreq
+        self.calc_tsfc = calc_tsfc
         self.hin_max = category_boundaries(n_categories, kcatbound, kitd)
         # the bounds as Python floats (scalars never promote a tensor)
         self.hin_max_f = [float(h) for h in self.hin_max]
@@ -340,6 +354,8 @@ class ColumnPhysics:
                         fpond = torch.where(ipnd > 1e-11,
                                             (1.0 - asnow) * fpond, fpond)
                     kwargs = dict(apnd=fpond, hpnd=hpnd)
+            if self.use_snow_tracers and "snowGrainRadius" in tracers:
+                kwargs["rsnw"] = tracers["snowGrainRadius"]
             for k in ("R_ice", "R_pnd", "R_snw", "dT_mlt", "rsnw_mlt"):
                 if k in tune:
                     kwargs[k] = tune[k]
@@ -360,14 +376,26 @@ class ColumnPhysics:
     def step_thermodynamics(self, dt, tracers: Dict[str, Any],
                             atm: AtmosForcing, ocn: OceanForcing,
                             strocnx=None, strocny=None, coszen=None,
-                            day_of_year=None, lat=None):
+                            uvel=None, vvel=None, day_of_year=None,
+                            lat=None, sfc_fluxes=None):
         """Vertical + ITD thermodynamics for one coupling step.
 
         coszen: cosine solar zenith (cell field) for the dEdd shortwave
-        (compute with column.orbital.compute_coszen).  day_of_year (a
-        number or a 0-d tensor) and lat (cell latitudes, radians): the
-        first-year-ice reset, skipped without either.  Returns (new
+        (compute with column.orbital.compute_coszen).  uvel/vvel: cell
+        ice velocity (highfreq coupling).  day_of_year (a number or a
+        0-d tensor) and lat (cell latitudes, radians): the first-year-ice
+        reset, skipped without either.  sfc_fluxes: calc_Tsfc=False
+        prescribed surface fluxes from the atmosphere model: dict with
+        'fsurf', 'fcondtop', 'flat', 'fsens' [*B, nCat] (Registry
+        surfaceHeatFluxCouple / surfaceConductiveFluxCouple /
+        latentHeatFluxCouple / sensibleHeatFluxCouple).  Returns (new
         tracers, ColumnFluxes)."""
+        if not self.calc_tsfc and sfc_fluxes is None:
+            raise ValueError(
+                "calc_tsfc=False requires sfc_fluxes (the coupler's "
+                "per-category surface flux fields)")
+        if self.calc_tsfc:
+            sfc_fluxes = None
         aicen, vicen, vsnon, at, it_, st = _split_tracers(tracers)
         tsfc = at["surfaceTemperature"]
         qin = it_["iceEnthalpy"]
@@ -380,6 +408,13 @@ class ColumnPhysics:
             return x[..., None] * torch.ones_like(aicen)
 
         wind = torch.sqrt(atm.u_air ** 2 + atm.v_air ** 2)
+        # bulk '30percent' wind redistribution: a wind-dependent
+        # fraction of snowfall blows into leads before accumulating
+        # (reference snow_redist bulk branch); the loss is booked as
+        # freshwater to the ocean via the retained-rate difference
+        snow_rate_eff = atm.snow_rate
+        if self.snwredist == "bulk":
+            snow_rate_eff, _ = wind_snow_loss(wind, atm.snow_rate)
 
         # shortwave partition (reference column_prep/step_radiation)
         if self.shortwave == "dEdd" and coszen is None:
@@ -394,6 +429,18 @@ class ColumnPhysics:
             # absorbed/transmitted shortwave anywhere
             sw = ShortwaveResult(*[torch.zeros_like(x) for x in sw])
 
+        # form drag from the pack geometry (reference :2102, Tsamados)
+        Cdn_atm = Cdn_ocn = None
+        if self.use_form_drag:
+            fd = neutral_drag_coeffs(
+                at.get("pondArea", torch.zeros_like(aicen)),
+                at.get("pondDepth", torch.zeros_like(aicen)),
+                at.get("levelIceArea", torch.ones_like(aicen)),
+                aicen, vicen, vsnon,
+                vlvl=it_.get("levelIceVolume"),
+                use_ponds=self.pond_scheme != "none")
+            Cdn_atm, Cdn_ocn = fd.Cdn_atm, fd.Cdn_ocn
+
         # atmosphere boundary layer per category (reference :2150);
         # atmbndy='constant' selects the fixed-coefficient scheme
         # (atmo_boundary_const, ice_atmo.F90:382)
@@ -407,7 +454,10 @@ class ColumnPhysics:
                 tsfc, pc(atm.air_temperature), pc(atm.u_air),
                 pc(atm.v_air), pc(wind), pc(atm.air_level_height),
                 pc(atm.specific_humidity), pc(atm.air_density),
-                natmiter=self.natmiter)
+                natmiter=self.natmiter, highfreq=self.highfreq,
+                uvel=pc(uvel) if uvel is not None else None,
+                vvel=pc(vvel) if vvel is not None else None,
+                Cdn_atm=pc(Cdn_atm) if Cdn_atm is not None else None)
 
         # age / first-year tracers (reference :2186-2189)
         if self.use_ice_age and "iceAge" in at:
@@ -452,6 +502,10 @@ class ColumnPhysics:
             if self.pond_scheme == "lvl" and "levelIceArea" in at:
                 apond_cat = apnd * at["levelIceArea"]
 
+        smice = st.get("snowIceMass")
+        smliq = st.get("snowLiquidMass")
+        rsnw = st.get("snowGrainRadius")
+
         # vertical thermodynamics (therm1) with ktherm dispatch
         if self.use_vertical_thermodynamics:
             tv = thermo_vertical(
@@ -460,14 +514,17 @@ class ColumnPhysics:
                 flw=pc(atm.longwave_down),
                 potT=pc(atm.air_temperature),
                 Qa=pc(atm.specific_humidity), rhoa=pc(atm.air_density),
-                fsnow=pc(atm.snow_rate), fbot=fbot,
+                fsnow=pc(snow_rate_eff), fbot=fbot,
                 Tbot=pc(Tbot),
                 fswsfc=sw.fswsfc, fswint=sw.fswint,
                 Sswabs=sw.Sswabs, Iswabs=sw.Iswabs,
                 shcoef=ab.shcoef, lhcoef=ab.lhcoef,
                 ktherm=ktherm,
                 sss=pc(ocn.sss) if ktherm == 2 else None,
-                apond=apond_cat, hpond=hpnd, tun=self.tun)
+                frain=pc(atm.rain_rate),
+                apond=apond_cat, hpond=hpnd, tun=self.tun,
+                smice=smice, smliq=smliq, rsnw=rsnw,
+                prescribed_sfc_fluxes=sfc_fluxes)
         else:
             # package off: therm1 skipped, state passes through
             tv = thermo_vertical_noop(aicen, vicen, vsnon, tsfc,
@@ -483,8 +540,21 @@ class ColumnPhysics:
         it2["iceSalinity"] = tv.zSin if ktherm == 2 else sin
         st2 = dict(st)
         st2["snowEnthalpy"] = tv.zqsn
+        if tv.smice is not None:
+            st2["snowIceMass"] = tv.smice
+            st2["snowLiquidMass"] = tv.smliq
+        if tv.rsnw is not None:
+            st2["snowGrainRadius"] = tv.rsnw
         if tv.hpond is not None and hpnd is not None:
             at2["pondDepth"] = tv.hpond
+
+        # snow meltwater drainage (reference drain_snow :2279); the
+        # drained liquid feeds only the snow-liquid ponds, which the
+        # port leaves out
+        if self.use_snow_tracers and "snowLiquidMass" in st2:
+            st2["snowLiquidMass"], _ = drain_snow(
+                dt, vsnon2, aicen2, st2["snowIceMass"],
+                st2["snowLiquidMass"])
 
         # melt ponds (reference :2292-2352, per-category part): the
         # level-ice scheme, the one pond scheme the port runs
@@ -518,6 +588,9 @@ class ColumnPhysics:
         evap = agg(tv.evapn)
         fhocn = agg(tv.fhocnn)
         fresh = tv.freshn.sum(-1)
+        if self.snwredist == "bulk":
+            # blown snow lands in leads -> ocean freshwater
+            fresh = fresh + (atm.snow_rate - snow_rate_eff)
         fsalt = tv.fsaltn.sum(-1)
 
         # therm2 (frazil + lateral melt + ITD remap), gated by the
@@ -575,8 +648,8 @@ class ColumnPhysics:
             meltl=meltl_diag,
             albedo_vis_dir=agg(sw.alvdr), albedo_ir_dir=agg(sw.alidr),
             albedo_vis_dif=agg(sw.alvdf), albedo_ir_dif=agg(sw.alidf),
-            fpond=fpond / dt, faero_ocn=None, Cdn_atm=None, Cdn_ocn=None,
-            bgc=None,
+            fpond=fpond / dt, faero_ocn=None, Cdn_atm=Cdn_atm,
+            Cdn_ocn=Cdn_ocn, bgc=None,
             # non-convergence only aborts for columns that carry flux
             # weight IN f32: a category at the puny edge
             # (aicen ~1e-11..1e-8) contributes ~nothing area-weighted
@@ -632,9 +705,45 @@ class ColumnPhysics:
 
     def step_snow(self, dt, tracers: Dict[str, Any], wind, snow_rate):
         """Advanced snow physics (reference colpkg_step_snow,
-        ice_colpkg.F90:3821): a no-op without the snow tracers, which
-        the port does not run (`__init__` raises for them)."""
-        return tracers, {}
+        ice_colpkg.F90:3821): effective density, wind loss of new
+        snowfall to leads, grain metamorphism, and the redistribution
+        scheme.  No-op unless snow tracers are enabled."""
+        if not self.use_snow_tracers or "snowGrainRadius" not in tracers:
+            return tracers, {}
+        aicen = tracers["iceAreaCategory"]
+        vicen = tracers["iceVolumeCategory"]
+        zTin1 = ice_temperature_from_enthalpy(
+            tracers["iceEnthalpy"][..., 0],
+            -tracers["iceSalinity"][..., 0] * c.DEPRESST)
+        rsnw_n, smice_n, smliq_n = update_snow_radius(
+            dt, tracers["snowGrainRadius"], aicen, vicen,
+            tracers["snowVolumeCategory"], tracers["snowEnthalpy"],
+            tracers["surfaceTemperature"], zTin1, tracers["snowIceMass"],
+            tracers["snowLiquidMass"], tun=self.tun)
+        out = dict(tracers)
+        out["snowGrainRadius"] = rsnw_n
+        out["snowIceMass"] = smice_n
+        out["snowLiquidMass"] = smliq_n
+        rhos_eff = snow_effective_density(smice_n, smliq_n)
+        rhos_cmp = wind_compaction(
+            dt, wind[..., None, None] * torch.ones_like(rhos_eff),
+            rhos_eff, tun=self.tun)
+        _, fsloss = wind_snow_loss(wind, snow_rate, tun=self.tun)
+        diags = {"rhos_eff": rhos_eff.mean(-1),
+                 "rhos_cmp": rhos_cmp.mean(-1), "fsloss": fsloss}
+        if self.snwredist != "none":
+            rd = snow_redistribution(
+                dt, wind, snow_rate, aicen, vicen,
+                out["snowVolumeCategory"], out["snowEnthalpy"], rhos_cmp,
+                scheme=self.snwredist, alvl=out.get("levelIceArea"),
+                vlvl=out.get("levelIceVolume"), tun=self.tun)
+            out["snowVolumeCategory"] = rd.vsnon
+            out["snowEnthalpy"] = rd.zqsn
+            diags["rhos_cmp"] = rd.rhos_cmpn.mean(-1)
+            diags["fsloss"] = diags["fsloss"] + rd.fsloss
+            diags["redist_fresh"] = rd.fresh
+            diags["redist_fhocn"] = rd.fhocn
+        return out, diags
 
     def aggregate(self, tracers: Dict[str, Any]) -> Dict[str, Any]:
         """Cell-mean state for the coupler/diagnostics (reference

@@ -9,16 +9,20 @@ static layer count, fully vectorized over the [nCells, nCategories]
 batch.  The temperature solver is dispatched on `ktherm` as the
 reference does (`ice_therm_vertical.F90:286-335`):
 
+  * ktherm=0 — Semtner zero-layer (`ice_therm_0layer.F90`),
   * ktherm=1 — BL99 heat solve (`ice_therm_bl99.F90`),
   * ktherm=2 — mushy-layer Picard solve with gravity drainage, pond
     flushing and snow-ice flooding (`ice_therm_mushy.F90`:
     temperature_changes_salinity :35-341, flush_pond :3302,
     flood_ice :3342).
 
-Not ported (ROADMAP Queue 1 item 10): ktherm=0 (the Semtner zero-layer
-solver; raises here), the prescribed-surface-flux mode (calc_Tsfc=False)
-and the snow mass / grain-radius tracers (smice/smliq/rsnw), for which
-`ColumnPhysics` raises.
+With prescribed surface fluxes (calc_Tsfc=False, ktherm 0 or 1) the
+coupler's fluxes replace the surface balance.  `thickness_changes`
+carries the reference's ktherm==2 branches (melt enthalpies relative to
+enthalpy_of_melting, mushy bottom-growth enthalpy/salinity, internal
+snow melt, no freeboard — flooding happens in flood_ice) and the
+optional snow mass tracers smice/smliq + grain radius rsnw (tr_snow /
+tr_rsnw paths of the reference).
 """
 
 from __future__ import annotations
@@ -32,9 +36,9 @@ from .bl99 import temperature_changes
 from .thermo_shared import (ice_temperature_from_enthalpy,
                             snow_enthalpy_from_temperature,
                             snow_temperature_from_enthalpy)
+from .zerolayer import ZeroLayerResult, zerolayer_temperature
 
 QBOTMAX = -0.5 * c.RHOI * c.LFRESH
-_LATER = "ROADMAP Queue 1 item 10"
 
 
 def frzmlt_bottom_lateral(dt, aice, frzmlt, sst, Tf, strocnxT, strocnyT,
@@ -118,15 +122,30 @@ class ThicknessResult(NamedTuple):
     hsn_new: torch.Tensor
     dsnow: torch.Tensor
     meltsliq: torch.Tensor       # liquid leaving the snowpack (kg/m^2)
+    smice: Optional[torch.Tensor]
+    smliq: Optional[torch.Tensor]
+    rsnw: Optional[torch.Tensor]
+
+
+def _moved(dzs, mass, dhs):
+    """Mass of a snow layer of thickness dzs moved with a thickness
+    change dhs (zero for a vanished layer)."""
+    return torch.where(dzs.abs() > c.PUNY,
+                       mass / dzs.clamp(min=c.PUNY) * dhs, 0.0)
 
 
 def thickness_changes(dt, hin, hsn, zqin, zqsn, zSin,
                       fbot, Tbot, flatn, fsurfn, fcondtopn, fcondbot,
-                      fsnow, ktherm: int = 1, sss=None,
+                      fsnow, frain=None, ktherm: int = 1, sss=None,
+                      smice=None, smliq=None, rsnw=None,
                       tun=None) -> ThicknessResult:
     """Growth and melt at the surfaces + layer re-gridding (reference
     thickness_changes, ice_therm_vertical.F90:1026-1744, including the
-    ktherm==2 mushy branches)."""
+    ktherm==2 mushy branches and the tr_snow smice/smliq bookkeeping).
+
+    smice/smliq: optional snow mass tracers [*B, ns] (kg/m^3).
+    rsnw: optional snow grain radius [*B, ns] (um).
+    """
     ni = zqin.shape[-1]
     ns = zqsn.shape[-1]
     hilyr = hin / ni
@@ -134,11 +153,15 @@ def thickness_changes(dt, hin, hsn, zqin, zqsn, zSin,
     hslyr0 = hslyr
     if tun is None:
         from .tuning import DEFAULT as tun
+    tr_snow = smice is not None
     dzi = [hilyr for _ in range(ni)]
     dzs = [hslyr for _ in range(ns)]
     zqin_l = [zqin[..., k] for k in range(ni)]
     zqsn_l = [zqsn[..., k] for k in range(ns)]
     zSin_l = [zSin[..., k] for k in range(ni)]
+    if tr_snow:
+        smicetot = [dzs[k] * smice[..., k] for k in range(ns)]
+        smliqtot = [dzs[k] * smliq[..., k] for k in range(ns)]
     meltt = torch.zeros_like(hin)
     melts = torch.zeros_like(hin)
     meltb = torch.zeros_like(hin)
@@ -169,6 +192,8 @@ def thickness_changes(dt, hin, hsn, zqin, zqsn, zSin,
     dhs = torch.where(has_snow, econ / (zqsn_l[0] - c.RHOS * c.LVAP), 0.0)
     dhi = torch.where(has_snow, 0.0, econ / (qm_l[0] - c.RHOI * c.LVAP))
     emlt_atm = emlt_atm - torch.where(has_snow, 0.0, qmlt_l[0] * dhi)
+    if tr_snow:
+        smicetot[0] = smicetot[0] + dhs * c.RHOS
     dzs[0] = dzs[0] + dhs
     dzi[0] = dzi[0] + dhi
     evapn = dhs * c.RHOS + dhi * c.RHOI
@@ -213,6 +238,10 @@ def thickness_changes(dt, hin, hsn, zqin, zqsn, zSin,
                 torch.maximum(-dzs[k],
                               -((zqsn_l[k] + c.RHOS * c.LFRESH) /
                                 (c.RHOS * c.LFRESH)) * dzs[k]), 0.0)
+            if tr_snow:
+                moved = _moved(dzs[k], smicetot[k], dhs)
+                smicetot[k] = (smicetot[k] + moved).clamp(min=0.0)
+                smliqtot[k] = (smliqtot[k] - moved).clamp(min=0.0)
             dzs[k] = dzs[k] + dhs
             zqsn_l[k] = torch.where(warm, -c.RHOS * c.LFRESH, zqsn_l[k])
             melts = melts - dhs
@@ -221,11 +250,18 @@ def thickness_changes(dt, hin, hsn, zqin, zqsn, zSin,
     for k in range(ns):
         qsub = zqsn_l[k] - c.RHOS * c.LVAP
         dhs = torch.maximum(-dzs[k], esub / qsub)
+        if tr_snow:
+            smicetot[k] = (smicetot[k] +
+                           _moved(dzs[k], smicetot[k], dhs)).clamp(min=0.0)
         dzs[k] = dzs[k] + dhs
         esub = (esub - dhs * qsub).clamp(min=0.0)
         evapn = evapn + dhs * c.RHOS
         dhs = torch.maximum(-dzs[k],
                             etop_mlt / zqsn_l[k].clamp(max=-c.PUNY))
+        if tr_snow:
+            moved = _moved(dzs[k], smicetot[k], dhs)
+            smicetot[k] = (smicetot[k] + moved).clamp(min=0.0)
+            smliqtot[k] = (smliqtot[k] - moved).clamp(min=0.0)
         dzs[k] = dzs[k] + dhs
         etop_mlt = (etop_mlt - dhs * zqsn_l[k]).clamp(min=0.0)
         melts = melts - dhs
@@ -266,6 +302,10 @@ def thickness_changes(dt, hin, hsn, zqin, zqsn, zSin,
     for k in range(ns - 1, -1, -1):
         dhs = torch.maximum(-dzs[k],
                             ebot_mlt / zqsn_l[k].clamp(max=-c.PUNY))
+        if tr_snow:
+            moved = _moved(dzs[k], smicetot[k], dhs)
+            smicetot[k] = (smicetot[k] + moved).clamp(min=0.0)
+            smliqtot[k] = (smliqtot[k] - moved).clamp(min=0.0)
         dzs[k] = dzs[k] + dhs
         ebot_mlt = (ebot_mlt - dhs * zqsn_l[k]).clamp(min=0.0)
         melts = melts - dhs
@@ -281,6 +321,19 @@ def thickness_changes(dt, hin, hsn, zqin, zqsn, zSin,
         ((dzs[0] * zqsn_l[0] + hsn_new * zq_new) /
          hstot_s.clamp(min=c.PUNY)).clamp(max=-c.RHOS * c.LFRESH),
         zqsn_l[0])
+    if rsnw is not None:
+        # incorporate fresh snow in the top-layer grain radius
+        # (reference add_new_snow_radius)
+        rsnw_l = [rsnw[..., k] for k in range(ns)]
+        rsnw_l[0] = torch.where(
+            hstot_s > c.PUNY,
+            (dzs[0] * rsnw_l[0] + hsn_new * tun.fallen_snow_radius) /
+            hstot_s.clamp(min=c.PUNY), rsnw_l[0])
+    if tr_snow:
+        smicetot[0] = smicetot[0] + hsn_new * c.RHOS
+        # rain adds to the top-layer liquid tracer (:1542)
+        if frain is not None:
+            smliqtot[0] = smliqtot[0] + frain * dt
     dzs[0] = torch.where(hstot_s > 0.0, hstot_s, dzs[0])
 
     hin = sum(dzi)
@@ -301,6 +354,13 @@ def thickness_changes(dt, hin, hsn, zqin, zqsn, zSin,
         act = dhin > c.PUNY
         for k in range(ns - 1, -1, -1):
             dhs = torch.where(act, torch.minimum(dhsn, dzs[k]), 0.0)
+            if tr_snow:
+                fracgone = torch.where(dzs[k].abs() > c.PUNY,
+                                       dhs / dzs[k].clamp(min=c.PUNY), 0.0)
+                smicetot[k] = (smicetot[k] * (1.0 - fracgone)).clamp(
+                    min=0.0)
+                smliqtot[k] = (smliqtot[k] * (1.0 - fracgone)).clamp(
+                    min=0.0)
             hsn = hsn - dhs
             dsnow = dsnow - dhs
             dzs[k] = dzs[k] - dhs
@@ -314,7 +374,18 @@ def thickness_changes(dt, hin, hsn, zqin, zqsn, zSin,
         dzi[0] = torch.where(act, wk1, dzi[0])
         snoice = torch.where(act, dhin, 0.0)
 
+    # snow mass tracers back to densities; collect liquid of vanished
+    # layers as meltsliq (reference :1585-1600)
     meltsliq = torch.zeros_like(hin)
+    if tr_snow:
+        smice_l, smliq_l = [], []
+        for k in range(ns):
+            gone = dzs[k] <= c.PUNY
+            meltsliq = meltsliq + torch.where(gone, smliqtot[k], 0.0)
+            smice_l.append(torch.where(
+                gone, 0.0, smicetot[k] / dzs[k].clamp(min=c.PUNY)))
+            smliq_l.append(torch.where(
+                gone, 0.0, smliqtot[k] / dzs[k].clamp(min=c.PUNY)))
 
     # re-grid to equal layers (:1620-1700)
     hin = hin.clamp(min=0.0)
@@ -326,11 +397,29 @@ def thickness_changes(dt, hin, hsn, zqin, zqsn, zSin,
     zqin_a = torch.stack(zqin_l, -1)
     zqsn_a = torch.stack(zqsn_l, -1)
     zSin_a = torch.stack(zSin_l, -1)
-    zqin_a = adjust_enthalpy(dzi_a, hilyr, hin, zqin_a)
-    if ktherm == 2:
-        zSin_a = adjust_enthalpy(dzi_a, hilyr, hin, zSin_a)
-    if ns > 1:
-        zqsn_a = adjust_enthalpy(dzs_a, hslyr, hsn, zqsn_a)
+    if ktherm == 0:
+        # zero-heat-capacity ice: enthalpies pinned at the fresh values
+        # (reference :1652-1656)
+        zqin_a = torch.full_like(zqin_a, -c.RHOI * c.LFRESH)
+        zqsn_a = torch.full_like(zqsn_a, -c.RHOS * c.LFRESH)
+    else:
+        zqin_a = adjust_enthalpy(dzi_a, hilyr, hin, zqin_a)
+        if ktherm == 2:
+            zSin_a = adjust_enthalpy(dzi_a, hilyr, hin, zSin_a)
+        if ns > 1:
+            zqsn_a = adjust_enthalpy(dzs_a, hslyr, hsn, zqsn_a)
+    smice_out = smliq_out = rsnw_out = None
+    regrid_snow = ns > 1 and ktherm != 0
+    if rsnw is not None:
+        rsnw_out = torch.stack(rsnw_l, -1)
+        if regrid_snow:
+            rsnw_out = adjust_enthalpy(dzs_a, hslyr, hsn, rsnw_out)
+    if tr_snow:
+        smice_out = torch.stack(smice_l, -1)
+        smliq_out = torch.stack(smliq_l, -1)
+        if regrid_snow:
+            smice_out = adjust_enthalpy(dzs_a, hslyr, hsn, smice_out)
+            smliq_out = adjust_enthalpy(dzs_a, hslyr, hsn, smliq_out)
 
     # remove very thin snow (ktherm=2; :1700-1720)
     if ktherm == 2:
@@ -338,6 +427,11 @@ def thickness_changes(dt, hin, hsn, zqin, zqsn, zSin,
         fhocnn = fhocnn + torch.where(
             thin, zqsn_a.sum(-1) * hsn / (ns * dt), 0.0)
         zqsn_a = torch.where(thin[..., None], -c.RHOS * c.LFRESH, zqsn_a)
+        if tr_snow:
+            # the reference books the ice mass of the removed snow here
+            meltsliq = meltsliq + torch.where(thin, sum(smicetot), 0.0)
+            smice_out = torch.where(thin[..., None], 0.0, smice_out)
+            smliq_out = torch.where(thin[..., None], 0.0, smliq_out)
         hslyr = torch.where(thin, 0.0, hslyr)
         hsn = torch.where(thin, 0.0, hsn)
 
@@ -354,7 +448,8 @@ def thickness_changes(dt, hin, hsn, zqin, zqsn, zSin,
         hin=hin, hsn=hsn, zqin=zqin_a, zqsn=zqsn_a, zSin=zSin_a,
         efinal=efinal, fhocnn=fhocnn, evapn=evapn, meltt=meltt,
         melts=melts, meltb=meltb, congel=congel, snoice=snoice,
-        hsn_new=hsn_new, dsnow=dsnow, meltsliq=meltsliq)
+        hsn_new=hsn_new, dsnow=dsnow, meltsliq=meltsliq,
+        smice=smice_out, smliq=smliq_out, rsnw=rsnw_out)
 
 
 class ThermoVerticalResult(NamedTuple):
@@ -383,6 +478,9 @@ class ThermoVerticalResult(NamedTuple):
     hsn_new: torch.Tensor             # new snowfall depth this step (m)
     meltsliq: torch.Tensor
     hpond: Optional[torch.Tensor]     # updated pond depth (mushy flushing)
+    smice: Optional[torch.Tensor] = None
+    smliq: Optional[torch.Tensor] = None
+    rsnw: Optional[torch.Tensor] = None
     iterations: int = 0               # the heat solver's iterations
 
 
@@ -405,8 +503,9 @@ def thermo_vertical(dt, aicen, vicen, vsnon, Tsf, zqin, zqsn, zSin,
                     flw, potT, Qa, rhoa, fsnow,
                     fbot, Tbot, fswsfc, fswint, Sswabs, Iswabs,
                     shcoef, lhcoef, *, ktherm: int = 1, sss=None,
-                    apond=None, hpond=None,
-                    tun=None) -> ThermoVerticalResult:
+                    frain=None, apond=None, hpond=None,
+                    smice=None, smliq=None, rsnw=None, tun=None,
+                    prescribed_sfc_fluxes=None) -> ThermoVerticalResult:
     """Per-category vertical thermodynamics driver (reference
     thermo_vertical, ice_therm_vertical.F90:53-471) with the ktherm
     dispatch of the reference (:286-335).
@@ -417,15 +516,28 @@ def thermo_vertical(dt, aicen, vicen, vsnon, Tsf, zqin, zqsn, zSin,
 
     ktherm=2 extras: sss (required), apond/hpond (pond fraction of
     category area + depth, for flushing; optional), and the updated
-    zSin/hpond are returned.
+    zSin/hpond are returned.  smice/smliq/rsnw: optional snow mass /
+    grain-radius tracers, updated through the melt/regrid bookkeeping.
+
+    prescribed_sfc_fluxes: calc_Tsfc=False coupled mode: a dict with
+    'fsurf', 'fcondtop', 'flat', 'fsens' per-category fluxes from the
+    atmosphere model (reference set_sfcflux,
+    ice_flux_colpkg.F90:174-288, dispatched at
+    ice_colpkg.F90:2196-2207).  The surface temperature is not
+    re-solved; the thermo uses the know_Tsfc boundary condition.
+    Unsupported for ktherm=2 (the reference hard-errors too,
+    mpas_seaice_column.F:9259-9263).
     """
-    if ktherm == 0:
-        raise NotImplementedError(
-            f"ktherm=0 (zero-layer thermodynamics): not ported; {_LATER}")
     ni = zqin.shape[-1]
     ns = zqsn.shape[-1]
     if ktherm == 2 and sss is None:
         raise ValueError("mushy thermodynamics (ktherm=2) requires sss")
+    if prescribed_sfc_fluxes is not None and ktherm == 2:
+        raise ValueError(
+            "calc_Tsfc=False is incompatible with mushy thermodynamics "
+            "(reference check_column_package_configs, "
+            "mpas_seaice_column.F:9259-9263)")
+    pf = prescribed_sfc_fluxes
     has = aicen > c.PUNY
     safe_a = torch.where(has, aicen, 1.0)
     hin = torch.where(has, vicen / safe_a, 0.1)
@@ -462,6 +574,24 @@ def thermo_vertical(dt, aicen, vicen, vsnon, Tsf, zqin, zqsn, zSin,
         hilyr, hslyr = fr.hilyr, fr.hslyr
         snoice_flood = fr.snoice
         fadvocn = fadvocn - fr.eadded
+    elif ktherm == 0:
+        if pf is not None:
+            # know_Tsfc zero-layer: fcondbot = fcondtop (reference
+            # ice_therm_vertical.F90:355-365); all surface fluxes are
+            # the coupler's
+            res = ZeroLayerResult(
+                Tsf=Tsf, fsensn=pf["fsens"], flatn=pf["flat"],
+                flwoutn=torch.zeros_like(Tsf), fsurfn=pf["fsurf"],
+                fcondtopn=pf["fcondtop"], fcondbot=pf["fcondtop"],
+                converged=torch.ones(Tsf.shape, dtype=torch.bool,
+                                     device=Tsf.device))
+        else:
+            res = zerolayer_temperature(
+                dt, rhoa, flw, potT, Qa, shcoef, lhcoef, fswsfc,
+                hilyr * ni, hslyr * ns, Tsf, Tbot)
+        zqin2 = torch.full_like(zqin, -c.RHOI * c.LFRESH)
+        zqsn2 = torch.full_like(zqsn, -c.RHOS * c.LFRESH)
+        zSin2 = zSin
     else:
         # initial temperatures from enthalpies (init_vertical_profile)
         Tmlt = -zSin * c.DEPRESST
@@ -479,14 +609,20 @@ def thermo_vertical(dt, aicen, vicen, vsnon, Tsf, zqin, zqsn, zSin,
             dt, rhoa, flw, potT, Qa, shcoef, lhcoef,
             fswsfc, fswint, Sswabs, Iswabs,
             hilyr, hslyr, zqin, zTin, zqsn0, zTsn, zSin,
-            Tsf, Tbot, einit)
+            Tsf, Tbot, einit,
+            calc_tsfc=pf is None,
+            fsurfn_f=None if pf is None else pf["fsurf"],
+            fcondtopn_f=None if pf is None else pf["fcondtop"],
+            flatn_f=None if pf is None else pf["flat"],
+            fsensn_f=None if pf is None else pf["fsens"])
         zqin2, zqsn2, zSin2 = res.zqin, res.zqsn, zSin
     converged = res.converged
 
     th = thickness_changes(
         dt, hilyr * ni, hslyr * ns, zqin2, zqsn2, zSin2,
         fbot, Tbot, res.flatn, res.fsurfn, res.fcondtopn, res.fcondbot,
-        fsnow, ktherm=ktherm, sss=sss, tun=tun)
+        fsnow, frain=frain, ktherm=ktherm, sss=sss,
+        smice=smice, smliq=smliq, rsnw=rsnw, tun=tun)
 
     snoice_tot = th.snoice + snoice_flood
 
@@ -503,6 +639,10 @@ def thermo_vertical(dt, aicen, vicen, vsnon, Tsf, zqin, zqsn, zSin,
 
     def m(x):
         return torch.where(has, x, 0.0)
+
+    def ml(x, default):
+        return torch.where(has[..., None], x, default) \
+            if x is not None else None
 
     return ThermoVerticalResult(
         Tsf=torch.where(has, res.Tsf, Tsf),
@@ -522,6 +662,8 @@ def thermo_vertical(dt, aicen, vicen, vsnon, Tsf, zqin, zqsn, zSin,
         meltsliq=m(th.meltsliq),
         hpond=(torch.where(has, hpond_out, hpond)
                if hpond is not None else None),
+        smice=ml(th.smice, smice), smliq=ml(th.smliq, smliq),
+        rsnw=ml(th.rsnw, rsnw),
         iterations=res.iterations)
 
 

@@ -288,7 +288,10 @@ class ShardedCoupledDriver:
     As in the JAX package's driver, the solar zenith is evaluated once
     per couple interval, at the interval-start clock, not per substep,
     and the step takes no day of year (no first-year-ice reset); there
-    is no state check and no output or restart stream."""
+    is no state check and no output or restart stream.  Unlike the JAX
+    package's driver (ROADMAP Queue 3, fault 13) it imports the
+    per-category surface fluxes of calc_Tsfc=False and scatters them to
+    the blocks."""
 
     def __init__(self, model, state, coupling_interval: float,
                  clock: Optional[ModelClock] = None,
@@ -311,29 +314,36 @@ class ShardedCoupledDriver:
             device=model.device, dtype=model.dtype) for a in (lat, lon)]
 
     def inputs(self, import_fields):
-        """The interval's forcing per block and the interval-start coszen
-        per block (None without the column package)."""
+        """The interval's forcing per block, the interval-start coszen
+        per block and the calc_Tsfc=False surface fluxes per block
+        (None without the column package, or without the mode)."""
         model = self.model
         dyn_g, atm_g, ocn_g, _ = import_with(
             import_fields, model.cfg.run.dt, model.dtype, self.tfrz_option,
             self.sst_in_kelvin, model.device)
         dyn = model.scatter_cells(dyn_g)
-        if not model.cfg.column.use_column_package:
-            return dyn, None, None, None
+        col = model.cfg.column
+        if not col.use_column_package:
+            return dyn, None, None, None, None
         cz, _ = compute_coszen(*self._latlon, float(self.clock.day_of_year),
                                self.clock.seconds_today)
+        sfcf = None
+        if not col.calc_surface_temperature:
+            sfcf = model.scatter_cells(import_sfc_fluxes(
+                import_fields, model.dtype, model.device))
         return (dyn, model.scatter_cells(atm_g), model.scatter_cells(ocn_g),
-                model.scatter_cells(cz))
+                model.scatter_cells(cz), sfcf)
 
     def advance(self, import_fields: Dict[str, Any]
                 ) -> Dict[str, np.ndarray]:
         model = self.model
-        dyn, atmf, ocnf, coszen = self.inputs(import_fields)
+        dyn, atmf, ocnf, coszen, sfcf = self.inputs(import_fields)
         state = self.state
         fluxes = [FluxMean() for _ in range(model.n_shards)]
         for _ in range(self.n_substeps):
             state, diags = self.step_fn(model.tensors, model.halo, state,
-                                        dyn, atmf, ocnf, coszen)
+                                        dyn, atmf, ocnf, coszen,
+                                        sfc_fluxes=sfcf)
             for acc, d in zip(fluxes, diags):
                 acc.add(d.get("column_fluxes"))
         self.state = state

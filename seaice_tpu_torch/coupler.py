@@ -66,9 +66,8 @@ def import_sfc_fluxes(fields: Dict[str, Any], dtype=torch.float64,
     surfaceHeatFluxCouple / surfaceConductiveFluxCouple /
     latentHeatFluxCouple / sensibleHeatFluxCouple) -> the column
     driver's sfc_fluxes dict (set_sfcflux analog,
-    ice_flux_colpkg.F90:174-288), in one copy.  The conversion only: the
-    column option that consumes them is not ported, and the step raises
-    for a sfc_fluxes that is not None (ROADMAP Queue 1 item 10)."""
+    ice_flux_colpkg.F90:174-288), in one copy; the coupled drivers pass
+    it to every substep's step."""
     missing = [k for k in SFC_FLUX_IMPORT_FIELDS if k not in fields]
     if missing:
         raise KeyError(

@@ -19,6 +19,7 @@ before and after it on each block's cells.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Dict, Optional
 
@@ -28,7 +29,7 @@ import torch
 from .column.driver import AtmosForcing, ColumnPhysics, OceanForcing
 from .column.tuning import Tunables
 from .config import AdvectionType, Config
-from .mesh.core import Mesh, MeshTensors
+from .mesh.core import Mesh, MeshTensors, vertex_to_cell
 from .dynamics import evp
 from .dynamics.evp import (DynamicsForcing, DynamicsTensors,
                            VelocitySolverState, build_dynamics_tensors,
@@ -146,22 +147,9 @@ class SeaIceModel:
     def __init__(self, mesh: Mesh, cfg: Config, dtype=torch.float32,
                  device=None, tracer_tree: Optional[TracerTree] = None):
         self.mesh = mesh
-        self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.column = None
-        if cfg.column.use_column_package:
-            self.column = build_column_physics(cfg, dtype, self.device)
-        if tracer_tree is None:
-            if cfg.column.use_column_package:
-                tracer_tree = column_tracer_tree(cfg)
-            else:
-                tracer_tree = TracerTree((
-                    mass_only_tree().specs[0],
-                    standard_tracer_tree().specs[1],
-                    standard_tracer_tree().specs[2],
-                ))
-        self.tree = tracer_tree
+        self._set_config(cfg, tracer_tree)
 
         dev = self.device
         mesh_t = mesh.tensors(dtype, dev)
@@ -183,6 +171,36 @@ class SeaIceModel:
                 np.ascontiguousarray(mesh.area_cell, np.float64)).to(
                     device=dev, dtype=dtype))
 
+    def _set_config(self, cfg: Config,
+                    tracer_tree: Optional[TracerTree] = None):
+        """The config and what the model derives from its column options:
+        the ColumnPhysics and the tracer tree (unless one is given)."""
+        self.cfg = cfg
+        self.column = None
+        if cfg.column.use_column_package:
+            self.column = build_column_physics(cfg, self.dtype, self.device)
+        if tracer_tree is None:
+            if cfg.column.use_column_package:
+                tracer_tree = column_tracer_tree(cfg)
+            else:
+                tracer_tree = TracerTree((
+                    mass_only_tree().specs[0],
+                    standard_tracer_tree().specs[1],
+                    standard_tracer_tree().specs[2],
+                ))
+        self.tree = tracer_tree
+
+    def with_column(self, **options) -> "SeaIceModel":
+        """This model with the column options `options` over its own: a
+        shallow copy that shares the mesh tensors (none of them depends on
+        the column options) and derives its column physics and tracer
+        tree as the constructor does when given no tree.  Saves rebuilding
+        the tensors of a large mesh for each column configuration."""
+        model = copy.copy(self)
+        model._set_config(dataclasses.replace(
+            self.cfg, column=dataclasses.replace(self.cfg.column, **options)))
+        return model
+
     # -- state ---------------------------------------------------------------
 
     def init_state(self, ice_area_cat=None, ice_volume_cat=None,
@@ -198,13 +216,18 @@ class SeaIceModel:
         for spec in self.tree.specs:
             shape = (nc, ncat) + ((spec.n_layers,) if spec.n_layers else ())
             tr[spec.name] = torch.zeros(shape, dtype=dt, device=dev)
-        # non-zero tracer defaults: undeformed initial ice is all level
-        # (reference init_column_tracers)
+        # non-zero tracer defaults: undeformed initial ice is all level;
+        # fresh snow grain radius (reference init_column_tracers)
         if "levelIceArea" in tr:
             tr["levelIceArea"] = torch.ones((nc, ncat), dtype=dt, device=dev)
             tr["levelIceVolume"] = torch.ones((nc, ncat), dtype=dt,
                                               device=dev)
-        for name in ("snowGrainRadius", "brineHeight", "bioMobileFraction",
+        if "snowGrainRadius" in tr:
+            from .column.snow import RSNW_FALL
+            tr["snowGrainRadius"] = torch.full(
+                tr["snowGrainRadius"].shape, RSNW_FALL, dtype=dt,
+                device=dev)
+        for name in ("brineHeight", "bioMobileFraction",
                      "verticalSalinity"):
             if name in tr:
                 raise NotImplementedError(
@@ -322,16 +345,17 @@ class SeaIceModel:
 
             coszen: cell cosine solar zenith (dEdd shortwave).
             day_of_year (a number or a 0-d tensor) and lat (cell
-            latitudes, radians): the first-year-ice reset.  faero_atm
-            and sfc_fluxes (aerosol deposition, the calc_Tsfc=False
-            surface fluxes) feed options the port does not run: only
-            None is accepted (ROADMAP.md Queue 1 item 10)."""
-            check_unported_inputs(faero_atm, sfc_fluxes)
+            latitudes, radians): the first-year-ice reset.  sfc_fluxes:
+            the calc_Tsfc=False prescribed per-category surface fluxes
+            (dict: fsurf/fcondtop/flat/fsens [nCells, nCat]).  faero_atm
+            (aerosol deposition) feeds an option the port does not run:
+            only None is accepted (ROADMAP.md Queue 1 item 10)."""
+            check_unported_inputs(faero_atm)
             thermo = column is not None and atmos is not None
             if thermo:
                 state, fluxes = column_before_dynamics(
                     cfg, column, state, atmos, ocean, coszen,
-                    day_of_year, lat)
+                    day_of_year, lat, sfc_fluxes, tensors.mesh)
             new_state, diags = drive(body(tensors, state, forcing))
             if thermo:
                 new_state, diags = column_after_dynamics(
@@ -341,25 +365,33 @@ class SeaIceModel:
         return step
 
 
-def check_unported_inputs(faero_atm=None, sfc_fluxes=None):
-    """The step's inputs of options the port does not run: aerosol
-    deposition and the calc_Tsfc=False surface fluxes raise unless None."""
-    for name, value in (("faero_atm", faero_atm),
-                        ("sfc_fluxes", sfc_fluxes)):
-        if value is not None:
-            raise NotImplementedError(
-                f"step input {name}: its column option is not ported "
-                "(ROADMAP.md Queue 1 item 10)")
+def check_unported_inputs(faero_atm=None):
+    """The step's input of an option the port does not run: aerosol
+    deposition raises unless None."""
+    if faero_atm is not None:
+        raise NotImplementedError(
+            "step input faero_atm: its column option is not ported "
+            "(ROADMAP.md Queue 1 item 10)")
 
 
 def column_before_dynamics(cfg: Config, column: ColumnPhysics, state: State,
                            atmos: AtmosForcing, ocean: OceanForcing,
-                           coszen=None, day_of_year=None, lat=None):
+                           coszen=None, day_of_year=None, lat=None,
+                           sfc_fluxes=None, mesh_t: MeshTensors = None):
     """The column phase before the dynamics: vertical and ITD
-    thermodynamics, per cell.  Returns (state, ColumnFluxes)."""
+    thermodynamics, per cell.  With high-frequency coupling the cell ice
+    velocity is the mean of the state's vertex velocities over the
+    cell's vertices (`mesh_t`: the mesh or block whose vertices the
+    state holds).  Returns (state, ColumnFluxes)."""
+    uvel = vvel = None
+    if column.highfreq:
+        vel = state.velocity
+        uvel = vertex_to_cell(mesh_t, vel.u_velocity)
+        vvel = vertex_to_cell(mesh_t, vel.v_velocity)
     tr, fluxes = column.step_thermodynamics(
         cfg.run.dt, dict(state.tracers), atmos, ocean, coszen=coszen,
-        day_of_year=day_of_year, lat=lat)
+        uvel=uvel, vvel=vvel, day_of_year=day_of_year, lat=lat,
+        sfc_fluxes=sfc_fluxes)
     return state.replace(tracers=tr), fluxes
 
 

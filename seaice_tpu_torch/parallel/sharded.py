@@ -490,7 +490,7 @@ class ShardedSeaIceModel:
         def step(tensors, halo, state, forcing, atmos=None, ocean=None,
                  coszen=None, day_of_year=None, lat=None, faero_atm=None,
                  sfc_fluxes=None):
-            check_unported_inputs(faero_atm, sfc_fluxes)
+            check_unported_inputs(faero_atm)
             solve = {}          # the K6 loops of the solve under way
 
             def advance(kind, fields):
@@ -504,10 +504,14 @@ class ShardedSeaIceModel:
             if thermo:
                 coszen = coszen or [None] * self.n_shards
                 lat = lat or [None] * self.n_shards
-                pre = [column_before_dynamics(cfg, columns[s], state[s],
-                                              atmos[s], ocean[s], coszen[s],
-                                              day_of_year, lat[s])
-                       for s in blocks]
+                sfc_fluxes = sfc_fluxes or [None] * self.n_shards
+                # every block's cells carry all their vertices, whose
+                # velocities the last exchange of the previous step
+                # refreshed, so a highfreq cell velocity is the owner's
+                pre = [column_before_dynamics(
+                    cfg, columns[s], state[s], atmos[s], ocean[s],
+                    coszen[s], day_of_year, lat[s], sfc_fluxes[s],
+                    tensors[s].mesh) for s in blocks]
                 state = [p[0] for p in pre]
             outs = drive_lockstep(
                 [body(t, st, f) for body, t, st, f in

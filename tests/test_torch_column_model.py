@@ -495,26 +495,200 @@ def test_float32_step_keeps_float32():
 
 
 @pytest.mark.parametrize("option, value", [
-    ("ktherm", 0), ("calc_surface_temperature", False),
     ("pond_scheme", "cesm"), ("pond_scheme", "topo"),
     ("use_modal_aerosols", True), ("use_snow_liquid_ponds", True),
-    ("use_snow_tracers", True), ("snwredist", "bulk"),
-    ("n_aerosols", 2), ("use_snicar", True), ("use_form_drag", True),
-    ("highfreq", True), ("use_brine_height", True),
+    ("n_aerosols", 2), ("use_snicar", True), ("use_brine_height", True),
     ("use_biogeochemistry", True), ("use_skeletal_biochemistry", True),
     ("solve_zsalinity", True)])
 def test_left_out_column_options_raise(option, value):
     """Every column option the port leaves out raises when the model is
-    built, naming the roadmap item; none runs silently."""
+    built, naming the roadmap item; none runs silently.  Snow-liquid
+    ponds need the snow tracers (without them the reference's
+    ValueError, `test_torch_column_options.py`)."""
     cfg = _sphere_cfg(C)
-    if option == "calc_surface_temperature":
+    if option == "use_snow_liquid_ponds":
         cfg = dataclasses.replace(cfg, column=dataclasses.replace(
-            cfg.column, ktherm=1))
+            cfg.column, use_snow_tracers=True))
     cfg = dataclasses.replace(cfg, column=dataclasses.replace(
         cfg.column, **{option: value}))
     mesh, _ = panel_reorder(icosahedral_mesh(1), 1)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         SeaIceModel(mesh, cfg, dtype=F64, device="cpu")
+
+
+# the column options of the thermodynamics, surface and snow: one model
+# each, stepped twice by both packages (the first step starts from rest,
+# so highfreq sees moving ice in the second)
+SNOW_CASE = "snow_ITDrdg_formdrag_highfreq"
+OPTION_CASES = {
+    SNOW_CASE: dict(use_snow_tracers=True, snwredist="ITDrdg",
+                    use_form_drag=True, highfreq=True),
+    "ktherm0": dict(ktherm=0),
+    "prescribed_fluxes_bl99": dict(ktherm=1,
+                                   calc_surface_temperature=False),
+}
+# the other snow redistribution schemes: SNOW_CASE's first step, then its
+# second under the scheme (winter atmosphere)
+SNWREDIST_CASES = {"snow_bulk": "bulk", "snow_ITDsd": "ITDsd"}
+# u and v to U_LIMIT of the largest speed component, tracers to
+# TRACER_LIMIT of their own max (NOISE fields: the port's below NOISE)
+U_LIMIT = 1e-11
+TRACER_LIMIT = 1e-12
+
+
+def _option_cfg(C, name):
+    cfg = _sphere_cfg(C)
+    return dataclasses.replace(cfg, column=dataclasses.replace(
+        cfg.column, **OPTION_CASES[name]))
+
+
+def _sfc_fluxes(nc, ncat):
+    """Per-category surface fluxes of an atmosphere model (seed 3)."""
+    rng = np.random.default_rng(3)
+    return dict(fsurf=rng.uniform(-20.0, 40.0, (nc, ncat)),
+                fcondtop=rng.uniform(-30.0, 10.0, (nc, ncat)),
+                flat=rng.uniform(-5.0, 0.0, (nc, ncat)),
+                fsens=rng.uniform(-10.0, 10.0, (nc, ncat)))
+
+
+def _option_runs(name):
+    """(melt,) pairs to run: the combined snow case also under MELT,
+    where real ponds feed the form drag."""
+    return (False, True) if name == SNOW_CASE else (False,)
+
+
+@pytest.fixture(scope="module")
+def reference_option_steps():
+    """Two full-physics steps of `seaice_tpu` for each OPTION_CASES
+    model on the subdiv-2 panel sphere from `full_physics_inputs`, and
+    the second step of SNOW_CASE's winter run under each scheme of
+    SNWREDIST_CASES (a model of its own), op by op: {(name, melt):
+    fields as numpy}."""
+    import jax.numpy as jnp
+    from seaice_tpu import config as JC
+    from seaice_tpu.dynamics.evp import DynamicsForcing as JForcing
+    from seaice_tpu.mesh import icosahedral_mesh as jicos
+    from seaice_tpu.mesh.panels import panel_reorder as jreorder
+    from seaice_tpu.model import SeaIceModel as JModel
+    from seaice_tpu.parallel.sharded import full_physics_inputs as jinputs
+    from seaice_tpu.utils.pytree import replace
+
+    mesh_j, _ = jreorder(jicos(SUBDIV), SUBDIV)
+    nc = mesh_j.n_cells
+    jf = JForcing(**{k: jnp.asarray(v) for k, v in
+                     _sphere_forcing(nc).items()})
+    out = {}
+    for name in OPTION_CASES:
+        jm = JModel(mesh_j, _option_cfg(JC, name), dtype=jnp.float64)
+        area, vol, snow, extra, atm, ocn, coszen = jinputs(
+            mesh_j, jm.cfg, jnp.float64)
+        sfc = None
+        if not jm.cfg.column.calc_surface_temperature:
+            sfc = {k: jnp.asarray(v) for k, v in _sfc_fluxes(
+                nc, jm.cfg.run.n_categories).items()}
+        jstep = jm.make_step(jit=False)
+        for melt in _option_runs(name):
+            atm_j = type(atm)(**{f.name: jnp.asarray(
+                np.full(nc, MELT[f.name]) if melt and f.name in MELT
+                else getattr(atm, f.name)) for f in dataclasses.fields(atm)})
+            js = jm.init_state(area, vol, snow)
+            js = replace(js, tracers=dict(js.tracers, **extra))
+            for i in range(2):
+                if i == 1 and name == SNOW_CASE and not melt:
+                    for case, scheme in SNWREDIST_CASES.items():
+                        cfg = jm.cfg
+                        jm_s = JModel(mesh_j, dataclasses.replace(
+                            cfg, column=dataclasses.replace(
+                                cfg.column, snwredist=scheme)),
+                            dtype=jnp.float64)
+                        out[case, False] = _fields(jm_s.make_step(
+                            jit=False)(jm_s.tensors, js, jf, atm_j, ocn,
+                                       coszen=jnp.asarray(coszen))[0])
+                js, _ = jstep(jm.tensors, js, jf, atm_j, ocn,
+                              coszen=jnp.asarray(coszen), sfc_fluxes=sfc)
+            out[name, melt] = _fields(js)
+    return out
+
+
+@pytest.mark.parametrize("name, melt", [
+    (n, m) for n in OPTION_CASES for m in _option_runs(n)] + [
+    (n, False) for n in SNWREDIST_CASES],
+    ids=lambda x: x if isinstance(x, str) else ("melt" if x else "winter"))
+def test_column_option_steps_match_reference(reference_option_steps, name,
+                                             melt):
+    """Two full-physics steps with each option of the thermodynamics,
+    surface and snow against `seaice_tpu` (the second step of a
+    SNWREDIST_CASES case under its scheme, by `SeaIceModel.with_column`):
+    u, v to U_LIMIT, every tracer to TRACER_LIMIT (the noise ponds of the
+    winter forcing under NOISE: the form drag reads them and stays within
+    the limits, ROADMAP Queue 3 fault 12); the option's own tracers are
+    there and moved."""
+    model, state, forcing, atm, ocn, coszen = _port_sphere(
+        SUBDIV, _option_cfg(C, SNOW_CASE if name in SNWREDIST_CASES
+                            else name))
+    nc, ncat = model.mesh.n_cells, model.cfg.run.n_categories
+    if melt:
+        atm = atm.replace(**{k: torch.full((nc,), v, dtype=F64)
+                             for k, v in MELT.items()})
+    sfc = None
+    if not model.cfg.column.calc_surface_temperature:
+        sfc = {k: torch.as_tensor(v)
+               for k, v in _sfc_fluxes(nc, ncat).items()}
+    models = [model, model]
+    if name in SNWREDIST_CASES:
+        models[1] = model.with_column(snwredist=SNWREDIST_CASES[name])
+    for m in models:
+        state, diags = m.make_step()(m.tensors, state, forcing, atm, ocn,
+                                     coszen=coszen, sfc_fluxes=sfc)
+    ref, got = reference_option_steps[name, melt], _fields(state)
+    assert set(ref) == set(got)
+    speed = max(np.abs(ref["u"]).max(), np.abs(ref["v"]).max())
+    for k in ref:
+        if k in ("u", "v"):
+            _close(k, got[k], ref[k], U_LIMIT, speed)
+        else:
+            _close(k, got[k], ref[k], TRACER_LIMIT)
+    if model.column.use_snow_tracers:
+        assert (got["snowGrainRadius"] > 54.526).any()
+    if model.column.use_form_drag:
+        assert diags["column_fluxes"].Cdn_atm is not None
+
+
+def test_convert_carries_snow_tracers():
+    """`convert` carries the three snow tracers of a JAX State bitwise;
+    both packages start the grain radius at RSNW_FALL."""
+    import jax.numpy as jnp
+    from seaice_tpu import config as JC
+    from seaice_tpu.mesh import icosahedral_mesh as jicos
+    from seaice_tpu.mesh.panels import panel_reorder as jreorder
+    from seaice_tpu.model import SeaIceModel as JModel
+    from seaice_tpu.utils.pytree import replace
+    from seaice_tpu_torch.column.snow import RSNW_FALL
+    from seaice_tpu_torch.convert import flatten_arrays, from_reference_arrays
+
+    name = SNOW_CASE
+    mesh_j, _ = jreorder(jicos(1), 1)
+    jm = JModel(mesh_j, _option_cfg(JC, name), dtype=jnp.float64,
+                build_unstructured=False)
+    model, own, _, _, _, _ = _port_sphere(1, _option_cfg(C, name))
+    nc, ncat = mesh_j.n_cells, jm.cfg.run.n_categories
+    js = jm.init_state(*(np.asarray(own.tracers[k]) for k in (
+        "iceAreaCategory", "iceVolumeCategory", "snowVolumeCategory")))
+    snow_names = ("snowIceMass", "snowLiquidMass", "snowGrainRadius")
+    for k in snow_names:
+        assert np.array_equal(own.tracers[k].numpy(),
+                              np.asarray(js.tracers[k])), k
+    assert float(own.tracers["snowGrainRadius"].min()) == RSNW_FALL
+    rng = np.random.default_rng(8)
+    snow = {k: jnp.asarray(rng.uniform(0.0, 500.0, (nc, ncat, 1)))
+            for k in snow_names}
+    js = replace(js, tracers=dict(js.tracers, **snow))
+    _, state, _ = from_reference_arrays(None, flatten_arrays(js), "cpu",
+                                        F64)
+    assert set(state.tracers) == set(model.tree.names)
+    for k in snow_names:
+        assert torch.equal(state.tracers[k],
+                           torch.as_tensor(np.array(snow[k]))), k
 
 
 def test_convert_carries_full_physics_state_and_forcing():

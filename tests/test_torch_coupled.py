@@ -41,11 +41,17 @@ def _rel(got, want):
                                                  1e-300)
 
 
-def _box(pkg_config, pkg_box, Model, nx=8, column=True, **kw):
+def _box(pkg_config, pkg_box, Model, nx=8, column=True, prescribed=False,
+         **kw):
+    """The JAX test's box; prescribed: the calc_Tsfc=False column
+    (BL99, the atmosphere model's surface fluxes)."""
     cfg = pkg_config.box_test_config(elastic_subcycles=4)
     if column:
         cfg = dataclasses.replace(cfg, column=dataclasses.replace(
             cfg.column, use_column_package=True))
+    if prescribed:
+        cfg = dataclasses.replace(cfg, column=dataclasses.replace(
+            cfg.column, ktherm=1, calc_surface_temperature=False))
     mesh = pkg_box.box_test_mesh(nx, nx)
     mesh.f_vertex = pkg_box.box_coriolis_parameter(mesh)
     model = Model(mesh, cfg, **kw)
@@ -80,6 +86,17 @@ def _imports(nc):
         "Faxa_swndr": np.full(nc, 25.0), "Faxa_swndf": np.full(nc, 15.0),
         "Faxa_rain": np.zeros(nc), "Faxa_snow": np.full(nc, 1e-8),
     }
+
+
+def _sfc_imports(nc, ncat=1):
+    """The calc_Tsfc=False imports: per-category surface fluxes of an
+    atmosphere model (seed 4), W/m^2."""
+    rng = np.random.default_rng(4)
+    return {"surfaceHeatFluxCouple": rng.uniform(-30.0, 10.0, (nc, ncat)),
+            "surfaceConductiveFluxCouple": rng.uniform(-25.0, 5.0,
+                                                       (nc, ncat)),
+            "latentHeatFluxCouple": rng.uniform(-6.0, 0.0, (nc, ncat)),
+            "sensibleHeatFluxCouple": rng.uniform(-15.0, 5.0, (nc, ncat))}
 
 
 def _coverage(mesh):
@@ -279,9 +296,56 @@ def test_sfc_flux_import_converts_and_the_step_refuses_it():
         assert np.array_equal(got[k].numpy(), np.asarray(want[k])), k
     with pytest.raises(KeyError):
         TCp.import_sfc_fluxes({}, F64, device="cpu")
-    model, state, mesh = _port_box()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        model.make_step()(model.tensors, state, None, sfc_fluxes=got)
+    # a calc_Tsfc=False model's step refuses to run without them
+    model, state, mesh = _port_box(prescribed=True)
+    from seaice_tpu_torch.coupler import import_state
+    dyn, atm, ocn = import_state(_imports(mesh.n_cells), 1800.0, F64,
+                                 device="cpu")
+    with pytest.raises(ValueError, match="sfc_fluxes"):
+        model.make_step()(model.tensors, state, dyn, atm, ocn)
+
+
+def test_coupled_driver_with_prescribed_fluxes_matches_reference():
+    """One CoupledDriver interval with calc_Tsfc=False (BL99) and the
+    per-category flux imports in both packages (the JAX driver op by
+    op): every export and every tracer to LIMIT; the fluxes moved the
+    answer off the calc_Tsfc=True driver's."""
+    from seaice_tpu.coupled import CoupledDriver as JDriver
+    from seaice_tpu_torch.coupled import CoupledDriver
+    jm, js, mesh = _jax_box(prescribed=True)
+    fields = dict(_imports(mesh.n_cells), **_sfc_imports(mesh.n_cells))
+    with jax.disable_jit():
+        jdrv = JDriver(jm, js, coupling_interval=2 * jm.cfg.run.dt)
+        want = {k: np.asarray(v) for k, v in jdrv.advance(fields).items()}
+    model, state, _ = _port_box(prescribed=True)
+    drv = CoupledDriver(model, state, coupling_interval=2 * model.cfg.run.dt)
+    got = drv.advance(fields)
+    assert set(got) == set(want)
+    for k in want:
+        assert _rel(got[k], want[k]) <= LIMIT, (k, _rel(got[k], want[k]))
+    for k, v in jdrv.state.tracers.items():
+        assert _rel(drv.state.tracers[k].numpy(), v) <= LIMIT, k
+    calc = CoupledDriver(*_port_box()[:2],
+                         coupling_interval=2 * model.cfg.run.dt)
+    assert _rel(calc.advance(fields)["Si_t"], got["Si_t"]) > 1e-3
+
+
+def test_sharded_coupled_driver_passes_prescribed_fluxes():
+    """ShardedCoupledDriver with calc_Tsfc=False scatters the flux
+    imports to its 2 blocks: the exports equal the single-device
+    driver's to LIMIT."""
+    from seaice_tpu_torch.coupled import CoupledDriver, ShardedCoupledDriver
+    from seaice_tpu_torch.parallel import ShardedSeaIceModel
+    model, state, mesh = _port_box(prescribed=True)
+    fields = dict(_imports(mesh.n_cells), **_sfc_imports(mesh.n_cells))
+    dt2 = 2 * model.cfg.run.dt
+    want = CoupledDriver(model, state, coupling_interval=dt2).advance(fields)
+    sm = ShardedSeaIceModel(mesh, model.cfg, 2, F64, devices="cpu")
+    area, vol, snow = box.box_initial_state(mesh, n_categories=1)
+    got = ShardedCoupledDriver(sm, sm.init_state(area, vol, snow),
+                               coupling_interval=dt2).advance(fields)
+    for k in got:
+        assert _rel(got[k], want[k]) <= LIMIT, (k, _rel(got[k], want[k]))
 
 
 def test_prescribe_ice_state_matches_reference():

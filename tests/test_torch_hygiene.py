@@ -316,7 +316,7 @@ def test_column_package_is_the_next_slice():
     from seaice_tpu_torch.parallel import ShardedSeaIceModel
     mesh, _ = _small_model_args()
     assert SeaIceModel(mesh, C.Config(), device="cpu").column is not None
-    cfg = C.Config(column=C.ColumnConfig(use_snow_tracers=True))
+    cfg = C.Config(column=C.ColumnConfig(solve_zsalinity=True))
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         SeaIceModel(mesh, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):

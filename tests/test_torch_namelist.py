@@ -181,13 +181,81 @@ def test_unported_model_options_parse_and_raise_when_built():
     import torch
     from seaice_tpu_torch.mesh import icosahedral_mesh
     from seaice_tpu_torch.model import SeaIceModel
-    text = "&column_tracers\n config_use_snow_grain_radius = .true.\n/\n"
+    text = "&biogeochemistry\n config_use_vertical_zsalinity = .true.\n/\n"
     cj, sj, ct, st = _both(text)
-    assert ct == cj and ct["column"]["use_snow_tracers"]
+    assert ct == cj and ct["column"]["solve_zsalinity"]
     cfg, _ = T.config_from_namelist(text)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         SeaIceModel(icosahedral_mesh(1), cfg, dtype=torch.float64,
                     device="cpu")
+
+
+def test_snow_grain_radius_prescribed_fluxes_namelist_builds_and_steps():
+    """A namelist with the snow grain radius and calc_Tsfc=False (BL99)
+    parses to the reference's Config, and the model it configures (a 4 x
+    4 box from `full_physics_inputs`, the atmosphere model's surface
+    fluxes seeded) builds and steps in both packages: one step (the JAX
+    step op by op), u and v to 1e-11 of their max, every tracer to
+    1e-12."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+    from seaice_tpu.model import SeaIceModel as JModel
+    from seaice_tpu.parallel.sharded import full_physics_inputs as jinputs
+    from seaice_tpu.testcases import box as jbox
+    from seaice_tpu.utils.pytree import replace
+    from seaice_tpu_torch.model import SeaIceModel as TModel
+    from seaice_tpu_torch.parallel.sharded import full_physics_inputs
+    from seaice_tpu_torch.testcases import box as tbox
+    text = ("&dimensions\n config_nCategories = 3\n/\n"
+            "&velocity_solver\n config_elastic_subcycle_number = 4\n/\n"
+            "&thermodynamics\n config_thermodynamics_type = 'BL99'\n/\n"
+            "&atmosphere\n config_calc_surface_temperature = .false.\n/\n"
+            "&column_tracers\n config_use_snow_grain_radius = .true.\n/\n")
+    cj, sj, ct, st = _both(text)
+    assert ct == cj and ct["column"]["use_snow_tracers"]
+    assert ct["column"]["ktherm"] == 1
+    assert not ct["column"]["calc_surface_temperature"]
+    (cfg_j, _), (cfg_t, _) = J.config_from_namelist(text), \
+        T.config_from_namelist(text)
+    mj, mt = jbox.box_test_mesh(4, 4), tbox.box_test_mesh(4, 4)
+    mj.f_vertex = jbox.box_coriolis_parameter(mj)
+    mt.f_vertex = tbox.box_coriolis_parameter(mt)
+    J_ = JModel(mj, cfg_j, dtype=jnp.float64)
+    T_ = TModel(mt, cfg_t, dtype=torch.float64, device="cpu")
+    area, vol, snow, extra, atm, ocn, cz = jinputs(mj, cfg_j, jnp.float64)
+    s_j = J_.init_state(area, vol, snow)
+    s_j = replace(s_j, tracers=dict(s_j.tracers, **extra))
+    area, vol, snow, extra_t, atm_t, ocn_t, cz_t = full_physics_inputs(
+        mt, cfg_t, torch.float64, "cpu")
+    s_t = T_.init_state(area, vol, snow)
+    s_t = s_t.replace(tracers=dict(s_t.tracers, **extra_t))
+    rng = np.random.default_rng(3)
+    sfc = {k: rng.uniform(-20.0, 10.0, (mt.n_cells, 3))
+           for k in ("fsurf", "fcondtop", "flat", "fsens")}
+    s_j, _ = J_.make_step(jit=False)(
+        J_.tensors, s_j, jbox.box_forcing(mj, t=0.0),
+        jax.tree.map(jnp.asarray, atm), jax.tree.map(jnp.asarray, ocn),
+        coszen=jnp.asarray(cz),
+        sfc_fluxes={k: jnp.asarray(v) for k, v in sfc.items()})
+    s_t, _ = T_.make_step()(
+        T_.tensors, s_t, tbox.box_forcing(mt, 0.0, torch.float64, "cpu"),
+        atm_t, ocn_t, coszen=cz_t,
+        sfc_fluxes={k: torch.as_tensor(v) for k, v in sfc.items()})
+    scale = np.abs(np.asarray(s_j.velocity.u_velocity)).max()
+    assert scale > 1e-3
+    for k in ("u_velocity", "v_velocity"):
+        np.testing.assert_allclose(
+            getattr(s_t.velocity, k).numpy(),
+            np.asarray(getattr(s_j.velocity, k)), rtol=0,
+            atol=1e-11 * scale, err_msg=k)
+    assert set(s_t.tracers) == set(s_j.tracers)
+    for k, w in s_j.tracers.items():
+        w = np.asarray(w)
+        np.testing.assert_allclose(
+            s_t.tracers[k].numpy(), w, rtol=0,
+            atol=1e-12 * max(np.abs(w).max(), 1e-300), err_msg=k)
 
 
 def test_revised_evp_linear_ocean_stress_namelist_builds_and_steps():

@@ -336,7 +336,7 @@ TRACERS = ("iceAreaCategory", "iceVolumeCategory", "surfaceTemperature",
            "levelIceArea")
 
 
-def _hold_to_unsharded(label, sm, sstate, state):
+def _hold_to_unsharded(label, sm, sstate, state, tracers=TRACERS):
     """Every block's state gathered against the unsharded state at JAX's
     limits; prints the distances."""
     u, v = sm.gather_velocity(sstate)
@@ -344,30 +344,30 @@ def _hold_to_unsharded(label, sm, sstate, state):
     dist = {"u": float(np.abs(u - state.velocity.u_velocity.numpy()).max()),
             "v": float(np.abs(v - state.velocity.v_velocity.numpy()).max())}
     dist.update({k: float(np.abs(tr[k] - state.tracers[k].numpy()).max())
-                 for k in TRACERS})
+                 for k in tracers})
     print(f"{label}: max |sharded - unsharded| {dist}")
     assert np.abs(u).max() > 1e-3
     np.testing.assert_allclose(u, state.velocity.u_velocity.numpy(),
                                **U_LIMITS)
     np.testing.assert_allclose(v, state.velocity.v_velocity.numpy(),
                                **U_LIMITS)
-    for k in TRACERS:
+    for k in tracers:
         np.testing.assert_allclose(tr[k], state.tracers[k].numpy(),
                                    err_msg=k, **TRACER_LIMITS)
 
 
-def test_sharded_full_physics_matches_unsharded():
-    """Each block runs the column on its own cells: two steps of the
-    4-block step against the unsharded step, at JAX's own limits."""
+def _sharded_full_physics(mesh, cfg, n_shards, n_steps):
+    """n_steps of the unsharded and the n_shards-block full-physics step
+    from the same `full_physics_inputs`: (sm, sstate, sdiags, state,
+    ex), ex the blocks' initial thermodynamic tracers."""
     from seaice_tpu_torch.parallel.sharded import full_physics_inputs
-    mesh, cfg = _full_physics_box()
     area, vol, snow, extra, atm, ocn, coszen = full_physics_inputs(
         mesh, cfg, F64, "cpu")
     ref = SeaIceModel(mesh, cfg, F64, device="cpu")
     state = ref.init_state(area, vol, snow)
     state = state.replace(tracers=dict(state.tracers, **extra))
     forcing = tbox.box_forcing(mesh, t=0.0, device="cpu")
-    sm = ShardedSeaIceModel(mesh, cfg, 4, F64, devices="cpu")
+    sm = ShardedSeaIceModel(mesh, cfg, n_shards, F64, devices="cpu")
     assert all(m.column is not None for m in sm.models)
     sstate = sm.init_state(area, vol, snow)
     ex = sm.scatter_cell_tree(extra)
@@ -378,19 +378,60 @@ def test_sharded_full_physics_matches_unsharded():
     satm, socn = sm.scatter_cell_tree(atm), sm.scatter_cell_tree(ocn)
     scz = sm.scatter_cell_tree(coszen)
     step, sstep = ref.make_step(), sm.make_step()
-    for _ in range(2):
+    for _ in range(n_steps):
         state, diags = step(ref.tensors, state, forcing, atm, ocn,
                             coszen=coszen)
         sstate, sdiags = sstep(sm.tensors, sm.halo, sstate, sforcing, satm,
                                socn, scz)
     assert all("column_fluxes" in d and "coupling_prep" in d
                for d in sdiags)
+    return sm, sstate, sdiags, state, ex
+
+
+def test_sharded_full_physics_matches_unsharded():
+    """Each block runs the column on its own cells: two steps of the
+    4-block step against the unsharded step, at JAX's own limits."""
+    mesh, cfg = _full_physics_box()
+    sm, sstate, _, state, ex = _sharded_full_physics(mesh, cfg, 4, 2)
     _hold_to_unsharded("sharded full physics", sm, sstate, state)
     # the column did work: the ice is not where the dynamics alone put it
     assert float(np.abs(sm.gather_tracers(sstate)["iceEnthalpy"] -
                         sm.part.gather_cell_field(
                             np.stack([e["iceEnthalpy"].numpy() for e in ex]),
                             mesh.n_cells)).max()) > 1.0
+
+
+def test_sharded_highfreq_snow_matches_unsharded():
+    """High-frequency coupling with the snow tracers, ITDrdg snow
+    redistribution and form drag in 2 blocks: each block takes its cell
+    velocities from its own vertices, which the previous step's last
+    exchange refreshed, so three steps (the second and third see moving
+    ice) match the unsharded step at JAX's own limits, the snow tracers
+    included."""
+    mesh, cfg = _full_physics_box()
+    cfg = dataclasses.replace(cfg, column=dataclasses.replace(
+        cfg.column, highfreq=True, use_snow_tracers=True,
+        snwredist="ITDrdg", use_form_drag=True))
+    sm, sstate, sdiags, state, _ = _sharded_full_physics(mesh, cfg, 2, 3)
+    _hold_to_unsharded("sharded highfreq + snow", sm, sstate, state,
+                       TRACERS + ("snowVolumeCategory", "snowIceMass",
+                                  "snowLiquidMass", "snowGrainRadius"))
+    assert all("redist_fresh" in d["coupling_prep"] for d in sdiags)
+    # the cell velocity of every local cell (halo cells included) is the
+    # one the whole mesh gives: its vertices' velocities are current
+    from seaice_tpu_torch.mesh.core import vertex_to_cell
+    u, _ = sm.gather_velocity(sstate)
+    u_cell = vertex_to_cell(mesh.tensors(F64, "cpu"), torch.as_tensor(u))
+    for s, b in enumerate(sm.part.blocks):
+        ok = b.cell_global >= 0
+        got = vertex_to_cell(sm.tensors[s].mesh,
+                             sstate[s].velocity.u_velocity)[
+                                 torch.as_tensor(ok)]
+        np.testing.assert_allclose(got.numpy(),
+                                   u_cell[b.cell_global[ok]].numpy(),
+                                   rtol=0, atol=1e-15)
+    assert float(sm.gather_tracers(sstate)["snowGrainRadius"].max()) > \
+        54.526
 
 
 def _runner_forcing(mesh):
