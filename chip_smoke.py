@@ -84,7 +84,26 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
                     ROADMAP Queue 3 fault 6's rule; c. one CoupledDriver
                     interval with BL99 and prescribed per-category surface
                     fluxes, bitwise the same steps by hand, float32
-                    against float64;
+                    against float64; d. CESM ponds with the snow tracers
+                    and the snow-liquid routing, SNICAR and 2 bulk
+                    aerosol species; e. topographic ponds with the pond
+                    freshwater feedback, dEdd and modal aerosols (2
+                    species); d and e under a melting atmosphere with real
+                    initial ponds and seeded aerosol deposition, 2 steps
+                    each, held as a and b, the pond and aerosol products
+                    among the conserved ones, the aerosol budget of each
+                    column step held;
+       fault 16     the full-physics panel sphere with BL99 (Tsfc
+                    computed) through CoupledDriver, float32, 8 substeps:
+                    every tracer finite after each (ROADMAP Queue 3
+                    fault 16);
+       entry scripts  `examples/torch_run_box_test.py` (K4),
+                    `torch_run_global.py` (K1), `torch_run_5day_global.py`
+                    and `torch_run_5day_from_files.py` (K1 + K2, with its
+                    restart check) through runpy, 2 steps each at the
+                    script's own mesh (the box 80 x 80), and
+                    `entry_torch.py`'s entry() (K4) and
+                    dryrun_multichip(4) (K6 + K2);
   3. holds each kernel against its plain PyTorch version on the card, on
      the very tensors the step hands it (float32, and the same tensors
      cast to float64), and times both with CUDA events; reports the
@@ -121,6 +140,7 @@ result and exits 2.
 """
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -335,15 +355,18 @@ def stepper(model, col=None):
     """step(state, forcing) -> (state, diags) of a SeaIceModel or a
     ShardedSeaIceModel (whose state and forcing are lists of blocks);
     col: the column physics' (AtmosForcing, OceanForcing, coszen) of a
-    full-physics model (of a sharded one: three lists of blocks)."""
+    full-physics model, with the aerosol deposition faero_atm as a fourth
+    entry where the model carries aerosols (of a sharded one: lists of
+    blocks)."""
     step = model.make_step()
     if hasattr(model, "halo"):
         return lambda state, forcing: step(model.tensors, model.halo, state,
                                            forcing, *(col or ()))
     if col is not None:
-        atm, ocn, coszen = col
+        atm, ocn, coszen, *faero = col
+        kw = {"faero_atm": faero[0]} if faero else {}
         return lambda state, forcing: step(model.tensors, state, forcing,
-                                           atm, ocn, coszen=coszen)
+                                           atm, ocn, coszen=coszen, **kw)
     return lambda state, forcing: step(model.tensors, state, forcing)
 
 
@@ -496,7 +519,8 @@ def full_physics_path(label, model, state, forcing, col, n_steps,
     (`capture_calls`); sums: a RemapSums whose errors are held by tracer
     product after the steps (`hold_products`).  Returns (state, median
     ms per step, the BL99/Picard/zero-layer iterations of each step, the
-    last step's kernel calls or None, the launch counts read)."""
+    last step's kernel calls or None, the launch counts read, the last
+    step's diags)."""
     from seaice_tpu_torch.kernels import launch_counts, reset_launch_counts
     step = stepper(model, col)
     n_dyn = model.cfg.velocity.dynamics_subcycle_number
@@ -552,7 +576,7 @@ def full_physics_path(label, model, state, forcing, col, n_steps,
         if n != want.get(name, 0):
             fail(f"{label}: {name} launched {n} times in {n_steps} steps, "
                  f"expected {want.get(name, 0)}")
-    return state, float(np.median(ms)), iters, calls, counts
+    return state, float(np.median(ms)), iters, calls, counts, diags
 
 
 def full_physics_phases(model, state, forcing, col, reps=3):
@@ -1799,64 +1823,6 @@ def mpas_fixture():
     return mod
 
 
-def write_forcing_files(outdir, mesh):
-    """CORE-layout 6-hourly and monthly atmosphere and NCAR monthly ocean
-    files for `mesh`, written with plain scipy netcdf calls (the files of
-    `examples/run_5day_from_files.py`)."""
-    import os
-    from scipy.io import netcdf_file
-    from seaice_tpu_torch.mesh.rotation import latlon_vector_rotation_forward
-
-    nc = mesh.n_cells
-    lat, lon = mesh.lat_cell, mesh.lon_cell
-
-    def write(path, times, fields):
-        f = netcdf_file(path, "w")
-        f.createDimension("Time", len(times))
-        f.createDimension("nCells", nc)
-        v = f.createVariable("xtime_seconds", "d", ("Time",))
-        v[:] = times
-        for k, a in fields.items():
-            v = f.createVariable(k, "d", ("Time", "nCells"))
-            v[:] = a
-        f.close()
-
-    # 6-hourly atmosphere across the year (16 sample times, cyclic)
-    n_samp = 16
-    t6 = np.linspace(0.0, 365 * 86400.0, n_samp, endpoint=False)
-    t_air, q, u_wind, v_wind = (np.zeros((n_samp, nc)) for _ in range(4))
-    for i, tsec in enumerate(t6):
-        season = np.cos(2 * np.pi * (tsec / (365 * 86400.0) - 14 / 365))
-        t_air[i] = 288.0 - 45.0 * np.sin(np.abs(lat)) ** 2 \
-            - 12.0 * season * np.sin(lat)
-        q[i] = np.clip(5e-3 * np.exp((t_air[i] - 288.0) / 12.0),
-                       1e-4, 2e-2)
-        u_t = 6.0 * np.cos(lat) + 2.0 * np.sin(
-            2 * np.pi * tsec / (10 * 86400.0) + lon)
-        v_t = 1.5 * np.sin(2 * lon + 2 * np.pi * tsec / (5 * 86400.0))
-        u_wind[i], v_wind[i] = latlon_vector_rotation_forward(
-            u_t, v_t, mesh.x_cell, mesh.y_cell, mesh.z_cell)
-    paths = [os.path.join(outdir, n) for n in
-             ("core_sixhourly.nc", "core_monthly.nc", "ocean.nc")]
-    write(paths[0], t6, {
-        "airTemperature": t_air, "airSpecificHumidity": q,
-        "uAirVelocity": u_wind, "vAirVelocity": v_wind})
-    tm = (np.arange(12) + 0.5) * (365.0 * 86400.0 / 12)
-    write(paths[1], tm, {
-        "cloudFraction": np.tile(
-            (0.5 + 0.3 * np.sin(np.abs(lat)))[None, :], (12, 1)),
-        "rainfallRate": np.full((12, nc), 2e-6)})
-    polar = np.abs(lat) > np.deg2rad(65.0)
-    sst = np.where(polar, -1.7, 8.0 + 14.0 * np.cos(lat) ** 2)
-    write(paths[2], tm, {
-        "seaSurfaceTemperature": np.tile(sst[None, :], (12, 1)),
-        "seaSurfaceSalinity": np.full((12, nc), 34.0),
-        "uOceanVelocity": np.zeros((12, nc)),
-        "vOceanVelocity": np.zeros((12, nc)),
-        "oceanMixedLayerDepth": np.full((12, nc), 20.0)})
-    return paths
-
-
 def file_config(C=None):
     """The north-star column of `bench_full.py` (5 categories, 7+1
     layers, 120 subcycles, dt 1800 s, metric terms, mushy, dEdd, level
@@ -1879,6 +1845,7 @@ def file_inputs(workdir):
     """The subdiv-SUBDIV mesh file of `tests/mpas_fixture.py` and its
     forcing files, written once into workdir, read back through the
     port's readers: (mesh, CoreAtmosForcing, NcarOceanForcing)."""
+    from seaice_tpu_torch.io.synthetic import write_forcing_files
     import os
     from seaice_tpu_torch.io import read_mpas_mesh
     from seaice_tpu_torch.io.forcing_reader import (core_atmos_from_files,
@@ -1965,13 +1932,15 @@ def hold_products(label, tr, area, sums):
     Queue 3, fault 7: the remap's sliver repair clamps the pond depth of
     slivers to the range of the meaningful cells, which is not
     conservative; under cold forcing the ponds are rounding noise,
-    fault 4).  tr: the state's tracers after the remaps, area: the
+    fault 4); the level-ice fraction enters the pond water where the
+    tree carries it.  tr: the state's tracers after the remaps, area: the
     cells' areas.  Returns {"by_product", "max_error_but_ponds",
     "ponds_max_error", "pond_water_m", "ponds_limit"}; fails when a
     product exceeds its limit."""
     a = tr["iceAreaCategory"]
-    water = ((a * tr["levelIceArea"] * tr["pondArea"] * tr["pondDepth"])
-             .sum(-1) * area).sum() / ((a.sum(-1) * area).sum())
+    pond = a * tr.get("levelIceArea", 1.0) * tr["pondArea"]
+    water = ((pond * tr["pondDepth"]).sum(-1) * area).sum() / (
+        (a.sum(-1) * area).sum())
     by = sums.errors()
     vals = torch.stack([water.double()] + [e.double() for e in by.values()])
     water, *errs = vals.cpu().tolist()
@@ -2281,6 +2250,7 @@ def sharded_full_physics(workdir, gap, card, reps):
                                      read_restart_timestamp)
     from seaice_tpu_torch.io.forcing_reader import (core_atmos_from_files,
                                                     ncar_ocean_from_file)
+    from seaice_tpu_torch.io.synthetic import write_forcing_files
     from seaice_tpu_torch.kernels import launch_counts, reset_launch_counts
     from seaice_tpu_torch.parallel import ShardedSeaIceModel
     from seaice_tpu_torch.run import RunStreams, ShardedStandaloneRunner
@@ -2488,6 +2458,7 @@ def namelist_run(inputs_dir, reps, card):
     from seaice_tpu_torch.analysis import AnalysisDriver, default_members
     from seaice_tpu_torch.io.forcing_reader import (core_atmos_from_files,
                                                     ncar_ocean_from_file)
+    from seaice_tpu_torch.io.synthetic import write_forcing_files
     from seaice_tpu_torch.kernels import launch_counts, reset_launch_counts
     from seaice_tpu_torch.mesh import icosahedral_mesh
     from seaice_tpu_torch.model import SeaIceModel
@@ -2997,13 +2968,15 @@ OPTIONS_PRESCRIBED = dict(ktherm=1, calc_surface_temperature=False)
 OPTION_STEPS = 2
 
 
-def option_states(model, n_steps, round_after=None):
+def option_states(model, n_steps, round_after=None,
+                  inputs=full_physics_inputs):
     """n_steps of a full-physics model of the panel sphere from its
-    initial state (`full_physics_inputs`): the global fields after them
-    and the steps' thermo iterations; round_after: round the state to
-    float32 once after that many steps (the float64 run's own response
-    to one float32 rounding, ROADMAP Queue 3 fault 6)."""
-    state, forcing, col = full_physics_inputs(model)
+    initial state (`inputs`, `full_physics_inputs` by default): the
+    global fields after them and the steps' thermo iterations;
+    round_after: round the state to float32 once after that many steps
+    (the float64 run's own response to one float32 rounding, ROADMAP
+    Queue 3 fault 6)."""
+    state, forcing, col = inputs(model)
     step = stepper(model, col)
     iters = []
     for i in range(n_steps):
@@ -3014,20 +2987,22 @@ def option_states(model, n_steps, round_after=None):
     return global_fields(model, state), iters
 
 
-def option_f32_against_f64(label, model64, f32, n_steps, area_cell, extra):
+def option_f32_against_f64(label, model64, f32, n_steps, area_cell, extra,
+                           inputs=full_physics_inputs):
     """The float32 fields `f32` after n_steps against the same steps of
     the float64 model `model64` and of it rounded to float32 once after
     step 1, held by fault 6's rule (`hold_file_run_to_f64`); the thermo
     iterations of the float64 steps beside the float32 ones (`extra`)."""
-    f64, it64 = option_states(model64, n_steps)
-    f64r, _ = option_states(model64, n_steps, round_after=1)
+    f64, it64 = option_states(model64, n_steps, inputs=inputs)
+    f64r, _ = option_states(model64, n_steps, round_after=1, inputs=inputs)
     torch.cuda.empty_cache()
     hold_file_run_to_f64(label, f32, f64, f64r, area_cell, n_steps,
                          dict(extra, thermo_iterations_f64=it64),
                          key="column_options_f32_vs_f64")
 
 
-def option_path(label, bases, opts, reps, card, kernels, main_syncs):
+def option_path(label, bases, opts, reps, card, kernels, main_syncs,
+                inputs=full_physics_inputs, watch=contextlib.nullcontext):
     """One path of the column-options phase, float32: the full-physics
     panel sphere with the column options `opts`, counts to 0 before its
     OPTION_STEPS steps from rest and read after them (the last recorded:
@@ -3037,18 +3012,20 @@ def option_path(label, bases, opts, reps, card, kernels, main_syncs):
     the main path's, ms per step and the device's idle share; then the
     float32 state against float64 by fault 6's rule.  bases: the
     float32 and float64 full-physics models the path's models are taken
-    from (`SeaIceModel.with_column`).  Returns (model, state, forcing,
-    col) after the path."""
+    from (`SeaIceModel.with_column`); inputs: the initial state and
+    forcing (`full_physics_inputs`, or `melting_inputs`); watch: a
+    context active around the path's steps alone.  Returns (model,
+    state, forcing, col, the diags of the path's last step)."""
     from seaice_tpu_torch.transport.cuda_flux import flux_layout
     t0 = time.perf_counter()
     model = bases[torch.float32].with_column(**opts)
-    state, forcing, col = full_physics_inputs(model)
+    state, forcing, col = inputs(model)
     emit({"model": {"path": label, "options": opts,
                     "seconds_to_build": time.perf_counter() - t0,
                     "cells": model.mesh.n_cells, "dtype": "float32",
                     "tracers": model.tree.names}})
-    with RemapSums() as sums:
-        state, ms, iters, calls, counts = full_physics_path(
+    with RemapSums() as sums, watch():
+        state, ms, iters, calls, counts, diags = full_physics_path(
             label, model, state, forcing, col, OPTION_STEPS,
             capture_last=True, sums=sums)
     add_launches(kernels, label, counts)
@@ -3095,8 +3072,8 @@ def option_path(label, bases, opts, reps, card, kernels, main_syncs):
                            bases[torch.float64].with_column(**opts),
                            f32, OPTION_STEPS,
                            model.tensors.area_cell.double().cpu().numpy(),
-                           {"thermo_iterations_f32": iters})
-    return model, state, forcing, col
+                           {"thermo_iterations_f32": iters}, inputs=inputs)
+    return model, state, forcing, col, diags
 
 
 def prescribed_flux_imports(nc, ncat):
@@ -3195,11 +3172,11 @@ def prescribed_flux_interval(bases, card, kernels):
                          key="column_options_f32_vs_f64")
 
 
-def column_options(reps, card, kernels, main_syncs):
-    """The column-options phase at full width (paths a to c): every path
-    with its launch counts set to 0 before and read after.  One float32
-    and one float64 model of the sphere are built; each path takes its
-    column options on a copy (`SeaIceModel.with_column`)."""
+def option_bases():
+    """The float32 and float64 full-physics models of the sphere that
+    every path of the column-options phases (a to e) and fault 16's
+    configuration take their column options from, on a copy
+    (`SeaIceModel.with_column`): {dtype: model}."""
     t0 = time.perf_counter()
     bases = {dtype: full_physics_case(
         SUBDIV, N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES, dtype, None)[0]
@@ -3207,8 +3184,16 @@ def column_options(reps, card, kernels, main_syncs):
     emit({"model": {"path": "column options", "cells":
                     bases[torch.float32].mesh.n_cells,
                     "seconds_to_build": time.perf_counter() - t0}})
+    return bases
+
+
+def column_options(bases, reps, card, kernels, main_syncs):
+    """The column-options phase at full width (paths a to c), on the
+    models of `option_bases`: every path with its launch counts set to 0
+    before and read after."""
+    t0 = time.perf_counter()
     label = "column options (a) snow, form drag, highfreq"
-    model, state, forcing, col = option_path(
+    model, state, forcing, col, _ = option_path(
         label, bases, OPTIONS_SNOW, reps, card, kernels, main_syncs)
     # the other two redistribution schemes, one step each on the same
     # sphere from path (a)'s state
@@ -3218,7 +3203,7 @@ def column_options(reps, card, kernels, main_syncs):
         m = model.with_column(snwredist=scheme)
         with RemapSums() as sums:
             label = f"column options (a) snwredist={scheme}"
-            s, _, _, _, counts = full_physics_path(
+            s, _, _, _, counts, _ = full_physics_path(
                 label, m, state, forcing, col, 1, sums=sums)
         add_launches(kernels, label, counts)
         if np.array_equal(s.tracers["snowVolumeCategory"].cpu().numpy(),
@@ -3230,9 +3215,275 @@ def column_options(reps, card, kernels, main_syncs):
                 reps, card, kernels, main_syncs)
     torch.cuda.empty_cache()
     prescribed_flux_interval(bases, card, kernels)
-    del bases
     torch.cuda.empty_cache()
     emit({"column_options_seconds": time.perf_counter() - t0})
+
+
+# --- the pond and radiation options, fault 16 and the entry scripts ----------
+
+# the column's pond and radiation options on the full-physics panel
+# sphere, each under MELT_ATMOSPHERE with real initial ponds and seeded
+# aerosol deposition: (d) CESM ponds with the snow tracers and the
+# snow-liquid routing, SNICAR and 2 bulk aerosol species; (e) topographic
+# ponds with the pond freshwater feedback (only topographic ponds book
+# the pond water withheld from the ocean), dEdd and modal aerosols (2
+# species)
+OPTIONS_CESM_SNICAR = dict(pond_scheme="cesm", use_snow_tracers=True,
+                           use_snow_liquid_ponds=True,
+                           use_snicar=True, n_aerosols=2)
+OPTIONS_TOPO_MODAL = dict(pond_scheme="topo",
+                          include_pond_freshwater_feedback=True,
+                          n_aerosols=2, use_modal_aerosols=True)
+# a melting atmosphere over the whole sphere (the CPU tests' MELT,
+# tests/test_torch_column_model.py)
+MELT_ATMOSPHERE = dict(air_temperature=275.0, longwave_down=320.0,
+                       sw_vis_dir=120.0, sw_vis_dif=60.0, sw_ir_dir=100.0,
+                       sw_ir_dif=50.0, rain_rate=1e-5,
+                       specific_humidity=4e-3)
+# the initial ponds of the pond paths: a fraction of the ice area and a
+# depth (m) wherever a category holds ice, so that the schemes evolve
+# real ponds (two steps of melt alone make rounding-noise ponds under
+# CESM, ROADMAP Queue 3 fault 4)
+REAL_PONDS = dict(pondArea=0.3, pondDepth=0.05)
+# the aerosol deposition's largest rate (kg/m^2/s), seeded per cell
+FAERO_MAX = 2e-12
+# the aerosol budget of each column step (`aerosol_budget`): to this share
+# of the pools and the deposition
+AEROSOL_BUDGET_LIMIT = 1e-5
+# fault 16's configuration: BL99 with Tsfc computed through CoupledDriver
+FAULT16_OPTIONS, FAULT16_SUBSTEPS = dict(ktherm=1), 8
+
+
+def melting_inputs(model):
+    """`full_physics_inputs` under MELT_ATMOSPHERE, with REAL_PONDS where
+    the ice is (the tracers of them the model carries) and, where the
+    model carries aerosols, a seeded deposition rate per cell and species
+    in [0, FAERO_MAX) as the column forcing's fourth entry."""
+    state, forcing, (atm, ocn, coszen) = full_physics_inputs(model)
+    dtype, dev = model.dtype, model.device
+    atm = atm.replace(**{k: torch.full_like(getattr(atm, k), v)
+                         for k, v in MELT_ATMOSPHERE.items()})
+    tr = dict(state.tracers)
+    ice = tr["iceAreaCategory"] > 0.0
+    for k, v in REAL_PONDS.items():
+        if k in tr:
+            tr[k] = torch.where(ice, v, 0.0).to(dtype)
+    col = (atm, ocn, coszen)
+    n_aero = model.cfg.column.n_aerosols
+    if n_aero:
+        rng = np.random.default_rng(5)
+        col += (torch.as_tensor(rng.uniform(
+            0.0, FAERO_MAX, (model.mesh.n_cells, n_aero))).to(
+                device=dev, dtype=dtype),)
+    return state.replace(tracers=tr), forcing, col
+
+
+@contextlib.contextmanager
+def aerosol_budget(residuals):
+    """While active, every `update_aerosol` call of the column appends to
+    residuals its budget's relative residual, on the card (no host
+    sync): the sum over cells and species of |a.(pools after - pools
+    before) + faero_ocn dt - a faero_atm dt| over that of a.(pools
+    before) + a faero_atm dt, a the categories' ice areas."""
+    import inspect
+    from seaice_tpu_torch.column import aerosol
+    inner = aerosol.update_aerosol
+    sig = inspect.signature(inner)
+
+    def budget(*args, **kw):
+        out = inner(*args, **kw)
+        b = sig.bind(*args, **kw).arguments
+        a, dt = b["aicen"].double(), b["dt"]
+        before = (b["aero"].double().sum(-1) * a[..., None]).sum(-2)
+        after = (out.aero.double().sum(-1) * a[..., None]).sum(-2)
+        dep = b["faero_atm"].double() * a.sum(-1, keepdim=True) * dt
+        ocean = out.flux_ocn.double() * dt
+        residuals.append((after + ocean - before - dep).abs().sum() /
+                         (before + dep).sum())
+        return out
+    aerosol.update_aerosol = budget
+    try:
+        yield
+    finally:
+        aerosol.update_aerosol = inner
+
+
+def pond_radiation_options(bases, reps, card, kernels, main_syncs):
+    """Paths (d) and (e) of the column-options phase at full width
+    (`option_path` under `melting_inputs`, on the models of
+    `option_bases`): each path's pond water per unit ice area must stay
+    real (>= NOISE) after its steps, so the pond products are held to
+    IR_CONSERVATION_LIMIT like every other, and every column step of
+    the path must keep the aerosol budget (`aerosol_budget`) to
+    AEROSOL_BUDGET_LIMIT."""
+    t0 = time.perf_counter()
+    for label, opts in (
+            ("column options (d) CESM and snow-liquid ponds, SNICAR, "
+             "bulk aerosols", OPTIONS_CESM_SNICAR),
+            ("column options (e) topographic ponds, pond freshwater "
+             "feedback, dEdd, modal aerosols", OPTIONS_TOPO_MODAL)):
+        budgets = []
+        model, state, forcing, col, diags = option_path(
+            label, bases, opts, reps, card, kernels, main_syncs,
+            inputs=melting_inputs, watch=lambda: aerosol_budget(budgets))
+        tr = state.tracers
+        a = tr["iceAreaCategory"]
+        area = model.tensors.area_cell
+        water = float(((a * tr["pondArea"] * tr["pondDepth"]).sum(-1) *
+                       area).sum() / ((a.sum(-1) * area).sum()))
+        fl = diags["column_fluxes"]
+        out = {"path": label, "card": card, "pond_water_m": water,
+               "aerosol_budget": [float(r) for r in budgets],
+               "faero_ocn_max": float(fl.faero_ocn.abs().max()),
+               "fpond_max": float(fl.fpond.abs().max()),
+               "aerosol_max": {k: float(tr[k].abs().max()) for k in (
+                   "snowScatteringAerosol", "snowBodyAerosol",
+                   "iceScatteringAerosol", "iceBodyAerosol")}}
+        emit({"pond_radiation_path": out})
+        if not water >= NOISE:
+            fail(f"{label}: pond water {water} m per unit ice area is "
+                 f"rounding noise")
+        if len(budgets) != OPTION_STEPS:
+            fail(f"{label}: {len(budgets)} aerosol updates in "
+                 f"{OPTION_STEPS} steps")
+        if not max(out["aerosol_budget"]) <= AEROSOL_BUDGET_LIMIT:
+            fail(f"{label}: aerosol budget {out['aerosol_budget']} > "
+                 f"{AEROSOL_BUDGET_LIMIT}")
+        del model, state, forcing, col, diags, fl
+        torch.cuda.empty_cache()
+    emit({"pond_radiation_seconds": time.perf_counter() - t0})
+
+
+def fault16(bases, card, kernels):
+    """ROADMAP Queue 3 fault 16's configuration: the full-physics panel
+    sphere with BL99 (Tsfc computed) through CoupledDriver, float32, the
+    imports of `coupled_imports` (and the per-category fluxes of
+    `prescribed_flux_imports`, as `dev/bl99_coupled_witness.py` gives
+    them), FAULT16_SUBSTEPS substeps, on the float32 model of
+    `option_bases`; fails at the first substep that leaves a tracer
+    non-finite.  Counts to 0 around the substeps (K3 and K2 once each a
+    substep)."""
+    from seaice_tpu_torch.coupled import CoupledDriver
+    from seaice_tpu_torch.kernels import launch_counts, reset_launch_counts
+    label = "fault 16: BL99 through CoupledDriver, float32"
+    t0 = time.perf_counter()
+    model = bases[torch.float32].with_column(**FAULT16_OPTIONS)
+    nc, ncat = model.mesh.n_cells, model.cfg.run.n_categories
+    fields = dict(coupled_imports(nc), **prescribed_flux_imports(nc, ncat))
+    drv = CoupledDriver(model, full_physics_inputs(model)[0],
+                        coupling_interval=COUPLING_INTERVAL)
+    inner, rows = drv.step_fn, []
+
+    def checked(*a, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = inner(*a, **kw)
+        torch.cuda.synchronize()
+        bad = {k: int((~torch.isfinite(v)).sum())
+               for k, v in out[0].tracers.items()
+               if not bool(torch.isfinite(v).all())}
+        rows.append({"ms": 1e3 * (time.perf_counter() - t1),
+                     "thermo_iterations":
+                         out[1]["column_fluxes"].thermo_iterations,
+                     "non_finite": bad})
+        if bad:
+            fail(f"{label}: substep {len(rows)} leaves non-finite "
+                 f"tracers {bad}")
+        return out
+    drv.step_fn = checked
+    emit({"model": {"path": label, "cells": nc, "options": FAULT16_OPTIONS,
+                    "seconds_to_build": time.perf_counter() - t0}})
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    while len(rows) < FAULT16_SUBSTEPS:
+        drv.advance(fields)
+    counts = launch_counts()
+    want = {"evp_panel_loop": len(rows), "integrate_fluxes_cuda": len(rows)}
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            fail(f"{label}: {name} launched {n} times in {len(rows)} "
+                 f"substeps, expected {want.get(name, 0)}")
+    add_launches(kernels, label, counts)
+    emit({"fault16": {"path": label, "card": card, "substeps": rows,
+                      "launches": counts}})
+    del model, drv
+    torch.cuda.empty_cache()
+
+
+# each example of the port and its entry file on the card at its own
+# width (the script's default mesh: the 80 x 80 box against its default
+# 20 x 20) and small depth (2 steps; 3 with the file-driven run's
+# restart): (script, arguments, the kernels its run launches); the 5-day
+# examples also get --outdir
+ENTRY_SCRIPTS = (
+    ("examples/torch_run_box_test.py", ["--nx", "80", "--hours", "0.34",
+                                        "--subcycles", "120", "--f32"],
+     ("evp_raster_loop",)),
+    ("examples/torch_run_global.py", ["--days", "0.021"],
+     ("evp_subcycle_loop",)),
+    ("examples/torch_run_5day_global.py", ["--days", "0.042"],
+     ("evp_subcycle_loop", "integrate_fluxes_cuda")),
+    ("examples/torch_run_5day_from_files.py", ["--days", "0.042",
+                                               "--verify-restart"],
+     ("evp_subcycle_loop", "integrate_fluxes_cuda")),
+)
+
+
+def entry_scripts(card, kernels, workdir):
+    """The port's example scripts through runpy on the card (their
+    standard output kept, its last lines printed) and `entry_torch.py`'s
+    entry() (one step of the 32 x 32 box: K4) and dryrun_multichip(4) (one
+    sharded full-physics step in 4 blocks on the card: K6 and K2): each
+    with its counts set to 0 before and read after, and the kernels of
+    its path launched."""
+    import io
+    import os
+    import runpy
+    from seaice_tpu_torch.kernels import launch_counts, reset_launch_counts
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def counted(label, fn, expect):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fn()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        emit({"entry_script": {
+            "path": label, "card": card,
+            "seconds": time.perf_counter() - t0, "launches": counts,
+            "output_tail": buf.getvalue().strip().splitlines()[-3:]}})
+        if {k for k, n in counts.items() if n} != set(expect):
+            fail(f"{label}: launched {counts}, expected {expect}")
+        add_launches(kernels, label, counts)
+
+    for script, args, expect in ENTRY_SCRIPTS:
+        path = os.path.join(root, script)
+        if "5day" in script:
+            args = args + ["--outdir", os.path.join(
+                workdir, os.path.basename(script)[:-3])]
+
+        def run(path=path, args=args):
+            argv = sys.argv
+            sys.argv = [path] + args
+            try:
+                runpy.run_path(path, run_name="__main__")
+            finally:
+                sys.argv = argv
+        counted(script, run, expect)
+    entry = runpy.run_path(os.path.join(root, "entry_torch.py"))
+
+    def one_step():
+        fn, fn_args = entry["entry"]()
+        out, _ = fn(*fn_args)
+        if not bool(torch.isfinite(out.velocity.u_velocity).all()):
+            fail("entry_torch.entry(): u is not finite")
+    counted("entry_torch.entry()", one_step, ("evp_raster_loop",))
+    counted("entry_torch.dryrun_multichip(4)",
+            lambda: entry["dryrun_multichip"](4),
+            ("evp_subcycle_step", "integrate_fluxes_cuda"))
 
 
 # --- solver variants ---------------------------------------------------------
@@ -3799,7 +4050,7 @@ def main():
         if "err" in k or k in ("ms", "plain_ms", "bound_ms")}})
     k2_on_path("full-physics panel sphere", calls["integrate_fluxes_cuda"])
     del calls
-    state, fp_ms, iters, _, counts = full_physics_path(
+    state, fp_ms, iters, _, counts, _ = full_physics_path(
         "full-physics panel sphere", model, state, forcing, col, args.steps)
     add_launches(kernels, "full-physics panel sphere", counts)
     f32_fields = global_fields(model, state)
@@ -3846,8 +4097,21 @@ def main():
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # the column's thermodynamics, surface and snow options (paths a to c)
-    column_options(args.reps, card, kernels, syncs)
+    # the column's thermodynamics, surface and snow options (paths a to
+    # c), its pond and radiation options (paths d and e), fault 16's
+    # configuration, and the port's example scripts and entry file
+    bases = option_bases()
+    column_options(bases, args.reps, card, kernels, syncs)
+    pond_radiation_options(bases, args.reps, card, kernels, syncs)
+    fault16(bases, card, kernels)
+    del bases
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    try:
+        entry_scripts(card, kernels, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
 
     # the solver variants and transport (paths a to f), then their small
     # float64 models on the card against the CPU

@@ -3,10 +3,12 @@
 full-physics panel sphere with the snow tracers, ITDrdg snow
 redistribution, form drag and high-frequency coupling (then bulk and ITDsd
 one step each), with the zero-layer thermodynamics, and one CoupledDriver
-interval with prescribed surface fluxes (BL99); each held as
-`chip_smoke.py` holds it.
+interval with prescribed surface fluxes (BL99) (--phase options); the pond
+and radiation paths (d) and (e) (--phase ponds); fault 16's BL99
+configuration through CoupledDriver (--phase fault16); the example scripts
+and entry file (--phase entry); each held as `chip_smoke.py` holds it.
 
-    python3 dev/column_options_smoke.py [--reps 3]
+    python3 dev/column_options_smoke.py [--reps 3] [--phase ponds ...]
 
 Builds the kernels, prints the JSON lines of the phase and the card
 (`nvidia-smi --query-gpu=name,power.limit`), and exits non-zero where a
@@ -26,7 +28,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--phase", action="append",
+                    choices=("options", "ponds", "fault16", "entry"),
+                    help="the phases to run (default: all four)")
     args = ap.parse_args()
+    phases = args.phase or ("options", "ponds", "fault16", "entry")
     import torch
     import chip_smoke as cs
     if not torch.cuda.is_available():
@@ -52,7 +58,22 @@ def main():
     _, syncs = cs.count_host_syncs(lambda: step(state, forcing))
     del model, state, forcing, col, step
     torch.cuda.empty_cache()
-    cs.column_options(args.reps, card, kernels, syncs)
+    if {"options", "ponds", "fault16"} & set(phases):
+        bases = cs.option_bases()
+    if "options" in phases:
+        cs.column_options(bases, args.reps, card, kernels, syncs)
+    if "ponds" in phases:
+        cs.pond_radiation_options(bases, args.reps, card, kernels, syncs)
+    if "fault16" in phases:
+        cs.fault16(bases, card, kernels)
+    if "entry" in phases:
+        import shutil
+        import tempfile
+        workdir = tempfile.mkdtemp(prefix="column_options_smoke_")
+        try:
+            cs.entry_scripts(card, kernels, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
     cs.emit({"launches_by_path": {k: v.get("launches_by_path")
                                   for k, v in kernels.items()}})
     print(card, flush=True)

@@ -5,8 +5,9 @@ Port of the JAX package's `column/` (the CICE column package, API facade
 leading batch dims [nCells, nCategories] with the vertical layer axis
 last.  The modules of the main path: thermodynamics (zero-layer
 `zerolayer`, BL99 `bl99`, mushy `mushy` + `mushy_solver`, `vertical`,
-`itd_thermo`), radiation (`shortwave`, `dedd`, `orbital`), level-ice
-ponds (`ponds`), the atmosphere boundary layer and form drag (`atmo`),
+`itd_thermo`), radiation (`shortwave`, `dedd`, `snicar`, `orbital`),
+aerosols (`aerosol`), the CESM, level-ice and topographic ponds
+(`ponds`), the atmosphere boundary layer and form drag (`atmo`),
 snow physics and redistribution (`snow`), the ITD, strength and ridging
 (`itd`, `ridging`), and the phase drivers (`driver`).
 """

@@ -19,9 +19,11 @@ state's device in its dtype: `dedd_optics(dtype, device)` makes them
 once (`ColumnPhysics` does so at construction) and `shortwave_dedd`
 takes the result; every other table entry enters as a Python scalar.
 The snow grain radius is the snow grain-radius tracer where the column
-carries it, else the reference's parametric radius.  Not ported
-(`ColumnPhysics` raises for them, ROADMAP Queue 1 item 10): aerosol
-mixing (bulk and modal) and SNICAR.
+carries it, else the reference's parametric radius.  The aerosol optics
+(the bulk tables and the modal black-carbon tables) are tensors too,
+made by `aerosol_optics` and held by `ColumnPhysics`: bulk and modal
+aerosol mass paths mix into the layer optics (`_mix_aerosol`,
+`_mix_aerosol_modal`).
 """
 
 from __future__ import annotations
@@ -285,14 +287,152 @@ def _tune_iops(k_mn, w_mn, R, fp, fm):
     return k, sigp / k
 
 
+# bulk aerosol optics per band x species (2 x black carbon, 4 x dust
+# size bins): the standard CICE/Icepack 3-band tables the reference
+# reads from its optics input file (aerosolMassExtinctionCrossSection
+# etc., Registry.xml:3951; mixing code ice_shortwave.F90:2556-2650).
+# Exact file tables replace them through `aerosol_optics` (or
+# `ColumnPhysics.set_aerosol_optics`).
+KAER_TAB = np.array([                     # mass extinction (m^2/kg)
+    [11580.619, 25798.965, 196.498, 2665.859, 840.783, 387.512],
+    [5535.418, 11536.039, 204.141, 2256.710, 1028.247, 414.688],
+    [2793.797, 4688.242, 214.423, 820.360, 1163.033, 450.298]])
+WAER_TAB = np.array([                     # single-scatter albedo
+    [0.290, 0.517, 0.845, 0.899, 0.891, 0.780],
+    [0.173, 0.416, 0.942, 0.969, 0.937, 0.709],
+    [0.066, 0.213, 0.957, 0.974, 0.949, 0.730]])
+GAER_TAB = np.array([                     # asymmetry parameter
+    [0.354, 0.526, 0.832, 0.689, 0.702, 0.787],
+    [0.198, 0.324, 0.783, 0.708, 0.661, 0.736],
+    [0.089, 0.150, 0.744, 0.542, 0.720, 0.644]])
+
+# -- modal aerosol optics (config_use_modal_aerosols) ------------------------
+# BC optics binned by BC effective radius (10 bins) plus the
+# within-grain absorption enhancement factor binned additionally by
+# snow grain radius (8 bins): the SNICAR internal-mixing treatment
+# (Flanner et al. 2012; reference mixing code
+# ice_shortwave.F90:2390-2470 and :2556-2680, tables from the MPAS
+# optics input stream modalMassExtinctionCrossSection /
+# modalBCabsorptionParameter, Registry.xml:3954-3961).  The table data
+# ships in the external optics file, so the defaults below are the JAX
+# package's provisional ones: the 100 nm column reproduces the bulk BC
+# optics, neighboring radius bins scale it smoothly, and the enhancement
+# grows with snow grain radius in the Flanner 2012 range (1-2.2x).
+_BC_BIN_SCALE = np.linspace(1.35, 0.45, 10)      # vs 100nm bin (idx 1)
+KAER_BC_TAB = KAER_TAB[:, :1] * _BC_BIN_SCALE[None, :]
+WAER_BC_TAB = np.clip(WAER_TAB[:, :1] *
+                      np.linspace(0.8, 1.6, 10)[None, :], 0.0, 0.98)
+GAER_BC_TAB = np.clip(GAER_TAB[:, :1] *
+                      np.linspace(0.85, 1.45, 10)[None, :], 0.0, 0.95)
+# bcenh[band, bc_bin, snow_grain_bin]
+BCENH_TAB = (1.0 + 1.2 * (np.arange(1, 9) / 8.0) ** 0.5)[None, None, :] \
+    * np.ones((3, 10, 1))
+
+_K_BC_RADIUS = 1   # fixed 100 nm BC effective radius (ref: index 2)
+
+
+class AerosolOptics(NamedTuple):
+    """The aerosol optics of one dtype/device: the bulk tables as tensors
+    [3, n_species]; the modal black carbon at its fixed radius bin as
+    Python floats per band (extinction, single-scatter albedo,
+    asymmetry) and its within-grain enhancement as a tensor [3, 8] over
+    the snow-grain bins."""
+    kaer: torch.Tensor
+    waer: torch.Tensor
+    gaer: torch.Tensor
+    bc: tuple               # ((k, w, g) per band)
+    bcenh: torch.Tensor
+
+
+def aerosol_optics(dtype, device, kaer=KAER_TAB, waer=WAER_TAB,
+                   gaer=GAER_TAB, kaer_bc=KAER_BC_TAB, waer_bc=WAER_BC_TAB,
+                   gaer_bc=GAER_BC_TAB, bcenh=BCENH_TAB) -> AerosolOptics:
+    """The aerosol optics tables in dtype on device: the bulk per-band
+    tables (shape [3, n_species], the reference's set_aerosol_optics)
+    and the modal BC tables ([3, 10] x3 and [3, 10, 8], its
+    set_modal_aerosol_optics), the JAX package's defaults unless given
+    (exact tables from an optics file)."""
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float64)).to(
+            device=device, dtype=dtype)
+    k = _K_BC_RADIUS
+    bc = tuple((float(np.asarray(kaer_bc)[b, k]),
+                float(np.asarray(waer_bc)[b, k]),
+                float(np.asarray(gaer_bc)[b, k])) for b in range(3))
+    return AerosolOptics(t(kaer), t(waer), t(gaer), bc,
+                         t(np.asarray(bcenh)[:, k, :]))
+
+
+def _snow_grain_bcenh_index(r_um):
+    """Snow-grain-radius bin for the BC enhancement table, 0-based
+    (reference ice_shortwave.F90:2395-2409: valid 25-1625 um; <125:
+    round(r/50); <175: 2; else round(r/250 + 2); clipped 1..8)."""
+    r = torch.as_tensor(r_um)
+    idx = torch.where(
+        r < 125.0, torch.round(r / 50.0),
+        torch.where(r < 175.0, 2.0, torch.round(r / 250.0 + 2.0)))
+    return idx.clamp(1.0, 8.0).to(torch.int64) - 1
+
+
+def _mix(tau, w0, g, taer, waer, gaer):
+    """Add an aerosol's (extinction, scattering, scattering x asymmetry)
+    optical depths to one layer's (tau, w0, g)."""
+    g_new = (g * w0 * tau + gaer) / (w0 * tau + waer).clamp(min=c.PUNY)
+    w_new = (w0 * tau + waer) / (tau + taer).clamp(min=c.PUNY)
+    return tau + taer, w_new, torch.where(taer > 0.0, g_new, g)
+
+
+def _mix_aerosol(tau, w0, g, mp, band, aero: AerosolOptics):
+    """Mix bulk-aerosol optics into one layer's (tau, w0, g)
+    (reference ice_shortwave.F90:2556-2650): mp [*B, n_species] is the
+    aerosol mass path in this layer (kg/m^2)."""
+    n_sp = mp.shape[-1]
+    k_t = aero.kaer[band, :n_sp]
+    w_t = aero.waer[band, :n_sp]
+    g_t = aero.gaer[band, :n_sp]
+    return _mix(tau, w0, g, (mp * k_t).sum(-1), (mp * k_t * w_t).sum(-1),
+                (mp * k_t * w_t * g_t).sum(-1))
+
+
+def _mix_aerosol_modal(tau, w0, g, mp, band, kini, aero: AerosolOptics):
+    """Modal-BC aerosol mixing for one layer (reference
+    ice_shortwave.F90:2562-2597): species 0 = interstitial BC
+    (radius-binned optics), species 1 = within-grain BC (extinction
+    enhanced by bcenh for the layer's snow grain bin, scattering
+    unenhanced), species >= 2 = dust via the bulk tables.
+    kini: [*B(mp.shape[:-1])] int snow-grain bin (0-based); ice layers
+    pass 7 (the largest bin)."""
+    kb, wb, gb = aero.bc[band]
+    enh = aero.bcenh[band][kini]
+    # interstitial BC
+    taer = mp[..., 0] * kb
+    waer = mp[..., 0] * kb * wb
+    gaer = mp[..., 0] * kb * wb * gb
+    # within-grain BC: enhanced extinction, unenhanced scattering
+    taer = taer + mp[..., 1] * kb * enh
+    waer = waer + mp[..., 1] * kb * wb
+    gaer = gaer + mp[..., 1] * kb * wb * gb
+    n_sp = mp.shape[-1]
+    if n_sp > 2:
+        k_t = aero.kaer[band, 2:n_sp]
+        w_t = aero.waer[band, 2:n_sp]
+        g_t = aero.gaer[band, 2:n_sp]
+        taer = taer + (mp[..., 2:] * k_t).sum(-1)
+        waer = waer + (mp[..., 2:] * k_t * w_t).sum(-1)
+        gaer = gaer + (mp[..., 2:] * k_t * w_t * g_t).sum(-1)
+    return _mix(tau, w0, g, taer, waer, gaer)
+
+
 def shortwave_dedd(aicen, vicen, vsnon, Tsfcn, coszen,
                    swvdr, swvdf, swidr, swidf,
                    n_ice_layers: int, n_snow_layers: int = 1,
                    apnd=None, hpnd=None, rsnw=None,
+                   aero_mp_snow=None, aero_mp_ice=None,
                    R_ice: float = 0.0, R_pnd: float = 0.0,
                    R_snw: float = 1.5, dT_mlt: float = 1.5,
                    rsnw_mlt: float = 1500.0, hs0: float = 0.0,
-                   kalg: float = KALG, optics: DeddOptics = None):
+                   kalg: float = KALG, modal_aero: bool = False,
+                   optics: DeddOptics = None, aero: AerosolOptics = None):
     """Delta-Eddington albedos and absorbed-solar partition, with the
     ShortwaveResult interface of shortwave_ccsm3 (reference
     shortwave_dEdd :1187 + compute_dEdd :1674 assembly, run_dEdd
@@ -318,12 +458,21 @@ def shortwave_dedd(aicen, vicen, vsnon, Tsfcn, coszen,
     rsnw: per-snow-layer grain radius tracer [*B, nCat, ns]; default
     is the reference's Tsfc-dependent parametric radius (set_snow
     :3693-3711) with tuning R_snw.
-    optics: from `dedd_optics` (made here when None).
+    aero_mp_snow/aero_mp_ice: bulk aerosol mass paths
+    [*B, nCat, n_species, 2] (kg/m^2; slot 0 = SSL pool, slot 1 =
+    body pool, the reference's aero_mp groups of 4 :1417-1428) mixed
+    into the snow/ice layer optics (:2556-2650); modal_aero: the modal
+    BC treatment (`_mix_aerosol_modal`) in place of the bulk tables.
+    optics, aero: from `dedd_optics` and `aerosol_optics` (made here
+    when None).
     """
     from .shortwave import ShortwaveResult
 
     if optics is None:
         optics = dedd_optics(aicen.dtype, aicen.device)
+    if aero is None and (aero_mp_snow is not None or
+                         aero_mp_ice is not None):
+        aero = aerosol_optics(aicen.dtype, aicen.device)
     ni, ns_l = n_ice_layers, n_snow_layers
     has = aicen > c.PUNY
     safe_a = torch.where(has, aicen, 1.0)
@@ -431,6 +580,45 @@ def shortwave_dedd(aicen, vicen, vsnon, Tsfcn, coszen,
                     taus.append(ki_int * dz_i)
                     w0s.append(full(wi_int))
                     gls.append(full(GI_INT[b]))
+
+            # bulk aerosol mixing into the layer optics (:2556-2650):
+            # snow SSL pool -> row 0, snow body /ns_l over the body
+            # rows; ice SSL pool -> the ice SSL row, ice body /ni over
+            # DL+interior
+            if modal_aero:
+                # per-row snow-grain bins for the within-grain BC
+                # enhancement; ice rows use the largest bin
+                # (reference :2410-2412)
+                kini_rows = [_snow_grain_bcenh_index(r_rows[k])
+                             for k in range(ns_l + 1)]
+                kini_ice = torch.full(aicen.shape, 7, dtype=torch.int64,
+                                      device=aicen.device)
+
+                def mix(t, w, gg, mp, row):
+                    kini = kini_rows[row] if row <= ns_l else kini_ice
+                    return _mix_aerosol_modal(t, w, gg, mp, b, kini, aero)
+            else:
+                def mix(t, w, gg, mp, row):
+                    return _mix_aerosol(t, w, gg, mp, b, aero)
+            if aero_mp_snow is not None:
+                mps = torch.where(snow_mask[..., None],
+                                  aero_mp_snow[..., 0], 0.0)
+                mpb = torch.where(snow_mask[..., None],
+                                  aero_mp_snow[..., 1], 0.0) / ns_l
+                taus[0], w0s[0], gls[0] = mix(
+                    taus[0], w0s[0], gls[0], mps, 0)
+                for k in range(1, ns_l + 1):
+                    taus[k], w0s[k], gls[k] = mix(
+                        taus[k], w0s[k], gls[k], mpb, k)
+            if aero_mp_ice is not None:
+                mpi_s = aero_mp_ice[..., 0]
+                mpi_b = aero_mp_ice[..., 1] / ni
+                k = ns_l + 1
+                taus[k], w0s[k], gls[k] = mix(taus[k], w0s[k], gls[k],
+                                              mpi_s, k)
+                for k in range(ns_l + 2, K):
+                    taus[k], w0s[k], gls[k] = mix(
+                        taus[k], w0s[k], gls[k], mpi_b, k)
 
             sol = solve_dedd_column(taus, w0s, gls, mu, kfrsnl,
                                     float(ALBOCN_DR[b]),

@@ -12,30 +12,32 @@ colpkg routines, each phase is one vectorized pass over
 Scheme selectors mirror `ice_colpkg_shared.F90:20-150`.  The port runs
 zero-layer, BL99 and mushy thermodynamics (`ktherm` 0, 1, 2), the
 prescribed surface fluxes of calc_Tsfc=False (with ktherm 0 or 1), the
-CCSM3 and delta-Eddington shortwave (with the snow grain-radius
-tracer), Hibler and Rothrock strength, level-ice ponds, ice age,
-first-year ice, the snow tracers with their physics and the three snow
-redistribution schemes, form drag, high-frequency coupling and ITD
-thermodynamics + ridging; every other option raises
-`NotImplementedError` naming ROADMAP Queue 1 item 10 when the
-`ColumnPhysics` is built: the CESM and topographic ponds, snow-liquid
-ponds, aerosols (bulk, modal, z-layer), SNICAR, brine height,
-z-salinity and biogeochemistry.
+CCSM3, delta-Eddington and SNICAR shortwave (with the snow grain-radius
+tracer), bulk and modal aerosols, Hibler and Rothrock strength, the
+CESM, level-ice and topographic ponds (with the snow-liquid routing and
+the pond freshwater feedback), ice age, first-year ice, the snow
+tracers with their physics and the three snow redistribution schemes,
+form drag, high-frequency coupling and ITD thermodynamics + ridging;
+every other option raises `NotImplementedError` naming ROADMAP Queue 1
+item 10 when the `ColumnPhysics` is built: brine height, z-salinity and
+biogeochemistry (with the z-layer aerosols).
 
 Deviation from the reference phasing (as in the JAX package): shortwave
 radiation is computed at the START of therm1 from the current forcing;
 the post-dynamics phase runs snow physics and coupling-prep aggregation.
 
 The numpy tables (category bounds, the BL99 salinity profile, the dEdd
-snow optics) are made once here in the state's dtype and on its device,
-so an f32 step stays f32: the category bounds as Python floats, the
-salinity profile and the optics as tensors.
+snow optics, the aerosol optics, the SNICAR tables) are made once here
+in the state's dtype and on its device, so an f32 step stays f32: the
+category bounds as Python floats, the salinity profile and the optics
+as tensors.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from . import constants as c
@@ -111,7 +113,7 @@ class ColumnFluxes:
     albedo_vis_dif: Any
     albedo_ir_dif: Any
     fpond: Any                 # freshwater into melt ponds (kg/m^2/s)
-    faero_ocn: Any             # aerosol flux to ocean (not ported: None)
+    faero_ocn: Any             # aerosol flux to ocean [*, nAero] or None
     Cdn_atm: Any               # neutral atm drag (form drag) or None
     Cdn_ocn: Any               # neutral ocn drag (form drag) or None
     bgc: Any                   # BGC diagnostics (not ported: None)
@@ -242,17 +244,21 @@ class ColumnPhysics:
                 "mass/liquid tracers (config_use_effective_snow_"
                 "density; reference config check, "
                 "mpas_seaice_column.F:1915-1925)")
+        if use_modal_aerosols and shortwave != "dEdd":
+            raise ValueError(
+                "config_use_modal_aerosols requires the dEdd "
+                "shortwave (reference modal_aero treatment lives in "
+                "shortwave_dEdd, ice_shortwave.F90:2390-2470)")
+        if use_modal_aerosols and n_aerosols < 2:
+            raise ValueError(
+                "config_use_modal_aerosols needs >= 2 aerosol "
+                "species (interstitial + within-grain BC)")
         _not_ported(
-            pond_scheme_cesm=pond_scheme == "cesm",
-            pond_scheme_topo=pond_scheme == "topo",
-            n_aerosols=n_aerosols > 0,
-            use_modal_aerosols=use_modal_aerosols,
-            use_snicar=use_snicar, use_brine_height=use_brine_height,
+            use_brine_height=use_brine_height,
             use_biogeochemistry=use_biogeochemistry,
             use_skeletal_bgc=use_skeletal_bgc,
             solve_zsalinity=solve_zsalinity,
-            zbgc_params=zbgc_params is not None,
-            use_snow_liquid_ponds=use_snow_liquid_ponds)
+            zbgc_params=zbgc_params is not None)
         self.ncat = n_categories
         self.ni = n_ice_layers
         self.ns = n_snow_layers
@@ -261,7 +267,11 @@ class ColumnPhysics:
         self.use_ice_age = use_ice_age
         self.use_first_year_ice = use_first_year_ice
         self.use_snow_tracers = use_snow_tracers
+        self.use_snow_liquid_ponds = use_snow_liquid_ponds
         self.snwredist = snwredist
+        self.n_aerosols = n_aerosols
+        self.use_modal_aerosols = use_modal_aerosols
+        self.use_snicar = use_snicar
         self.use_form_drag = use_form_drag
         self.highfreq = highfreq
         self.calc_tsfc = calc_tsfc
@@ -300,10 +310,47 @@ class ColumnPhysics:
         self.tun = tunables if tunables is not None else _TUN_DEFAULT
         self.include_pond_freshwater_feedback = \
             include_pond_freshwater_feedback
-        self.optics = None
+        self.optics = self.aero = self.snicar = None
         if shortwave == "dEdd":
             from .dedd import dedd_optics
             self.optics = dedd_optics(dtype, self.device)
+        if n_aerosols:
+            from .aerosol import KSCAV_DEFAULT
+            self.set_aerosol_optics()
+            self.kscav = torch.as_tensor(KSCAV_DEFAULT[:n_aerosols]).to(
+                device=self.device, dtype=dtype)
+        if use_snicar:
+            self.set_snicar_tables()
+
+    # -- optics tables (the reference reads them from its optics files) --
+
+    def set_aerosol_optics(self, **tables):
+        """The aerosol optics this column mixes into the shortwave: the
+        bulk tables kaer/waer/gaer [3, n_species] (the reference's
+        set_aerosol_optics) and the modal BC tables kaer_bc/waer_bc/
+        gaer_bc [3, 10] and bcenh [3, 10, 8] (its
+        set_modal_aerosol_optics), each the JAX package's default unless
+        given; in this column's dtype on its device."""
+        from .dedd import aerosol_optics
+        self.aero = aerosol_optics(self.dtype, self.device, **tables)
+
+    def set_snicar_tables(self, ssp=None):
+        """The SNICAR tables of the use_snicar shortwave: the snow SSPs
+        `ssp` (a `snicar.SnicarSSP`, e.g. from `load_snicar_ssp`; None:
+        the embedded fallback), with the 3-band aerosol tables mapped
+        onto the five bands until `set_aerosol_optics_5bd`."""
+        from .snicar import snicar_tables
+        self.snicar = snicar_tables(self.dtype, self.device, ssp)
+
+    def set_aerosol_optics_5bd(self, kaer, waer, gaer):
+        """Install exact 5-band aerosol optics (kaer_tab_5bd /
+        waer_tab_5bd / gaer_tab_5bd from the SNICAR optics file, shape
+        [5, n_species]) for the SNICAR shortwave, keeping its SSPs (the
+        reference's set_aerosol_optics_5bd)."""
+        self.snicar = self.snicar._replace(aer5=tuple(
+            torch.as_tensor(np.ascontiguousarray(a, np.float64)).to(
+                device=self.device, dtype=self.dtype)
+            for a in (kaer, waer, gaer)))
 
     # -- ice strength (reference colpkg_ice_strength / ice_mechred) ------
 
@@ -356,7 +403,26 @@ class ColumnPhysics:
                     kwargs = dict(apnd=fpond, hpnd=hpnd)
             if self.use_snow_tracers and "snowGrainRadius" in tracers:
                 kwargs["rsnw"] = tracers["snowGrainRadius"]
-            for k in ("R_ice", "R_pnd", "R_snw", "dT_mlt", "rsnw_mlt"):
+            if self.n_aerosols and "snowScatteringAerosol" in tracers:
+                # bulk aerosol mass paths (reference aero_mp
+                # :1417-1428): per-volume tracers * snow/ice volume
+                kwargs["aero_mp_snow"] = torch.stack(
+                    [tracers["snowScatteringAerosol"] * vsnon[..., None],
+                     tracers["snowBodyAerosol"] * vsnon[..., None]], -1)
+                kwargs["aero_mp_ice"] = torch.stack(
+                    [tracers["iceScatteringAerosol"] * vicen[..., None],
+                     tracers["iceBodyAerosol"] * vicen[..., None]], -1)
+            for k in ("R_ice", "R_pnd"):
+                if k in tune:
+                    kwargs[k] = tune[k]
+            if self.use_snicar:
+                from .snicar import shortwave_snicar
+                return shortwave_snicar(
+                    aicen, vicen, vsnon, tsfc, coszen,
+                    swvdr, swvdf, swidr, swidf, self.ni, self.ns,
+                    tables=self.snicar, optics=self.optics, aero=self.aero,
+                    **kwargs)
+            for k in ("R_snw", "dT_mlt", "rsnw_mlt"):
                 if k in tune:
                     kwargs[k] = tune[k]
             kwargs["hs0"] = self.tun.snow_to_ice_transition_depth
@@ -364,6 +430,8 @@ class ColumnPhysics:
             return shortwave_dedd(aicen, vicen, vsnon, tsfc, coszen,
                                   swvdr, swvdf, swidr, swidf,
                                   self.ni, self.ns, optics=self.optics,
+                                  aero=self.aero,
+                                  modal_aero=self.use_modal_aerosols,
                                   **kwargs)
         alb = {k: tune[k] for k in ("albicev", "albicei", "albsnowv",
                                     "albsnowi", "ahmax") if k in tune}
@@ -377,14 +445,15 @@ class ColumnPhysics:
                             atm: AtmosForcing, ocn: OceanForcing,
                             strocnx=None, strocny=None, coszen=None,
                             uvel=None, vvel=None, day_of_year=None,
-                            lat=None, sfc_fluxes=None):
+                            lat=None, faero_atm=None, sfc_fluxes=None):
         """Vertical + ITD thermodynamics for one coupling step.
 
         coszen: cosine solar zenith (cell field) for the dEdd shortwave
         (compute with column.orbital.compute_coszen).  uvel/vvel: cell
         ice velocity (highfreq coupling).  day_of_year (a number or a
         0-d tensor) and lat (cell latitudes, radians): the first-year-ice
-        reset, skipped without either.  sfc_fluxes: calc_Tsfc=False
+        reset, skipped without either.  faero_atm [*B, nAero]: aerosol
+        deposition (kg/m^2/s; none without it).  sfc_fluxes: calc_Tsfc=False
         prescribed surface fluxes from the atmosphere model: dict with
         'fsurf', 'fcondtop', 'flat', 'fsens' [*B, nCat] (Registry
         surfaceHeatFluxCouple / surfaceConductiveFluxCouple /
@@ -547,34 +616,96 @@ class ColumnPhysics:
             st2["snowGrainRadius"] = tv.rsnw
         if tv.hpond is not None and hpnd is not None:
             at2["pondDepth"] = tv.hpond
+        meltsliq = tv.meltsliq
 
-        # snow meltwater drainage (reference drain_snow :2279); the
-        # drained liquid feeds only the snow-liquid ponds, which the
-        # port leaves out
+        # aerosol pools (reference update_aerosol call :2258)
+        faero_ocn = None
+        if self.n_aerosols and "snowScatteringAerosol" in st2:
+            from .aerosol import update_aerosol
+            aero = torch.stack(
+                [st2["snowScatteringAerosol"], st2["snowBodyAerosol"],
+                 it2["iceScatteringAerosol"], it2["iceBodyAerosol"]], -1)
+            if faero_atm is None:
+                faero_atm = torch.zeros(aice.shape + (self.n_aerosols,),
+                                        dtype=aicen.dtype,
+                                        device=aicen.device)
+            ar = update_aerosol(
+                dt, aero, aicen2, vicen2, vsnon2,
+                tv.melts, tv.meltt, tv.meltb, tv.congel, tv.snoice,
+                tv.hsn_new, faero_atm, kscav=self.kscav)
+            st2["snowScatteringAerosol"] = ar.aero[..., 0]
+            st2["snowBodyAerosol"] = ar.aero[..., 1]
+            it2["iceScatteringAerosol"] = ar.aero[..., 2]
+            it2["iceBodyAerosol"] = ar.aero[..., 3]
+            faero_ocn = ar.flux_ocn
+
+        # snow meltwater drainage (reference drain_snow :2279)
         if self.use_snow_tracers and "snowLiquidMass" in st2:
-            st2["snowLiquidMass"], _ = drain_snow(
+            st2["snowLiquidMass"], meltsliq_d = drain_snow(
                 dt, vsnon2, aicen2, st2["snowIceMass"],
                 st2["snowLiquidMass"])
+            meltsliq = meltsliq + meltsliq_d
 
-        # melt ponds (reference :2292-2352, per-category part): the
-        # level-ice scheme, the one pond scheme the port runs
+        # melt ponds (reference :2292-2352, per-category part);
+        # use_smliq_pnd (config_use_snow_liquid_ponds) routes the
+        # drained snow-liquid mass into the ponds instead of snow melt
+        # + rain (ice_colpkg.F90:2278-2334)
         fpond = torch.zeros_like(aice)
-        if self.pond_scheme == "lvl" and apnd is not None:
-            from .ponds import compute_ponds_lvl
+        pond_smliq = meltsliq if self.use_snow_liquid_ponds else None
+        if self.pond_scheme != "none" and apnd is not None:
             rfrac = self.rfracmin + \
                 (self.rfracmax - self.rfracmin) * aicen2
-            apnd_n, hpnd_n, ipnd_n, _ = compute_ponds_lvl(
-                dt, rfrac, tv.meltt, tv.melts, pc(atm.rain_rate),
-                pc(atm.air_temperature), tv.fsurfn, tv.dsnow,
-                aicen2, vicen2, vsnon2, it2["iceEnthalpy"],
-                it2["iceSalinity"], at2["surfaceTemperature"],
-                at2["levelIceArea"], at2["pondArea"], at2["pondDepth"],
-                at2.get("pondLidThickness", torch.zeros_like(aicen2)),
-                pndaspect=self.pndaspect, hi_min=self.hi_min_pond,
-                dpscale=self.dpscale, frzpnd=self.frzpnd, ktherm=ktherm)
-            at2["pondArea"], at2["pondDepth"] = apnd_n, hpnd_n
-            if "pondLidThickness" in at2:
-                at2["pondLidThickness"] = ipnd_n
+            lid = at2.get("pondLidThickness", torch.zeros_like(aicen2))
+            if self.pond_scheme == "cesm":
+                from .ponds import compute_ponds_cesm
+                at2["pondArea"], at2["pondDepth"] = compute_ponds_cesm(
+                    dt, rfrac, tv.meltt, tv.melts, pc(atm.rain_rate),
+                    aicen2, vicen2, vsnon2, at2["surfaceTemperature"],
+                    at2["pondArea"], at2["pondDepth"],
+                    pndaspect=self.pndaspect, meltsliq=pond_smliq)
+            elif self.pond_scheme == "lvl":
+                from .ponds import compute_ponds_lvl
+                apnd_n, hpnd_n, ipnd_n, _ = compute_ponds_lvl(
+                    dt, rfrac, tv.meltt, tv.melts, pc(atm.rain_rate),
+                    pc(atm.air_temperature), tv.fsurfn, tv.dsnow,
+                    aicen2, vicen2, vsnon2, it2["iceEnthalpy"],
+                    it2["iceSalinity"], at2["surfaceTemperature"],
+                    at2["levelIceArea"], at2["pondArea"], at2["pondDepth"],
+                    lid, pndaspect=self.pndaspect, hi_min=self.hi_min_pond,
+                    dpscale=self.dpscale, frzpnd=self.frzpnd,
+                    ktherm=ktherm, meltsliq=pond_smliq)
+                at2["pondArea"], at2["pondDepth"] = apnd_n, hpnd_n
+                if "pondLidThickness" in at2:
+                    at2["pondLidThickness"] = ipnd_n
+            else:   # topo: collect water per category, level cell-wise
+                from .ponds import compute_ponds_topo
+                if pond_smliq is None:
+                    pond_src = (tv.meltt * c.RHOI + tv.melts * c.RHOS +
+                                pc(atm.rain_rate) * dt)
+                else:
+                    pond_src = tv.meltt * c.RHOI + pond_smliq
+                pond = rfrac / c.RHOFRESH * pond_src
+                apnd_t = at2["pondArea"]
+                hpnd_t = at2["pondDepth"]
+                new_pond = apnd_t < c.PUNY
+                apnd_t = torch.where(new_pond & (pond > 0), 1.0, apnd_t)
+                hpnd_t = torch.where(new_pond, 0.0, hpnd_t)
+                hpnd_t = torch.where(
+                    apnd_t > c.PUNY,
+                    (pond + hpnd_t * apnd_t) / apnd_t.clamp(min=c.PUNY),
+                    hpnd_t)
+                fpond = fpond + (pond * aicen2).sum(-1)
+                fsurf_cell = (tv.fsurfn * aicen2).sum(-1)
+                meltt_cell = (tv.meltt * aicen2).sum(-1)
+                apnd_t, hpnd_t, ipnd_t, dfpond, _ = compute_ponds_topo(
+                    dt, aicen2, vicen2, vsnon2, meltt_cell, fsurf_cell,
+                    at2["surfaceTemperature"], it2["iceEnthalpy"],
+                    it2["iceSalinity"], apnd_t, hpnd_t, lid,
+                    ktherm=ktherm)
+                at2["pondArea"], at2["pondDepth"] = apnd_t, hpnd_t
+                if "pondLidThickness" in at2:
+                    at2["pondLidThickness"] = ipnd_t
+                fpond = fpond + dfpond
 
         # aggregate per-category atmosphere fluxes (area-weighted)
         def agg(x):
@@ -648,7 +779,7 @@ class ColumnPhysics:
             meltl=meltl_diag,
             albedo_vis_dir=agg(sw.alvdr), albedo_ir_dir=agg(sw.alidr),
             albedo_vis_dif=agg(sw.alvdf), albedo_ir_dif=agg(sw.alidf),
-            fpond=fpond / dt, faero_ocn=None, Cdn_atm=Cdn_atm,
+            fpond=fpond / dt, faero_ocn=faero_ocn, Cdn_atm=Cdn_atm,
             Cdn_ocn=Cdn_ocn, bgc=None,
             # non-convergence only aborts for columns that carry flux
             # weight IN f32: a category at the puny edge

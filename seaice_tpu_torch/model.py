@@ -348,14 +348,12 @@ class SeaIceModel:
             latitudes, radians): the first-year-ice reset.  sfc_fluxes:
             the calc_Tsfc=False prescribed per-category surface fluxes
             (dict: fsurf/fcondtop/flat/fsens [nCells, nCat]).  faero_atm
-            (aerosol deposition) feeds an option the port does not run:
-            only None is accepted (ROADMAP.md Queue 1 item 10)."""
-            check_unported_inputs(faero_atm)
+            [nCells, nAero]: aerosol deposition rate (kg/m^2/s)."""
             thermo = column is not None and atmos is not None
             if thermo:
                 state, fluxes = column_before_dynamics(
                     cfg, column, state, atmos, ocean, coszen,
-                    day_of_year, lat, sfc_fluxes, tensors.mesh)
+                    day_of_year, lat, sfc_fluxes, tensors.mesh, faero_atm)
             new_state, diags = drive(body(tensors, state, forcing))
             if thermo:
                 new_state, diags = column_after_dynamics(
@@ -365,19 +363,11 @@ class SeaIceModel:
         return step
 
 
-def check_unported_inputs(faero_atm=None):
-    """The step's input of an option the port does not run: aerosol
-    deposition raises unless None."""
-    if faero_atm is not None:
-        raise NotImplementedError(
-            "step input faero_atm: its column option is not ported "
-            "(ROADMAP.md Queue 1 item 10)")
-
-
 def column_before_dynamics(cfg: Config, column: ColumnPhysics, state: State,
                            atmos: AtmosForcing, ocean: OceanForcing,
                            coszen=None, day_of_year=None, lat=None,
-                           sfc_fluxes=None, mesh_t: MeshTensors = None):
+                           sfc_fluxes=None, mesh_t: MeshTensors = None,
+                           faero_atm=None):
     """The column phase before the dynamics: vertical and ITD
     thermodynamics, per cell.  With high-frequency coupling the cell ice
     velocity is the mean of the state's vertex velocities over the
@@ -391,7 +381,7 @@ def column_before_dynamics(cfg: Config, column: ColumnPhysics, state: State,
     tr, fluxes = column.step_thermodynamics(
         cfg.run.dt, dict(state.tracers), atmos, ocean, coszen=coszen,
         uvel=uvel, vvel=vvel, day_of_year=day_of_year, lat=lat,
-        sfc_fluxes=sfc_fluxes)
+        faero_atm=faero_atm, sfc_fluxes=sfc_fluxes)
     return state.replace(tracers=tr), fluxes
 
 

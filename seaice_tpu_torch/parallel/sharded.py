@@ -70,7 +70,6 @@ from ..dynamics.cuda_unstructured import (evp_subcycle_share_uv,
                                           evp_subcycle_step)
 from ..mesh.core import Mesh
 from ..model import (SeaIceModel, State, check_kernel_options,
-                     check_unported_inputs,
                      column_after_dynamics, column_before_dynamics,
                      dynamics_transport_steps)
 from ..transport.remap import make_remap_step
@@ -490,7 +489,6 @@ class ShardedSeaIceModel:
         def step(tensors, halo, state, forcing, atmos=None, ocean=None,
                  coszen=None, day_of_year=None, lat=None, faero_atm=None,
                  sfc_fluxes=None):
-            check_unported_inputs(faero_atm)
             solve = {}          # the K6 loops of the solve under way
 
             def advance(kind, fields):
@@ -505,13 +503,14 @@ class ShardedSeaIceModel:
                 coszen = coszen or [None] * self.n_shards
                 lat = lat or [None] * self.n_shards
                 sfc_fluxes = sfc_fluxes or [None] * self.n_shards
+                faero_atm = faero_atm or [None] * self.n_shards
                 # every block's cells carry all their vertices, whose
                 # velocities the last exchange of the previous step
                 # refreshed, so a highfreq cell velocity is the owner's
                 pre = [column_before_dynamics(
                     cfg, columns[s], state[s], atmos[s], ocean[s],
                     coszen[s], day_of_year, lat[s], sfc_fluxes[s],
-                    tensors[s].mesh) for s in blocks]
+                    tensors[s].mesh, faero_atm[s]) for s in blocks]
                 state = [p[0] for p in pre]
             outs = drive_lockstep(
                 [body(t, st, f) for body, t, st, f in

@@ -387,10 +387,20 @@ def limit_gradient(rt: RemapTensors, mesh_cells_on_cell,
     return gx * f, gy * f
 
 
+def _normal(x):
+    """Where |x| is a normal number of its dtype.  The reference flushes
+    subnormals to zero (XLA on the CPU and the TPU), torch keeps them:
+    a mass product below the smallest normal (1.2e-38 in float32) counts
+    as zero here as it does there, so no guard below divides by it
+    (ROADMAP Queue 3 fault 16).  In float64 nothing real lies below
+    2.2e-308, so the float64 answers are unchanged."""
+    return x.abs() >= torch.finfo(x.dtype).tiny
+
+
 def _recip(x):
-    """1/x where x != 0, else 0."""
-    return torch.where(x.abs() > 0.0,
-                       1.0 / torch.where(x == 0, 1.0, x), 0.0)
+    """1/x where x is a normal number, else 0."""
+    ok = _normal(x)
+    return torch.where(ok, 1.0 / torch.where(ok, x, 1.0), 0.0)
 
 
 def barycenter(rt: RemapTensors, depth: int, chain):
@@ -711,8 +721,9 @@ def update_mass_and_tracers(tree: TracerTree, fields, fluxes,
             pp = new_products[spec.parent]
             if new_prod.ndim > pp.ndim:
                 pp = pp.unsqueeze(-1)
-            val = torch.where(pp > 0.0,
-                              new_prod / torch.where(pp == 0, 1.0, pp), 0.0)
+            # a positive normal mass (`_normal`: subnormals count as 0)
+            ok = pp >= torch.finfo(pp.dtype).tiny
+            val = torch.where(ok, new_prod / torch.where(ok, pp, 1.0), 0.0)
             # monotone-recovery guard: in exact arithmetic the
             # recovered tracer of a consistent product/mass flux pair
             # is bounded by the pre-remap tracer range; for SLIVER
@@ -786,7 +797,9 @@ def to_transport_fields(tree: TracerTree, state: Dict[str, Any]):
         f = state[spec.name]
         if spec.stored_as_product:
             pa = area if spec.parent == root else state[spec.parent]
-            f = torch.where(pa > 0.0, f / torch.where(pa == 0, 1.0, pa), 0.0)
+            # a positive normal mass (`_normal`: subnormals count as 0)
+            ok = pa >= torch.finfo(pa.dtype).tiny
+            f = torch.where(ok, f / torch.where(ok, pa, 1.0), 0.0)
         out[spec.name] = f
     return out
 

@@ -495,20 +495,13 @@ def test_float32_step_keeps_float32():
 
 
 @pytest.mark.parametrize("option, value", [
-    ("pond_scheme", "cesm"), ("pond_scheme", "topo"),
-    ("use_modal_aerosols", True), ("use_snow_liquid_ponds", True),
-    ("n_aerosols", 2), ("use_snicar", True), ("use_brine_height", True),
-    ("use_biogeochemistry", True), ("use_skeletal_biochemistry", True),
-    ("solve_zsalinity", True)])
+    ("use_brine_height", True), ("use_biogeochemistry", True),
+    ("use_skeletal_biochemistry", True), ("solve_zsalinity", True)])
 def test_left_out_column_options_raise(option, value):
-    """Every column option the port leaves out raises when the model is
-    built, naming the roadmap item; none runs silently.  Snow-liquid
-    ponds need the snow tracers (without them the reference's
-    ValueError, `test_torch_column_options.py`)."""
+    """Every column option the port leaves out (brine height, z-salinity
+    and biogeochemistry, ROADMAP Queue 1 item 10e) raises when the model
+    is built, naming the roadmap item; none runs silently."""
     cfg = _sphere_cfg(C)
-    if option == "use_snow_liquid_ponds":
-        cfg = dataclasses.replace(cfg, column=dataclasses.replace(
-            cfg.column, use_snow_tracers=True))
     cfg = dataclasses.replace(cfg, column=dataclasses.replace(
         cfg.column, **{option: value}))
     mesh, _ = panel_reorder(icosahedral_mesh(1), 1)
@@ -516,17 +509,29 @@ def test_left_out_column_options_raise(option, value):
         SeaIceModel(mesh, cfg, dtype=F64, device="cpu")
 
 
-# the column options of the thermodynamics, surface and snow: one model
-# each, stepped twice by both packages (the first step starts from rest,
-# so highfreq sees moving ice in the second)
+# the column options: one model each, stepped twice by both packages (the
+# first step starts from rest, so highfreq sees moving ice in the second);
+# the pond and radiation paths (the two of chip_smoke.py's column options
+# phase) under MELT, with seeded aerosol deposition
 SNOW_CASE = "snow_ITDrdg_formdrag_highfreq"
+PONDS_SNICAR = "cesm_sliq_snicar_aero"
+PONDS_MODAL = "topo_feedback_dedd_modal_aero"
 OPTION_CASES = {
     SNOW_CASE: dict(use_snow_tracers=True, snwredist="ITDrdg",
                     use_form_drag=True, highfreq=True),
     "ktherm0": dict(ktherm=0),
     "prescribed_fluxes_bl99": dict(ktherm=1,
                                    calc_surface_temperature=False),
+    PONDS_SNICAR: dict(pond_scheme="cesm", use_snow_tracers=True,
+                       use_snow_liquid_ponds=True,
+                       use_snicar=True, n_aerosols=2),
+    # only topographic ponds book the pond water the feedback withholds
+    PONDS_MODAL: dict(pond_scheme="topo",
+                      include_pond_freshwater_feedback=True,
+                      n_aerosols=2, use_modal_aerosols=True),
 }
+# the column fluxes these options add, held like the tracers
+OPTION_FLUXES = ("faero_ocn", "fpond", "fresh")
 # the other snow redistribution schemes: SNOW_CASE's first step, then its
 # second under the scheme (winter atmosphere)
 SNWREDIST_CASES = {"snow_bulk": "bulk", "snow_ITDsd": "ITDsd"}
@@ -553,8 +558,28 @@ def _sfc_fluxes(nc, ncat):
 
 def _option_runs(name):
     """(melt,) pairs to run: the combined snow case also under MELT,
-    where real ponds feed the form drag."""
+    where real ponds feed the form drag; the pond cases under MELT
+    only."""
+    if OPTION_CASES[name].get("n_aerosols"):
+        return (True,)
     return (False, True) if name == SNOW_CASE else (False,)
+
+
+def _faero(nc, n_aero):
+    """Aerosol deposition rates [nCells, nAero] (kg/m^2/s, seed 4)."""
+    return np.random.default_rng(4).uniform(0.0, 2e-12, (nc, n_aero))
+
+
+def _real_ponds(tracers, names):
+    """Ponds of 0.3 of the ice area and 5 cm depth wherever a category
+    holds ice (numpy, for the tracers of `names` the model carries): the
+    pond schemes then evolve real ponds from the first step, where the
+    melt of two steps makes only rounding noise (ROADMAP Queue 3 fault
+    4)."""
+    ice = np.asarray(tracers["iceAreaCategory"]) > 0.0
+    ponds = {"pondArea": np.where(ice, 0.3, 0.0),
+             "pondDepth": np.where(ice, 0.05, 0.0)}
+    return {k: v for k, v in ponds.items() if k in names}
 
 
 @pytest.fixture(scope="module")
@@ -562,8 +587,9 @@ def reference_option_steps():
     """Two full-physics steps of `seaice_tpu` for each OPTION_CASES
     model on the subdiv-2 panel sphere from `full_physics_inputs`, and
     the second step of SNOW_CASE's winter run under each scheme of
-    SNWREDIST_CASES (a model of its own), op by op: {(name, melt):
-    fields as numpy}."""
+    SNWREDIST_CASES (SNOW_CASE's model with its column's scheme set),
+    op by op: {(name, melt): fields as numpy}, and for the aerosol cases
+    {(name, melt, "fluxes"): OPTION_FLUXES of the second step}."""
     import jax.numpy as jnp
     from seaice_tpu import config as JC
     from seaice_tpu.dynamics.evp import DynamicsForcing as JForcing
@@ -586,6 +612,8 @@ def reference_option_steps():
         if not jm.cfg.column.calc_surface_temperature:
             sfc = {k: jnp.asarray(v) for k, v in _sfc_fluxes(
                 nc, jm.cfg.run.n_categories).items()}
+        n_aero = jm.cfg.column.n_aerosols
+        faero = jnp.asarray(_faero(nc, n_aero)) if n_aero else None
         jstep = jm.make_step(jit=False)
         for melt in _option_runs(name):
             atm_j = type(atm)(**{f.name: jnp.asarray(
@@ -593,20 +621,28 @@ def reference_option_steps():
                 else getattr(atm, f.name)) for f in dataclasses.fields(atm)})
             js = jm.init_state(area, vol, snow)
             js = replace(js, tracers=dict(js.tracers, **extra))
+            if n_aero:
+                js = replace(js, tracers=dict(js.tracers, **{
+                    k: jnp.asarray(v) for k, v in _real_ponds(
+                        js.tracers, js.tracers).items()}))
             for i in range(2):
                 if i == 1 and name == SNOW_CASE and not melt:
+                    # the unjitted step reads the column's scheme at
+                    # each call
                     for case, scheme in SNWREDIST_CASES.items():
-                        cfg = jm.cfg
-                        jm_s = JModel(mesh_j, dataclasses.replace(
-                            cfg, column=dataclasses.replace(
-                                cfg.column, snwredist=scheme)),
-                            dtype=jnp.float64)
-                        out[case, False] = _fields(jm_s.make_step(
-                            jit=False)(jm_s.tensors, js, jf, atm_j, ocn,
-                                       coszen=jnp.asarray(coszen))[0])
-                js, _ = jstep(jm.tensors, js, jf, atm_j, ocn,
-                              coszen=jnp.asarray(coszen), sfc_fluxes=sfc)
+                        jm.column.snwredist = scheme
+                        out[case, False] = _fields(jstep(
+                            jm.tensors, js, jf, atm_j, ocn,
+                            coszen=jnp.asarray(coszen))[0])
+                    jm.column.snwredist = OPTION_CASES[name]["snwredist"]
+                js, jd = jstep(jm.tensors, js, jf, atm_j, ocn,
+                               coszen=jnp.asarray(coszen), sfc_fluxes=sfc,
+                               faero_atm=faero)
             out[name, melt] = _fields(js)
+            if n_aero:
+                out[name, melt, "fluxes"] = {
+                    k: np.asarray(getattr(jd["column_fluxes"], k))
+                    for k in OPTION_FLUXES}
     return out
 
 
@@ -634,12 +670,20 @@ def test_column_option_steps_match_reference(reference_option_steps, name,
     if not model.cfg.column.calc_surface_temperature:
         sfc = {k: torch.as_tensor(v)
                for k, v in _sfc_fluxes(nc, ncat).items()}
+    n_aero = model.cfg.column.n_aerosols
+    faero = None
+    if n_aero:
+        faero = torch.as_tensor(_faero(nc, n_aero))
+        state = state.replace(tracers=dict(state.tracers, **{
+            k: torch.as_tensor(v) for k, v in _real_ponds(
+                state.tracers, state.tracers).items()}))
     models = [model, model]
     if name in SNWREDIST_CASES:
         models[1] = model.with_column(snwredist=SNWREDIST_CASES[name])
     for m in models:
         state, diags = m.make_step()(m.tensors, state, forcing, atm, ocn,
-                                     coszen=coszen, sfc_fluxes=sfc)
+                                     coszen=coszen, sfc_fluxes=sfc,
+                                     faero_atm=faero)
     ref, got = reference_option_steps[name, melt], _fields(state)
     assert set(ref) == set(got)
     speed = max(np.abs(ref["u"]).max(), np.abs(ref["v"]).max())
@@ -652,6 +696,14 @@ def test_column_option_steps_match_reference(reference_option_steps, name,
         assert (got["snowGrainRadius"] > 54.526).any()
     if model.column.use_form_drag:
         assert diags["column_fluxes"].Cdn_atm is not None
+    if n_aero:
+        fl = diags["column_fluxes"]
+        for k, a in reference_option_steps[name, melt, "fluxes"].items():
+            _close(k, getattr(fl, k).numpy(), a, TRACER_LIMIT)
+        assert got["pondArea"].max() > 1e-3          # real ponds
+        assert float(fl.faero_ocn.abs().max()) > 0.0
+        if model.column.include_pond_freshwater_feedback:
+            assert float(fl.fpond.abs().max()) > 0.0   # fresh withheld
 
 
 def test_convert_carries_snow_tracers():

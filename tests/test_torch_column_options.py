@@ -1,7 +1,7 @@
 """The column's thermodynamics, surface and snow options in the port:
 zero-layer thermodynamics (ktherm=0), prescribed surface fluxes
 (calc_Tsfc=False), form drag, high-frequency coupling, the snow tracers
-and snow redistribution.
+and snow redistribution; and the flag test of the pond schemes.
 
 Part 1 holds each ported function against the JAX package's on the same
 inputs (made from a seed with numpy), float64 on the CPU, every output
@@ -933,10 +933,30 @@ def test_snow_tracers_with_dedd_differ():
 
 def test_snow_liquid_ponds_need_snow_tracers():
     """The reference's check: snow-liquid ponds without the snow tracers
-    are a configuration error (ValueError); with them the option is
-    still left out (NotImplementedError, ROADMAP Queue 1 item 10)."""
+    are a configuration error (ValueError); with them the column
+    builds and routes the drained snow liquid into the ponds."""
     with pytest.raises(ValueError, match="snow_liquid_ponds"):
         ColumnPhysics(3, 4, use_snow_liquid_ponds=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ColumnPhysics(3, 4, use_snow_liquid_ponds=True,
-                      use_snow_tracers=True, device="cpu")
+    col = ColumnPhysics(3, 4, use_snow_liquid_ponds=True,
+                        use_snow_tracers=True, device="cpu")
+    assert col.use_snow_liquid_ponds
+
+
+@pytest.fixture(scope="module")
+def flag_base_warm():
+    return _flag_run(C.ColumnConfig(), warm=True)
+
+
+@pytest.mark.parametrize("scheme", ["cesm", "lvl", "topo"])
+def test_pond_schemes_make_ponds(scheme, flag_base_warm):
+    """`tests/test_flags.py::test_pond_schemes_make_ponds`: each pond
+    scheme with the dEdd shortwave changes the warm run's answer and
+    forms finite, non-negative ponds."""
+    st, _ = _flag_run(C.ColumnConfig(pond_scheme=scheme, shortwave="dEdd"),
+                      warm=True)
+    _assert_differs(st, flag_base_warm[0], f"pond_scheme={scheme}")
+    apnd = st.tracers["pondArea"].numpy()
+    assert np.isfinite(apnd).all()
+    assert apnd.max() > 0.0, f"{scheme} scheme formed no ponds"
+    hpnd = st.tracers["pondDepth"].numpy()
+    assert hpnd.min() >= 0.0 and np.isfinite(hpnd).all()

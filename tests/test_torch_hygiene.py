@@ -54,10 +54,14 @@ MODULES = [
     "seaice_tpu_torch.analysis", "seaice_tpu_torch.analysis.driver",
     "seaice_tpu_torch.analysis.members", "seaice_tpu_torch.dynamics.weak",
     "seaice_tpu_torch.dynamics.implicit",
-    "seaice_tpu_torch.transport.upwind",
+    "seaice_tpu_torch.transport.upwind", "seaice_tpu_torch.column.snicar",
+    "seaice_tpu_torch.column.aerosol", "seaice_tpu_torch.io.synthetic",
 ]
 EXAMPLES = [os.path.join(ROOT, "examples", name) for name in (
-    "torch_run_from_namelist.py", "torch_run_coupled.py")]
+    "torch_run_from_namelist.py", "torch_run_coupled.py",
+    "torch_run_box_test.py", "torch_run_global.py",
+    "torch_run_5day_global.py", "torch_run_5day_from_files.py")] + [
+    os.path.join(ROOT, "entry_torch.py")]
 
 
 def test_import_leaves_jax_out():
@@ -98,7 +102,8 @@ def test_sources_do_not_name_the_jax_package_in_imports():
                 "prescribed.py", "special_boundaries.py", "column/zbgc.py",
                 "analysis/driver.py", "analysis/members.py",
                 "dynamics/weak.py", "dynamics/implicit.py",
-                "transport/upwind.py"):
+                "transport/upwind.py", "column/snicar.py",
+                "column/aerosol.py", "io/synthetic.py"):
         assert os.path.join("seaice_tpu_torch", new) in names
     for path in files:
         with open(path) as f:
@@ -106,42 +111,84 @@ def test_sources_do_not_name_the_jax_package_in_imports():
                 assert not pat.match(line), f"{path}:{i}: {line}"
 
 
-@pytest.mark.parametrize("example, args", [
-    ("torch_run_coupled.py", ["--nx", "4", "--hours", "1"]),
-    ("torch_run_from_namelist.py", [
+TINY_RUN = ["--subdiv", "2", "--subcycles", "8"]
+# each of the port's example scripts (and its entry file) with tiny CPU
+# arguments
+EXAMPLE_RUNS = {
+    "coupled": ("torch_run_coupled.py", ["--nx", "4", "--hours", "1"]),
+    "namelist": ("torch_run_from_namelist.py", [
         "--namelist", os.path.join(ROOT, "examples",
                                    "namelist.seaice.example"),
-        "--subdiv", "1"])], ids=["coupled", "namelist"])
-def test_examples_leave_jax_out_and_default_to_the_card(example, args,
-                                                        tmp_path):
-    """Each new example runs on the CPU when asked (`--device cpu`) and
-    loads nothing of JAX or of the JAX package while it runs; without
-    --device it asks for the card, and without one it fails (both in one
-    subprocess)."""
-    path = os.path.join(ROOT, "examples", example)
-    if "namelist" in example:
-        args = args + ["--outdir", str(tmp_path)]
-    code = (
-        "import runpy, sys, torch\n"
-        f"sys.argv = [{path!r}] + {args + ['--device', 'cpu']!r}\n"
-        f"runpy.run_path({path!r}, run_name='__main__')\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'seaice_tpu')]\n"
-        "assert not bad, bad\n"
-        "if not torch.cuda.is_available():\n"
-        f"    sys.argv = [{path!r}] + {args!r}\n"
-        "    try:\n"
-        f"        runpy.run_path({path!r}, run_name='__main__')\n"
-        "    except RuntimeError as e:\n"
-        "        assert 'CUDA' in str(e), e\n"
-        "    else:\n"
-        "        raise AssertionError('ran without a card')\n"
-        "print('clean')\n")
+        "--subdiv", "1"]),
+    "box": ("torch_run_box_test.py", ["--nx", "6", "--hours", "1",
+                                      "--subcycles", "8"]),
+    "global": ("torch_run_global.py", TINY_RUN + ["--days", "0.021"]),
+    "5day_global": ("torch_run_5day_global.py",
+                    TINY_RUN + ["--days", "0.042"]),
+    "5day_from_files": ("torch_run_5day_from_files.py",
+                        TINY_RUN + ["--days", "0.042", "--verify-restart"]),
+    "entry_torch": ("../entry_torch.py", ["--nx", "8", "--subcycles", "2",
+                                          "--blocks", "2"]),
+}
+
+# run in a fresh process, which imports torch but not JAX: each example
+# with --device cpu, then the JAX modules it loaded (none is allowed),
+# then the example without --device, which must fail for want of a card
+_EXAMPLE_RUNNER = """
+import json, runpy, sys, traceback, torch
+results = {}
+for name, (path, args) in json.loads(sys.argv[1]).items():
+    try:
+        sys.argv = [path] + args + ["--device", "cpu"]
+        runpy.run_path(path, run_name="__main__")
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "seaice_tpu")]
+        assert not bad, bad
+        if not torch.cuda.is_available():
+            sys.argv = [path] + args
+            try:
+                runpy.run_path(path, run_name="__main__")
+            except RuntimeError as e:
+                assert "CUDA" in str(e), e
+            else:
+                raise AssertionError("ran without a card")
+        results[name] = "clean"
+    except BaseException:
+        results[name] = traceback.format_exc()[-3000:]
+print("RESULTS " + json.dumps(results))
+"""
+
+
+@pytest.fixture(scope="module")
+def example_runs(tmp_path_factory):
+    """{example id: "clean" or the failure} of one subprocess that runs
+    every example of EXAMPLE_RUNS in turn (torch is imported once: about 3 s
+    a process)."""
+    import json
+    todo = {}
+    for name, (example, args) in EXAMPLE_RUNS.items():
+        if "namelist" in example or "5day" in example:
+            args = args + ["--outdir", str(tmp_path_factory.mktemp(name))]
+        todo[name] = (os.path.normpath(os.path.join(ROOT, "examples",
+                                                    example)), args)
     env = dict(os.environ, PYTHONPATH=ROOT)
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+    r = subprocess.run([sys.executable, "-c", _EXAMPLE_RUNNER,
+                        json.dumps(todo)], cwd=ROOT, env=env,
                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                       text=True, timeout=300)
-    assert r.returncode == 0 and "clean" in r.stdout, r.stdout[-3000:]
+                       text=True, timeout=600)
+    lines = [x for x in r.stdout.splitlines() if x.startswith("RESULTS ")]
+    assert r.returncode == 0 and lines, r.stdout[-3000:]
+    return json.loads(lines[-1][len("RESULTS "):])
+
+
+@pytest.mark.parametrize("name", list(EXAMPLE_RUNS))
+def test_examples_leave_jax_out_and_default_to_the_card(name, example_runs):
+    """Each of the port's examples, and its entry file `entry_torch.py`,
+    runs on the CPU when asked (`--device cpu`, tiny sizes) and loads
+    nothing of JAX or of the JAX package while it runs; without --device
+    it asks for the card, and without one it fails.  All run in one
+    subprocess (`example_runs`), each checked on its own."""
+    assert example_runs[name] == "clean", example_runs[name]
 
 
 def _small_model_args():
