@@ -92,7 +92,17 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
                     initial ponds and seeded aerosol deposition, 2 steps
                     each, held as a and b, the pond and aerosol products
                     among the conserved ones, the aerosol budget of each
-                    column step held;
+                    column step held; f. BL99 with the vertical salinity
+                    and the skeletal biogeochemistry (the salt budget of
+                    each column step held); g. mushy with the vertical
+                    zBGC on the full roster (3 algal classes, every pool)
+                    and 3 z-layer aerosol bins under the melting
+                    atmosphere with seeded deposition (every zBGC step's
+                    output finite and non-negative, its carbon residual
+                    held, the z-aerosol mass in the ice growing): f and g
+                    2 steps each, held as a and b, K2 at the widest
+                    table (980 columns; its plain version over edge
+                    chunks, the card's peak memory around it printed);
        fault 16     the full-physics panel sphere with BL99 (Tsfc
                     computed) through CoupledDriver, float32, 8 substeps:
                     every tracer finite after each (ROADMAP Queue 3
@@ -141,6 +151,7 @@ result and exits 2.
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -1237,20 +1248,61 @@ def k3_against_k1(call, dyn, reps, limit64):
     return out
 
 
+# the plain flux integration's gather and products on one chunk of edges
+# (bytes): a wider table is evaluated over the edges chunk by chunk
+PLAIN_FLUX_CHUNK_BYTES = 4e9
+
+
+def plain_flux_chunks(args):
+    """The edge chunks `plain_fluxes` evaluates `remap.integrate_fluxes`
+    over: one where the plain version's gathered table [nE S, ~2 x 3W]
+    and its layered products [nE S, 6 T3] of all edges fit in
+    PLAIN_FLUX_CHUNK_BYTES, else as many equal chunks as that budget
+    asks; every edge is covered."""
+    from seaice_tpu_torch.transport.cuda_flux import flux_layout
+    tree, recon, _rt, cell = args[:4]
+    _, out2d, out3d = flux_layout(tree, recon)
+    t2 = sum(n for _, n, _ in out2d)
+    t3 = sum(n * nl for _, n, nl, _ in out3d)
+    n_e, n_s = cell.shape
+    per_edge = n_s * (6 * (t2 + t3) + 6 * t3) * args[4].element_size()
+    n = max(1, int(np.ceil(n_e * per_edge / PLAIN_FLUX_CHUNK_BYTES)))
+    bounds = np.linspace(0, n_e, n + 1).astype(int)
+    return [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def plain_fluxes(args, kw):
+    """`remap.integrate_fluxes` on every edge of these inputs, evaluated
+    over the edge chunks of `plain_flux_chunks` (the edges are
+    independent: the same arithmetic per edge as one call)."""
+    from seaice_tpu_torch.transport.remap import integrate_fluxes
+    tree, recon, rt, cell, xq, yq, area, mask_edge = args
+    chunks = plain_flux_chunks(args)
+    if len(chunks) == 1:
+        return integrate_fluxes(*args, **kw)
+    parts = [integrate_fluxes(tree, recon, rt, cell[a:b], xq[a:b],
+                              yq[a:b], area[a:b], mask_edge[a:b], **kw)
+             for a, b in chunks]
+    return {n: torch.cat([p[n] for p in parts]) for n in parts[0]}
+
+
 def k2_against_plain(call):
     """K2 on one captured call against `remap.integrate_fluxes` on the same
-    tensors, float32 and float64, each field held to TOL of its max.
-    Returns {tag: (max rel err, rel err by field, max abs err)}."""
+    tensors (over edge chunks where its table is wide, `plain_fluxes`),
+    float32 and float64, each field held to TOL of its max.  Returns
+    {tag: (max rel err, rel err by field, max abs err, the card's peak
+    memory (MB) around the plain version, its edge chunks)}."""
     from seaice_tpu_torch.transport.cuda_flux import integrate_fluxes_cuda
-    from seaice_tpu_torch.transport.remap import integrate_fluxes
     args, kw = call
     res = {}
     for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
         a = cast(args, dtype)
         got = integrate_fluxes_cuda(*a, **kw)
         torch.cuda.synchronize()
-        want = integrate_fluxes(*a, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        want = plain_fluxes(a, kw)
         torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
         if set(got) != set(want) or any(
                 got[n].shape != want[n].shape for n in want):
             fail("K2 " + tag + ": result names or shapes differ")
@@ -1262,7 +1314,10 @@ def k2_against_plain(call):
             fail(f"K2 {tag}: kernel and plain version disagree, "
                  f"{errs} > {TOL[dtype]}")
         res[tag] = (err, errs, max(float((got[n] - want[n]).abs().max())
-                                   for n in want))
+                                   for n in want), peak,
+                    len(plain_flux_chunks(a)))
+        del got, want
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1288,9 +1343,11 @@ def check_k2(call, reps):
            "replaces": "seaice_tpu/transport/pallas_flux.py:263",
            "library_ms": None}
     res = k2_against_plain(call)
-    for tag, (err, errs, _) in res.items():
+    for tag, (err, errs, _, peak, chunks) in res.items():
         out["max_rel_err_" + tag] = err
         out["rel_err_by_field_" + tag] = errs
+        out["plain_peak_mem_mb_" + tag] = peak
+        out["plain_edge_chunks_" + tag] = chunks
     out["max_abs_err"] = res["f32"][2]
     a, kw = cast(call[0], torch.float32), call[1]
     tree, recon, _rt, cell, _xq, _yq, area, mask_edge = a
@@ -1303,7 +1360,7 @@ def check_k2(call, reps):
     out["shapes"] = {"nE": n_e, "S": n_s, "active_slots": n_active,
                      "unmasked_edges": int((mask_edge != 0).sum())}
     out["ms"] = time_ms(lambda: integrate_fluxes_cuda(*a, **kw), reps)
-    out["plain_ms"] = time_ms(lambda: integrate_fluxes(*a, **kw), reps)
+    out["plain_ms"] = time_ms(lambda: plain_fluxes(a, kw), reps)
     out["kernel_ms"] = time_ms(k2_c_call(a), reps)
     per_call, dev_ms = device_profile(lambda: integrate_fluxes_cuda(*a, **kw))
     out["device_kernels_per_call"] = per_call
@@ -2175,7 +2232,6 @@ def file_run_distances(a, b, area_cell):
 
 def rounded(state, dtype):
     """The state with every floating tensor rounded to dtype and back."""
-    import dataclasses
 
     def r(t):
         return t.to(dtype).to(t.dtype) \
@@ -2660,7 +2716,6 @@ def copy_state(state):
     if isinstance(state, list):
         return [copy_state(s) for s in state]
     vel = state.velocity
-    import dataclasses
     return state.replace(
         tracers={k: v.clone() for k, v in state.tracers.items()},
         velocity=vel.replace(**{f.name: getattr(vel, f.name).clone()
@@ -2906,7 +2961,6 @@ def small_coupled_reference():
     """`CoupledDriver` on the 8 x 8 box with the column, 2 intervals of 2
     steps, float64 on the card against the same on the CPU: every export
     of both intervals (fields under NOISE on the CPU held to NOISE)."""
-    import dataclasses
     from seaice_tpu_torch.config import box_test_config
     from seaice_tpu_torch.coupled import CoupledDriver
     from seaice_tpu_torch.model import SeaIceModel
@@ -3016,11 +3070,14 @@ def option_path(label, bases, opts, reps, card, kernels, main_syncs,
     forcing (`full_physics_inputs`, or `melting_inputs`); watch: a
     context active around the path's steps alone.  Returns (model,
     state, forcing, col, the diags of the path's last step)."""
-    from seaice_tpu_torch.transport.cuda_flux import flux_layout
+    from seaice_tpu_torch.transport.cuda_flux import flux_layout, shared_bytes
     t0 = time.perf_counter()
     model = bases[torch.float32].with_column(**opts)
     state, forcing, col = inputs(model)
-    emit({"model": {"path": label, "options": opts,
+    emit({"model": {"path": label, "options": {
+                        k: (dataclasses.asdict(v)
+                            if dataclasses.is_dataclass(v) else v)
+                        for k, v in opts.items()},
                     "seconds_to_build": time.perf_counter() - t0,
                     "cells": model.mesh.n_cells, "dtype": "float32",
                     "tracers": model.tree.names}})
@@ -3039,10 +3096,11 @@ def option_path(label, bases, opts, reps, card, kernels, main_syncs,
     _, out2d, out3d = flux_layout(tree, recon)
     t2 = sum(n for _, n, _ in out2d)
     t3 = sum(n * nl for _, n, nl, _ in out3d)
-    # csrc/ir_flux.cu: 4 warps a block, (7 T2 + T3 + 18) values a warp
-    shmem = {tag: 4 * (7 * t2 + t3 + 18) * size
+    shmem = {tag: shared_bytes(t2, t3, size)
              for tag, size in (("f32", 4), ("f64", 8))}
-    limit = torch.cuda.get_device_properties(0).shared_memory_per_block
+    props = torch.cuda.get_device_properties(0)
+    limit = getattr(props, "shared_memory_per_block_optin",
+                    props.shared_memory_per_block)
     del calls
     _, syncs = count_host_syncs(lambda: stepper(model, col)(state, forcing))
     emit({"column_options_kernels": {
@@ -3052,12 +3110,15 @@ def option_path(label, bases, opts, reps, card, kernels, main_syncs,
                                                     "bound_ms",
                                                     "short_loop_limit")},
         "k2": {k: v for k, v in k2.items()
-               if "err" in k or k in ("ms", "plain_ms", "kernel_ms",
-                                      "bound_ms", "bound_by", "shapes",
-                                      "device_kernels_per_call")},
+               if "err" in k or "plain_" in k or k in (
+                   "ms", "kernel_ms", "bound_ms", "bound_by", "shapes",
+                   "device_kernels_per_call", "device_ms_by_kernel")},
         "k2_table": {"columns_2d": t2, "columns_3d": t3,
                      "width": t2 + t3, "shared_bytes": shmem,
-                     "shared_bytes_per_block_limit": limit}}})
+                     "shared_bytes_per_block_limit": limit,
+                     "plain_peak_mem_mb": {
+                         tag: k2["plain_peak_mem_mb_" + tag]
+                         for tag in ("f32", "f64")}}}})
     if not max(shmem.values()) <= limit:
         fail(f"{label}: K2's shared memory {shmem} exceeds {limit} bytes")
     f32 = global_fields(model, state)
@@ -3257,8 +3318,9 @@ FAULT16_OPTIONS, FAULT16_SUBSTEPS = dict(ktherm=1), 8
 def melting_inputs(model):
     """`full_physics_inputs` under MELT_ATMOSPHERE, with REAL_PONDS where
     the ice is (the tracers of them the model carries) and, where the
-    model carries aerosols, a seeded deposition rate per cell and species
-    in [0, FAERO_MAX) as the column forcing's fourth entry."""
+    model carries bulk or z-layer aerosols (`deposition_species`), a
+    seeded deposition rate per cell and species in [0, FAERO_MAX) as the
+    column forcing's fourth entry."""
     state, forcing, (atm, ocn, coszen) = full_physics_inputs(model)
     dtype, dev = model.dtype, model.device
     atm = atm.replace(**{k: torch.full_like(getattr(atm, k), v)
@@ -3269,13 +3331,23 @@ def melting_inputs(model):
         if k in tr:
             tr[k] = torch.where(ice, v, 0.0).to(dtype)
     col = (atm, ocn, coszen)
-    n_aero = model.cfg.column.n_aerosols
+    n_aero = deposition_species(model)
     if n_aero:
         rng = np.random.default_rng(5)
         col += (torch.as_tensor(rng.uniform(
             0.0, FAERO_MAX, (model.mesh.n_cells, n_aero))).to(
                 device=dev, dtype=dtype),)
     return state.replace(tracers=tr), forcing, col
+
+
+def deposition_species(model):
+    """The aerosol species a model's column takes deposition of: its bulk
+    aerosols, or its z-layer aerosols."""
+    col = model.cfg.column
+    zp = col.zbgc_params
+    if col.n_aerosols or zp is None or not zp.use_zaero:
+        return col.n_aerosols
+    return zp.n_zaero
 
 
 @contextlib.contextmanager
@@ -3352,6 +3424,270 @@ def pond_radiation_options(bases, reps, card, kernels, main_syncs):
         del model, state, forcing, col, diags, fl
         torch.cuda.empty_cache()
     emit({"pond_radiation_seconds": time.perf_counter() - t0})
+
+
+# --- brine height, z-salinity and biogeochemistry ---------------------------
+
+# (f) BL99 with the vertical salinity and the skeletal biogeochemistry,
+# under full_physics_inputs' cold forcing; (g) mushy with the vertical
+# zBGC on the full roster (3 algal classes, every pool) and 3 z-layer
+# aerosol bins, under MELT_ATMOSPHERE with seeded deposition
+OPTIONS_ZSAL_SKL = dict(ktherm=1, solve_zsalinity=True,
+                        use_skeletal_biochemistry=True)
+ZBGC_FULL_ROSTER = dict(n_algae=3, use_C=True, use_DON=True, use_Fe=True,
+                        use_DMS=True, use_PON=True, use_hum=True,
+                        use_zaero=True, n_zaero=3)
+# each z-salinity solve's salt budget (`salt_budget`): the change of the
+# column salt against -fzsal dt, to this share of the salt
+SALT_BUDGET_LIMIT = 1e-5
+# the reactions' carbon residual against the largest bio tracer
+# concentration (a sum of reaction terms that cancel to rounding)
+CARBON_ERROR_LIMIT = 1e-5
+
+
+def options_zbgc_zaero():
+    """Path (g)'s column options, the `ZbgcParams` of ZBGC_FULL_ROSTER."""
+    from seaice_tpu_torch.column.zbgc import ZbgcParams
+    return dict(use_biogeochemistry=True,
+                zbgc_params=ZbgcParams(**ZBGC_FULL_ROSTER))
+
+
+@contextlib.contextmanager
+def salt_budget(residuals):
+    """While active, every `solve_zsalinity` call of the column appends to
+    residuals its salt budget's relative residual, on the card: the sum
+    over columns of |zsal_tot - the salt before + fzsal dt| over that of
+    zsal_tot, the salt before the bulk salinity in times the new brine
+    height (the reference's check_conserve_salt)."""
+    from seaice_tpu_torch.column import constants as cc, zsalinity
+    inner = zsalinity.solve_zsalinity
+
+    def budget(dt, bSin, iphin, iDin, darcy_v, hbr, *rest):
+        out = inner(dt, bSin, iphin, iDin, darcy_v, hbr, *rest)
+        before = bSin.double().mean(-1) * hbr.double().clamp(
+            min=cc.PUNY) * cc.RHOI * 1.0e-3
+        tot = out.zsal_tot.double()
+        residuals.append((tot - before + out.fzsal.double() * dt).abs()
+                         .sum() / tot.sum())
+        return out
+    zsalinity.solve_zsalinity = budget
+    try:
+        yield
+    finally:
+        zsalinity.solve_zsalinity = inner
+
+
+@contextlib.contextmanager
+def bgc_watch(rows):
+    """While active, every `zbgc_transport_react` call of the column
+    appends to rows, on the card: the z-aerosol mass in the ice before
+    and after it (sum over columns and layers of concentration x
+    porosity x brine height x layer weight), the deposition it was
+    given times dt, the smallest bio tracer it returns, whether all are
+    finite, and its carbon residual against the largest bio tracer."""
+    from seaice_tpu_torch.column import zbgc
+    inner = zbgc.zbgc_transport_react
+
+    def watched(dt, C, iphin, iDin, darcy_v, hbr, hbr_old, dh_bot, fswpen,
+                T_bot, ocean_bio, p, flux_bio_atm=None, frac=None,
+                tables=None):
+        out = inner(dt, C, iphin, iDin, darcy_v, hbr, hbr_old, dh_bot,
+                    fswpen, T_bot, ocean_bio, p, flux_bio_atm=flux_bio_atm,
+                    frac=frac, tables=tables)
+        zsl = p.index()["zaero"]
+        w = (iphin * tables.zspace).double()
+
+        def mass(c, h):
+            return (c[..., zsl, :].double() * w[..., None, :]).sum(
+                (-2, -1)) * h.double().clamp(min=0.0)
+        dep = (flux_bio_atm[..., zsl].double().sum(-1) * dt
+               if flux_bio_atm is not None
+               else C.new_zeros((), dtype=torch.float64))
+        rows.append(torch.stack([
+            mass(C, hbr_old).sum(), mass(out.tracers, hbr).sum(),
+            dep.sum(), out.tracers.min().double(),
+            torch.isfinite(out.tracers).all().double(),
+            out.cerror.amax().double() /
+            out.tracers.abs().amax().double().clamp(min=1e-30)]))
+        return out
+    zbgc.zbgc_transport_react = watched
+    try:
+        yield
+    finally:
+        zbgc.zbgc_transport_react = inner
+
+
+# K2's trees past the default shared memory of a block (48 KB) and past the
+# opt-in limit: the widest column tree with more bio layers (KB in float64)
+K2_WIDE_BIO_LAYERS = (15, 95)
+
+
+def k2_shared_memory_limits(card):
+    """K2 on the subdiv-2 sphere (5 categories, 7 + 1 layers, level-ice
+    ponds, the vertical zBGC on the full roster, 19 tracers, with its
+    mobile fractions, every tracer seeded) at K2_WIDE_BIO_LAYERS bio
+    layers in float64: the first a block needs more than the card's
+    default 48 KB of shared memory, so the kernel opts in, and it is held
+    against its plain version to TOL; the second needs more than the
+    card's opt-in limit, so the wrapper must raise naming the table's
+    width (no launch counted, no plain version run in its place)."""
+    from seaice_tpu_torch import config as C
+    from seaice_tpu_torch.column.zbgc import ZbgcParams
+    from seaice_tpu_torch.mesh import icosahedral_mesh
+    from seaice_tpu_torch.model import SeaIceModel, column_tracer_tree
+    from seaice_tpu_torch.transport import remap as R
+    from seaice_tpu_torch.transport.cuda_flux import (
+        flux_layout, integrate_fluxes_cuda, shared_bytes)
+    dtype = torch.float64
+    props = torch.cuda.get_device_properties(0)
+    optin = getattr(props, "shared_memory_per_block_optin",
+                    props.shared_memory_per_block)
+    rows = []
+    for nbl in K2_WIDE_BIO_LAYERS:
+        cfg = C.Config(
+            run=C.RunConfig(dt=1800.0, n_categories=5, n_ice_layers=7),
+            velocity=C.VelocitySolverConfig(elastic_subcycle_number=2),
+            column=C.ColumnConfig(
+                use_column_package=False, n_bio_layers=nbl,
+                pond_scheme="lvl", use_biogeochemistry=True,
+                zbgc_params=ZbgcParams(**ZBGC_FULL_ROSTER)))
+        tree = column_tracer_tree(cfg)
+        mesh = icosahedral_mesh(2)
+        model = SeaIceModel(mesh, cfg, dtype=dtype, tracer_tree=tree)
+        rng = np.random.default_rng(6)
+        nc, nv = mesh.n_cells, mesh.n_vertices
+        area = rng.uniform(0.0, 0.3, (nc, 5)) * (rng.uniform(size=(nc, 1))
+                                                  > 0.3)
+        state = model.init_state(area, area * rng.uniform(0.5, 3.0, (nc, 5)),
+                                 area * 0.1)
+        dev = model.device
+        tr = {k: (v if k in ("iceAreaCategory", "iceVolumeCategory",
+                             "snowVolumeCategory")
+                  else torch.as_tensor(rng.uniform(0.1, 2.0, tuple(v.shape)))
+                  .to(device=dev, dtype=dtype))
+              for k, v in state.tracers.items()}
+        rt = model.tensors.remap
+        fields = R.to_transport_fields(tree, tr)
+        mask_cell, masks = R.make_masks(tree, fields)
+        recon = R.reconstruct_fields(
+            tree, fields, masks, mask_cell, rt,
+            model.tensors.mesh.cells_on_cell,
+            model.tensors.mesh.cells_on_cell_mask, monotonic=True)
+        uv, vv = (torch.as_tensor(60.0 * rng.standard_normal(nv)).to(
+            device=dev, dtype=dtype) for _ in range(2))
+        dpx, dpy = R.departure_points(uv, vv, 1800.0)
+        tris = R.find_departure_triangles(rt, dpx, dpy, mesh.vertex_degree)
+        cell, xq, yq, tarea = R.triangles_to_cell_coords(rt, tris)
+        args = (tree, recon, rt, cell, xq, yq, tarea, tris["mask_edge"])
+        _, out2d, out3d = flux_layout(tree, recon)
+        t2 = sum(n for _, n, _ in out2d)
+        t3 = sum(n * nl for _, n, nl, _ in out3d)
+        need = shared_bytes(t2, t3, 8)
+        row = {"n_bio_layers": nbl, "width": t2 + t3, "shared_bytes": need,
+               "optin_bytes": optin}
+        before = integrate_fluxes_cuda.launches
+        if need <= optin:
+            got = integrate_fluxes_cuda(*args)
+            torch.cuda.synchronize()
+            want = plain_fluxes(args, {})
+            row["max_rel_err_f64"] = max(rel_err(got[n], want[n])
+                                         for n in want)
+            if not row["max_rel_err_f64"] <= TOL[dtype]:
+                fail(f"K2 at {t2 + t3} columns ({need} B a block): kernel "
+                     f"and plain version disagree, {row}")
+        else:
+            try:
+                integrate_fluxes_cuda(*args)
+                torch.cuda.synchronize()
+                fail(f"K2 at {t2 + t3} columns needs {need} B a block, "
+                     f"over the card's {optin}, and did not raise")
+            except RuntimeError as e:
+                row["raised"] = str(e)
+                if f"{t2 + t3} columns" not in str(e):
+                    fail(f"K2's error does not name the width: {e}")
+        integrate_fluxes_cuda.launches = before   # not the path's launches
+        rows.append(row)
+        del model, state, tr, fields, recon, args
+        torch.cuda.empty_cache()
+    emit({"k2_shared_memory": {"card": card, "trees": rows}})
+    if not (rows[0]["shared_bytes"] > 48 * 1024 and
+            rows[1]["shared_bytes"] > optin):
+        fail(f"K2's shared-memory cases do not cross 48 KB and the opt-in "
+             f"limit: {rows}")
+
+
+def bgc_options(bases, reps, card, kernels, main_syncs):
+    """Paths (f) and (g) of the column-options phase at full width
+    (`option_path` on the models of `option_bases`): (f) every column
+    step's salt budget to SALT_BUDGET_LIMIT (`salt_budget`); (g) every
+    zBGC step's output finite and non-negative, its carbon residual to
+    CARBON_ERROR_LIMIT of the largest bio tracer, the z-aerosol mass in
+    the ice growing under deposition (`bgc_watch`); each path's BGC
+    diagnostics finite."""
+    t0 = time.perf_counter()
+    label = ("column options (f) BL99, vertical salinity, skeletal "
+             "biogeochemistry")
+    budgets = []
+    model, state, forcing, col, diags = option_path(
+        label, bases, OPTIONS_ZSAL_SKL, reps, card, kernels, main_syncs,
+        watch=lambda: salt_budget(budgets))
+    bgc = diags["column_fluxes"].bgc
+    out = {"path": label, "card": card,
+           "salt_budget": [float(r) for r in budgets],
+           "bgc_diagnostics_max": {k: float(v.abs().max())
+                                   for k, v in bgc.items()},
+           "verticalSalinity_min": float(
+               state.tracers["verticalSalinity"].min()),
+           "sklBgc_max": float(state.tracers["sklBgc"].max())}
+    emit({"bgc_path": out})
+    if len(budgets) != OPTION_STEPS:
+        fail(f"{label}: {len(budgets)} z-salinity solves in "
+             f"{OPTION_STEPS} steps")
+    if not max(out["salt_budget"]) <= SALT_BUDGET_LIMIT:
+        fail(f"{label}: salt budget {out['salt_budget']} > "
+             f"{SALT_BUDGET_LIMIT}")
+    if not all(np.isfinite(v) for v in out["bgc_diagnostics_max"].values()):
+        fail(f"{label}: non-finite BGC diagnostics")
+    del model, state, forcing, col, diags, bgc
+    torch.cuda.empty_cache()
+
+    label = ("column options (g) mushy, vertical zBGC on the full roster, "
+             "z-layer aerosols")
+    rows = []
+    model, state, forcing, col, diags = option_path(
+        label, bases, options_zbgc_zaero(), reps, card, kernels,
+        main_syncs, inputs=melting_inputs, watch=lambda: bgc_watch(rows))
+    bgc = diags["column_fluxes"].bgc
+    vals = torch.stack(rows).cpu().numpy() if rows else np.zeros((0, 6))
+    bio = state.tracers["bioTracers"]
+    out = {"path": label, "card": card,
+           "zaero_mass_before_after_deposited": vals[:, :3].tolist(),
+           "bio_min_after_column": vals[:, 3].tolist(),
+           "carbon_error_over_max_tracer": vals[:, 5].tolist(),
+           "bio_min_after_step": float(bio.min()),
+           "bio_max_after_step": float(bio.max()),
+           "bgc_diagnostics_max": {k: float(v.abs().max())
+                                   for k, v in bgc.items()}}
+    emit({"bgc_path": out})
+    if len(rows) != OPTION_STEPS:
+        fail(f"{label}: {len(rows)} zBGC steps in {OPTION_STEPS} steps")
+    if not (vals[:, 4] == 1.0).all() or not bool(torch.isfinite(bio).all()):
+        fail(f"{label}: non-finite bio tracers")
+    if not (vals[:, 3] >= 0.0).all():
+        fail(f"{label}: negative bio tracers after the column step "
+             f"{vals[:, 3]}")
+    if not (vals[:, 5] <= CARBON_ERROR_LIMIT).all():
+        fail(f"{label}: carbon residual {vals[:, 5]} > "
+             f"{CARBON_ERROR_LIMIT} of the largest bio tracer")
+    if not ((vals[:, 2] > 0.0) & (vals[:, 1] > vals[:, 0])).all():
+        fail(f"{label}: the z-aerosol mass in the ice does not grow under "
+             f"deposition: {vals[:, :3]}")
+    if not all(np.isfinite(v) for v in out["bgc_diagnostics_max"].values()):
+        fail(f"{label}: non-finite BGC diagnostics")
+    del model, state, forcing, col, diags, bgc, bio
+    torch.cuda.empty_cache()
+    k2_shared_memory_limits(card)
+    emit({"bgc_seconds": time.perf_counter() - t0})
 
 
 def fault16(bases, card, kernels):
@@ -3517,7 +3853,6 @@ def with_velocity(model, **vel):
     """The same model (same tensors) with velocity options over its
     config: a variant that needs no tensors of its own."""
     import copy
-    import dataclasses
     out = copy.copy(model)
     out.cfg = dataclasses.replace(model.cfg, velocity=dataclasses.replace(
         model.cfg.velocity, **vel))
@@ -3988,7 +4323,6 @@ def main():
         profile(model, state, forcing, step_ms)
     # the same model, the per-subcycle route: same tensors, another config
     import copy
-    import dataclasses
     model5 = copy.copy(model)
     model5.cfg = dataclasses.replace(model.cfg, velocity=dataclasses.replace(
         model.cfg.velocity, use_fused_panel_loop=False))
@@ -4103,6 +4437,7 @@ def main():
     bases = option_bases()
     column_options(bases, args.reps, card, kernels, syncs)
     pond_radiation_options(bases, args.reps, card, kernels, syncs)
+    bgc_options(bases, args.reps, card, kernels, syncs)
     fault16(bases, card, kernels)
     del bases
     torch.cuda.empty_cache()

@@ -4,7 +4,8 @@ full-physics panel sphere with the snow tracers, ITDrdg snow
 redistribution, form drag and high-frequency coupling (then bulk and ITDsd
 one step each), with the zero-layer thermodynamics, and one CoupledDriver
 interval with prescribed surface fluxes (BL99) (--phase options); the pond
-and radiation paths (d) and (e) (--phase ponds); fault 16's BL99
+and radiation paths (d) and (e) (--phase ponds); the brine height,
+z-salinity and biogeochemistry paths (f) and (g) (--phase bgc); fault 16's BL99
 configuration through CoupledDriver (--phase fault16); the example scripts
 and entry file (--phase entry); each held as `chip_smoke.py` holds it.
 
@@ -29,10 +30,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--phase", action="append",
-                    choices=("options", "ponds", "fault16", "entry"),
-                    help="the phases to run (default: all four)")
+                    choices=("options", "ponds", "bgc", "fault16", "entry"),
+                    help="the phases to run (default: all five)")
     args = ap.parse_args()
-    phases = args.phase or ("options", "ponds", "fault16", "entry")
+    phases = args.phase or ("options", "ponds", "bgc", "fault16", "entry")
     import torch
     import chip_smoke as cs
     if not torch.cuda.is_available():
@@ -58,12 +59,14 @@ def main():
     _, syncs = cs.count_host_syncs(lambda: step(state, forcing))
     del model, state, forcing, col, step
     torch.cuda.empty_cache()
-    if {"options", "ponds", "fault16"} & set(phases):
+    if {"options", "ponds", "bgc", "fault16"} & set(phases):
         bases = cs.option_bases()
     if "options" in phases:
         cs.column_options(bases, args.reps, card, kernels, syncs)
     if "ponds" in phases:
         cs.pond_radiation_options(bases, args.reps, card, kernels, syncs)
+    if "bgc" in phases:
+        cs.bgc_options(bases, args.reps, card, kernels, syncs)
     if "fault16" in phases:
         cs.fault16(bases, card, kernels)
     if "entry" in phases:

@@ -17,20 +17,21 @@ tracer), bulk and modal aerosols, Hibler and Rothrock strength, the
 CESM, level-ice and topographic ponds (with the snow-liquid routing and
 the pond freshwater feedback), ice age, first-year ice, the snow
 tracers with their physics and the three snow redistribution schemes,
-form drag, high-frequency coupling and ITD thermodynamics + ridging;
-every other option raises `NotImplementedError` naming ROADMAP Queue 1
-item 10 when the `ColumnPhysics` is built: brine height, z-salinity and
-biogeochemistry (with the z-layer aerosols).
+form drag, high-frequency coupling, ITD thermodynamics + ridging, and
+the brine height with the vertical salinity and the skeletal or vertical
+(z-layer) biogeochemistry, the z-layer aerosols among its tracers
+(`step_biogeochemistry`, after the vertical thermodynamics as in the
+reference's column_biogeochemistry).
 
 Deviation from the reference phasing (as in the JAX package): shortwave
 radiation is computed at the START of therm1 from the current forcing;
 the post-dynamics phase runs snow physics and coupling-prep aggregation.
 
 The numpy tables (category bounds, the BL99 salinity profile, the dEdd
-snow optics, the aerosol optics, the SNICAR tables) are made once here
-in the state's dtype and on its device, so an f32 step stays f32: the
-category bounds as Python floats, the salinity profile and the optics
-as tensors.
+snow optics, the aerosol optics, the SNICAR tables, the bio grid and the
+zBGC parameters) are made once here in the state's dtype and on its
+device, so an f32 step stays f32 and a step copies no table to the card:
+the category bounds as Python floats, the rest as tensors.
 """
 
 from __future__ import annotations
@@ -58,8 +59,6 @@ from .vertical import (frzmlt_bottom_lateral, thermo_vertical,
                        thermo_vertical_noop)
 from ..utils.containers import tensor_dataclass
 from ..utils.device import resolve_device
-
-_LATER = "ROADMAP Queue 1 item 10"
 
 
 @tensor_dataclass
@@ -116,7 +115,7 @@ class ColumnFluxes:
     faero_ocn: Any             # aerosol flux to ocean [*, nAero] or None
     Cdn_atm: Any               # neutral atm drag (form drag) or None
     Cdn_ocn: Any               # neutral ocn drag (form drag) or None
-    bgc: Any                   # BGC diagnostics (not ported: None)
+    bgc: Any                   # BGC diagnostics dict or None
     # per-cell warning masks (True = problem), the column warning
     # buffer analog (reference ice_warnings.F90 + the per-cell abort
     # dump, mpas_seaice_column.F:1872-1939); keys like
@@ -164,14 +163,6 @@ def _merge_tracers(tracers, aicen, vicen, vsnon, at, it_, st):
         for k, v in d.items():
             out[k] = v
     return out
-
-
-def _not_ported(**options):
-    """Raise for the first option (name=True) that the port leaves out."""
-    for name, on in options.items():
-        if on:
-            raise NotImplementedError(
-                f"column option {name}: not ported; {_LATER}")
 
 
 class ColumnPhysics:
@@ -253,12 +244,18 @@ class ColumnPhysics:
             raise ValueError(
                 "config_use_modal_aerosols needs >= 2 aerosol "
                 "species (interstitial + within-grain BC)")
-        _not_ported(
-            use_brine_height=use_brine_height,
-            use_biogeochemistry=use_biogeochemistry,
-            use_skeletal_bgc=use_skeletal_bgc,
-            solve_zsalinity=solve_zsalinity,
-            zbgc_params=zbgc_params is not None)
+        if (zbgc_params is not None and
+                getattr(zbgc_params, "use_zaero", False) and
+                n_aerosols > 0):
+            raise ValueError(
+                "config_use_zaerosols and config_use_aerosols are "
+                "mutually exclusive (reference config check: bulk and "
+                "z-layer aerosols cannot both be active)")
+        if use_skeletal_bgc and use_biogeochemistry:
+            raise ValueError(
+                "skeletal and vertical-layer biogeochemistry are "
+                "mutually exclusive (reference dispatches one of "
+                "skl_biogeochemistry / z_biogeochemistry)")
         self.ncat = n_categories
         self.ni = n_ice_layers
         self.ns = n_snow_layers
@@ -321,6 +318,28 @@ class ColumnPhysics:
                 device=self.device, dtype=dtype)
         if use_snicar:
             self.set_snicar_tables()
+        # brine height is implied by the BGC and the z-salinity
+        self.use_brine_height = use_brine_height or use_biogeochemistry \
+            or solve_zsalinity
+        self.use_biogeochemistry = use_biogeochemistry
+        self.use_skeletal_bgc = use_skeletal_bgc
+        self.n_bio_layers = n_bio_layers
+        self.solve_zsalinity = solve_zsalinity
+        self.zbgc_params = None
+        if use_biogeochemistry or zbgc_params is not None:
+            from .zbgc import ZbgcParams
+            self.zbgc_params = zbgc_params or ZbgcParams(n_algae=n_algae)
+        self.brine_grid = self.zbgc = None
+        if self.use_brine_height:
+            from .brine import brine_grid
+            self.brine_grid = brine_grid(n_bio_layers, dtype, self.device)
+        if self.zbgc_params is not None:
+            from .zbgc import zbgc_tables
+            self.zbgc = zbgc_tables(self.zbgc_params, dtype, self.device,
+                                    n_bio_layers)
+            if self.zbgc_params.use_zaero and self.aero is None:
+                # the z-aerosol mass paths mix into the dEdd optics
+                self.set_aerosol_optics()
 
     # -- optics tables (the reference reads them from its optics files) --
 
@@ -403,6 +422,28 @@ class ColumnPhysics:
                     kwargs = dict(apnd=fpond, hpnd=hpnd)
             if self.use_snow_tracers and "snowGrainRadius" in tracers:
                 kwargs["rsnw"] = tracers["snowGrainRadius"]
+            pz = self.zbgc_params
+            if pz is not None and pz.use_zaero and \
+                    "bioTracers" in tracers and "brineHeight" in tracers:
+                # z-layer aerosols into the shortwave (reference
+                # dEdd_algae zbio path, ice_shortwave.F90:2432-2470):
+                # the vertically-resolved aerosol mass collapses onto
+                # the dEdd SSL/body pools, mass path = brine
+                # concentration x layer brine depth (porosity folded
+                # at ~1, the reference's fully-flooded limit); species
+                # order (BC1, BC2, dust...) as in the bulk table
+                nbl1 = self.n_bio_layers + 1
+                bio = tracers["bioTracers"]
+                Cz = bio.reshape(bio.shape[:-1] + (pz.n_bio, nbl1))[
+                    ..., pz.index()["zaero"], :]
+                safe_a = torch.where(aicen > 1e-11, aicen, 1.0)
+                hi_cat = torch.where(aicen > 1e-11, vicen / safe_a, 0.0)
+                hbr = tracers["brineHeight"] * hi_cat
+                zw = self.zbgc.zspace
+                # SSL pool = top bio layer, body = the rest
+                mp_ssl = Cz[..., 0] * (hbr * zw[0])[..., None]
+                mp_body = (Cz[..., 1:] * zw[1:]).sum(-1) * hbr[..., None]
+                kwargs["aero_mp_ice"] = torch.stack([mp_ssl, mp_body], -1)
             if self.n_aerosols and "snowScatteringAerosol" in tracers:
                 # bulk aerosol mass paths (reference aero_mp
                 # :1417-1428): per-volume tracers * snow/ice volume
@@ -707,6 +748,38 @@ class ColumnPhysics:
                     at2["pondLidThickness"] = ipnd_t
                 fpond = fpond + dfpond
 
+        # brine height + vertical salinity + biogeochemistry
+        # (reference column_biogeochemistry, column.F:3570; runs after
+        # vertical thermo, before ITD thermo :1038-1137)
+        bgc_diags = {}
+        if self.use_brine_height and "brineHeight" in at2:
+            at2, it2, bgc_diags = self.step_biogeochemistry(
+                dt, aicen2, vicen2, vsnon2, aicen_init, vicen_init,
+                at2, it2, tv, sw.fswthru, pc(Tbot), ocn,
+                faero_atm=faero_atm)
+        if self.use_skeletal_bgc and "sklBgc" in it2:
+            # skeletal (bottom ~3 cm) biogeochemistry (reference
+            # ice_algae.F90 skl_biogeochemistry, dispatched by
+            # config_use_skeletal_biochemistry)
+            from .bgc import SklBgcState, step_skl_bgc
+            skl_has = (aicen2 > c.PUNY) & (vicen2 > c.PUNY)
+            s = it2["sklBgc"]
+            fresh_skl = (~(s[..., 0] > c.PUNY)) & skl_has
+            algal0 = torch.where(fresh_skl, 0.16, s[..., 0])
+            no3_0 = torch.where(fresh_skl, 5.0, s[..., 1])
+            sio3_0 = torch.where(fresh_skl, 10.0, s[..., 2])
+            res = step_skl_bgc(
+                dt, SklBgcState(algal0, no3_0, sio3_0), aicen2, vicen2,
+                sw.fswthru, pc(Tbot), 5.0, 10.0)
+            it2["sklBgc"] = torch.where(
+                skl_has[..., None],
+                torch.stack([res.state.algalN, res.state.NO3,
+                             res.state.SiO3], -1), 0.0)
+            bgc_diags = dict(bgc_diags)
+            bgc_diags["skl_pp"] = res.primary_production
+            bgc_diags["skl_chla"] = res.chlorophyll
+            bgc_diags["skl_no3_flux"] = res.nitrate_flux_ocean
+
         # aggregate per-category atmosphere fluxes (area-weighted)
         def agg(x):
             return (x * aicen).sum(-1)
@@ -780,7 +853,7 @@ class ColumnPhysics:
             albedo_vis_dir=agg(sw.alvdr), albedo_ir_dir=agg(sw.alidr),
             albedo_vis_dif=agg(sw.alvdf), albedo_ir_dif=agg(sw.alidf),
             fpond=fpond / dt, faero_ocn=faero_ocn, Cdn_atm=Cdn_atm,
-            Cdn_ocn=Cdn_ocn, bgc=None,
+            Cdn_ocn=Cdn_ocn, bgc=bgc_diags if bgc_diags else None,
             # non-convergence only aborts for columns that carry flux
             # weight IN f32: a category at the puny edge
             # (aicen ~1e-11..1e-8) contributes ~nothing area-weighted
@@ -795,6 +868,124 @@ class ColumnPhysics:
 
         return _merge_tracers(tracers, aicen2, vicen2, vsnon2, at2, it2,
                               st2), fluxes
+
+    # -- biogeochemistry (reference colpkg_biogeochemistry,
+    #    ice_colpkg.F90:5540-5786) --------------------------------------
+
+    def step_biogeochemistry(self, dt, aicen, vicen, vsnon,
+                             aicen_init, vicen_init, at2, it2, tv,
+                             fswthru, Tbot, ocn: OceanForcing,
+                             faero_atm=None):
+        """Brine-height dynamics + optional vertical salinity and
+        z-tracer biogeochemistry, per category.  Mirrors the reference
+        per-category flow: preflushing_changes -> compute_microS_mushy
+        -> update_hbrine -> zsalinity -> zbio.  Returns (area tracers,
+        ice tracers, diagnostics dict)."""
+        from .brine import (MIN_SALIN, compute_micro_s_mushy,
+                            preflushing_changes, remap_profile_to_bgrid,
+                            update_hbrine)
+        nbl = self.n_bio_layers
+        puny = c.PUNY
+        diags = {}
+
+        def pc(x):
+            return x[..., None] * torch.ones_like(aicen)
+
+        fbri = at2["brineHeight"]
+        # first ice initializes fbri = 1 (reference :5570)
+        fbri = torch.where(fbri > puny, fbri, 1.0)
+        hice_old = torch.where(aicen_init > puny,
+                               vicen_init / aicen_init.clamp(min=puny), 0.0)
+        pf = preflushing_changes(
+            aicen, vicen, vsnon, tv.meltb, tv.meltt, tv.congel,
+            tv.snoice, hice_old, fbri)
+
+        # salinity profile feeding the brine microstructure
+        if self.solve_zsalinity and "verticalSalinity" in it2:
+            bpts = np.array([(k - 0.5) / nbl for k in range(1, nbl + 1)])
+            cpts = np.array([(k - 0.5) / self.ni
+                             for k in range(1, self.ni + 1)])
+            zSin_b = remap_profile_to_bgrid(it2["verticalSalinity"], bpts,
+                                            cpts, 0.1)
+        else:
+            zSin_b = it2["iceSalinity"]
+        ms = compute_micro_s_mushy(tv.zqin, zSin_b, pc(ocn.sss),
+                                   pc(ocn.sst), pf.hbr_old, nbl,
+                                   grid=self.brine_grid)
+
+        aice0 = (1.0 - aicen.sum(-1)).clamp(min=0.0)[..., None] * \
+            torch.ones_like(aicen)
+        hb = update_hbrine(dt, tv.meltb, tv.meltt, tv.melts,
+                           pf.hin, pf.hsn, pf.hin_old, pf.hbr_old,
+                           tv.snoice, pf.dhbr_bot, ms.kperm,
+                           ms.bphi_min, aice0)
+        has = aicen > puny
+        at2 = dict(at2)
+        at2["brineHeight"] = torch.where(has, hb.fbri, 1.0)
+        diags["hbrine"] = (hb.hbr * aicen).sum(-1)
+        diags["darcy_v"] = (hb.darcy_v * aicen).sum(-1)
+
+        it2 = dict(it2)
+        if self.solve_zsalinity and "verticalSalinity" in it2:
+            from .zsalinity import solve_zsalinity
+            zs = solve_zsalinity(
+                dt, it2["verticalSalinity"], ms.iphin, ms.iDin,
+                hb.darcy_v, hb.hbr, pf.hbr_old, pf.dhbr_bot,
+                hb.dhS_top, pc(ocn.sss), ms.brine_sal[..., -1])
+            it2["verticalSalinity"] = torch.where(has[..., None], zs.bSin,
+                                                  MIN_SALIN)
+            diags["fzsal"] = (zs.fzsal * aicen).sum(-1)
+            diags["fzsal_g"] = (zs.fzsal_g * aicen).sum(-1)
+            diags["zsal_tot"] = (zs.zsal_tot * aicen).sum(-1)
+
+        if self.use_biogeochemistry and "bioTracers" in it2:
+            from .zbgc import zbgc_transport_react
+            p, tables = self.zbgc_params, self.zbgc
+            K = nbl + 1
+            bio = it2["bioTracers"]
+            Cb = bio.reshape(bio.shape[:-1] + (p.n_bio, K))
+            ocean_bio = tables.ocean
+            # first ice seeds from the ocean (initbio_frac)
+            fresh_ice = (~(bio.sum(-1) > puny)) & has
+            Cb = torch.where(fresh_ice[..., None, None],
+                             p.initbio_frac * ocean_bio[:, None] *
+                             torch.ones_like(Cb), Cb)
+            frac = it2.get("bioMobileFraction")
+            if frac is not None:
+                frac = torch.where(fresh_ice[..., None], 1.0, frac)
+            flux_atm = None
+            if p.use_zaero and faero_atm is not None:
+                # aerosol deposition into the top brine layer
+                # (kg/m^2/s; the reference's zbgc snow pools are
+                # subsumed by direct-to-brine deposition here)
+                zsl = p.index()["zaero"]
+                nz = min(zsl.stop - zsl.start, faero_atm.shape[-1])
+                flux_atm = torch.zeros(aicen.shape + (p.n_bio,),
+                                       dtype=bio.dtype, device=bio.device)
+                flux_atm[..., zsl.start:zsl.start + nz] = \
+                    faero_atm[..., None, :nz] * \
+                    torch.ones_like(aicen)[..., None]
+            zr = zbgc_transport_react(
+                dt, Cb, ms.iphin, ms.iDin, hb.darcy_v, hb.hbr,
+                pf.hbr_old, pf.dhbr_bot, fswthru, Tbot, ocean_bio, p,
+                frac=frac, flux_bio_atm=flux_atm, tables=tables)
+            if frac is not None and zr.frac_new is not None:
+                it2["bioMobileFraction"] = torch.where(
+                    has[..., None], zr.frac_new, 1.0)
+            it2["bioTracers"] = torch.where(
+                has[..., None], zr.tracers.reshape(bio.shape), 0.0)
+            diags["flux_bio"] = (zr.flux_bio * aicen[..., None]).sum(-2)
+            diags["pp_net"] = (zr.pp_net * aicen).sum(-1)
+            diags["chla"] = (zr.chla * aicen).sum(-1)
+            diags["up_NO"] = (zr.up_NO * aicen).sum(-1)
+            diags["up_NH"] = (zr.up_NH * aicen).sum(-1)
+            # ecosystem closure diagnostics (reference Zoo /
+            # nitrification history fields + the Cerror gate)
+            diags["zoo_loss"] = (zr.zoo * aicen).sum(-1)
+            diags["nitrification"] = (zr.nitrification * aicen).sum(-1)
+            diags["bgc_carbon_error"] = zr.cerror.amax(-1)
+
+        return at2, it2, diags
 
     # -- ridging (dynamics phase; reference column.F:3283-3560) ----------
 

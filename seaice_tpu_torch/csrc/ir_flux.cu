@@ -38,6 +38,9 @@
 namespace {
 
 constexpr int WARPS = 4;
+// returned when a block of this tree needs more shared memory than the
+// card lets a block opt in to (not a CUDA error code)
+constexpr int kSharedTooLarge = -2;
 
 template <typename T>
 __global__ void ir_flux_kernel(
@@ -132,6 +135,24 @@ int run_flux(int nE, int S, int F, int T2, int T3, const void* table, const void
   if (S <= 0 || T2 <= 0 || T3 < 0) return (int)cudaErrorInvalidValue;
   const int blocks = (nE + WARPS - 1) / WARPS;
   const size_t shmem = (size_t)WARPS * (6 * T2 + T2 + T3 + 18) * sizeof(T);
+  // past the default per-block budget (48 KB) the kernel must opt in to
+  // the larger one, as K1, K3 and K4 do; past the opt-in limit it cannot
+  // run this tree at all
+  cudaError_t err;
+  int dev = 0, fallback = 0, optin = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&fallback, cudaDevAttrMaxSharedMemoryPerBlock, dev)) !=
+      cudaSuccess)
+    return (int)err;
+  if (shmem > (size_t)fallback) {
+    if ((err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+        cudaSuccess)
+      return (int)err;
+    if (shmem > (size_t)optin) return kSharedTooLarge;
+    if ((err = cudaFuncSetAttribute(ir_flux_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)shmem)) != cudaSuccess)
+      return (int)err;
+  }
   ir_flux_kernel<T><<<blocks, WARPS * 32, shmem, stream>>>(
       nE, S, F, T2, T3, (const T*)table, (const T*)xq, (const T*)yq, (const T*)wq,
       (const T*)area, cell, (const T*)mask_edge, meta, (T*)out2, (T*)out3);
@@ -148,6 +169,6 @@ int run_flux(int nE, int S, int F, int T2, int T3, const void* table, const void
   nE, S, F, T2, T3, table, xq, yq, wq, area, cell, mask_edge, meta, out2, out3,    \
   stream
 
-// Returns the CUDA error of the launch (0 = none).
+// Returns the CUDA error of the launch (0 = none), or kSharedTooLarge (-2).
 extern "C" int ir_flux_f32(FLUX_ARGS) { return run_flux<float>(FLUX_PASS); }
 extern "C" int ir_flux_f64(FLUX_ARGS) { return run_flux<double>(FLUX_PASS); }

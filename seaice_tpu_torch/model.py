@@ -73,10 +73,16 @@ def _col_tunables(col) -> Tunables:
 
 def column_tracer_tree(cfg: Config) -> TracerTree:
     """The tracer tree the column configuration carries (the JAX
-    package's `SeaIceModel.__init__` tree; the biogeochemistry's own
-    sizing is left out with it: `ColumnPhysics` raises for every option
-    whose tracers the port does not step)."""
+    package's `SeaIceModel.__init__` tree): with the vertical
+    biogeochemistry and no `n_bio_tracers` given, `bioTracers` is sized
+    from the roster, n_bio x (n_bio_layers + 1) of the `zbgc_params`, or
+    (n_algae + 3) x (n_bio_layers + 1) without them."""
     col = cfg.column
+    n_bio = col.n_bio_tracers
+    if col.use_biogeochemistry and not n_bio:
+        n_per = (col.zbgc_params.n_bio if col.zbgc_params is not None
+                 else col.n_algae + 3)
+        n_bio = n_per * (col.n_bio_layers + 1)
     return standard_tracer_tree(
         n_ice_layers=cfg.run.n_ice_layers,
         n_snow_layers=cfg.run.n_snow_layers,
@@ -88,7 +94,7 @@ def column_tracer_tree(cfg: Config) -> TracerTree:
         n_aerosols=col.n_aerosols,
         use_brine_height=(col.use_brine_height or col.use_biogeochemistry
                           or col.solve_zsalinity),
-        n_bio_tracers=col.n_bio_tracers,
+        n_bio_tracers=n_bio,
         n_bio_grid_points=(col.n_bio_layers + 1
                            if col.use_biogeochemistry else 0),
         use_skeletal_bgc=col.use_skeletal_biochemistry,
@@ -227,12 +233,18 @@ class SeaIceModel:
             tr["snowGrainRadius"] = torch.full(
                 tr["snowGrainRadius"].shape, RSNW_FALL, dtype=dt,
                 device=dev)
-        for name in ("brineHeight", "bioMobileFraction",
-                     "verticalSalinity"):
-            if name in tr:
-                raise NotImplementedError(
-                    f"tracer {name}: its initial profile comes with the "
-                    "column-physics slice of the port")
+        if "brineHeight" in tr:
+            tr["brineHeight"] = torch.ones((nc, ncat), dtype=dt, device=dev)
+        if "bioMobileFraction" in tr:
+            # zbgc_frac_init = 1: all-mobile initial phase partition
+            # (reference ice_colpkg.F90:1510-1522)
+            tr["bioMobileFraction"] = torch.ones(
+                tr["bioMobileFraction"].shape, dtype=dt, device=dev)
+        if "verticalSalinity" in tr:
+            from .column.thermo_shared import salinity_profile
+            tr["verticalSalinity"] = fl(salinity_profile(
+                tr["verticalSalinity"].shape[-1])).expand(
+                    tr["verticalSalinity"].shape).clone()
         if ice_area_cat is not None:
             tr["iceAreaCategory"] = fl(ice_area_cat)
         if ice_volume_cat is not None:

@@ -9,7 +9,10 @@ provides:
 
 - `parse_namelist`: a Fortran-namelist reader (no external deps);
 - `REGISTRY`: the audit mapping EVERY reference option to one of three
-  dispositions, the JAX package's table:
+  dispositions, the JAX package's table but for one row
+  (`config_use_skeletal_biochemistry`, supported here: the port's model
+  step runs the skeletal scheme, which the JAX table calls unreachable,
+  ROADMAP Queue 3 fault 9):
     * ``supported``   -- maps onto a `Config`/`RunSetup`/`ZbgcParams`
                         field (possibly with value conversion);
     * ``na``          -- by-design not applicable: the option configures
@@ -17,9 +20,8 @@ provides:
                         architecture subsumes (accepted, ignored);
     * ``unsupported`` -- capability not implemented: accepted only at
                         its Registry default, hard error otherwise.
-  A ``supported`` option whose model option the port does not run yet
-  still parses to the same `Config`; the model raises when it is built,
-  naming its ROADMAP item (README, "Options that parse but raise").
+  Every ``supported`` option parses to the same `Config` as in the JAX
+  package, and the port's models run every column option it sets.
 - `config_from_namelist`: build `(Config, RunSetup)` from a namelist
   file/string/dict.  Unknown options are a hard error.
 - `RunSetup` and `initial_state_from_setup`: the settings of a run
@@ -421,9 +423,10 @@ _opt("biogeochemistry", "use_vertical_biochemistry", False,
      "column.use_biogeochemistry")
 _opt("biogeochemistry", "use_vertical_tracers", False,
      "column.use_biogeochemistry")
-_un("biogeochemistry", "use_skeletal_biochemistry", False,
-    "the skeletal scheme (column/bgc.py) is not reachable from the "
-    "model step; only vertical-layer zBGC is wired")
+# the JAX table's one row the port differs in: its model step runs the
+# skeletal scheme (column/bgc.py; ROADMAP Queue 3 fault 9)
+_opt("biogeochemistry", "use_skeletal_biochemistry", False,
+     "column.use_skeletal_biochemistry")
 _un("biogeochemistry", "use_shortwave_bioabsorption", False,
     "bottom-algae absorption is built into the dEdd/SNICAR paths "
     "(column/dedd.py kalg band), not separately switchable")

@@ -27,6 +27,14 @@ table row once per non-empty slot, skips empty slots and masked edges, and
 keeps every intermediate on chip.  All arithmetic is plain FMA in the
 working type; no tensor-core or reduced-precision path.
 
+A block holds 4 warps' running sums and point values in dynamic shared
+memory, 4 (7 T2 + T3 + 18) values for T2 2D and T3 layered table columns
+(`shared_bytes`): 20.8 kB in float32 at the widest column tree (50 + 930
+columns, the vertical zBGC on its full roster), 41.5 kB in float64.  Past
+the card's default 48 kB a block the kernel opts in to more
+(`cudaFuncAttributeMaxDynamicSharedMemorySize`); past the card's opt-in
+limit the wrapper raises, naming the table's width.
+
 `integrate_fluxes_cuda` takes the plain version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.
 """
@@ -155,11 +163,30 @@ def integrate_fluxes_cuda(tree: TracerTree, recon, rt: RemapTensors,
     return _launch(tree, recon, rt, cell, xq, yq, area, mask_edge)
 
 
+# `run_flux`'s return when a block needs more shared memory than the card
+# allows a block (csrc/ir_flux.cu, kSharedTooLarge)
+_SHARED_TOO_LARGE = -2
+
+
+def shared_bytes(n2d: int, n3d: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block of the kernel for a table of
+    n2d 2D and n3d layered columns (csrc/ir_flux.cu: 4 warps a block,
+    7 n2d + n3d + 18 values a warp)."""
+    return 4 * (7 * n2d + n3d + 18) * itemsize
+
+
 def _launch(tree, recon, rt, cell, xq, yq, area, mask_edge):
     """Checks, the table, the two outputs, and the call of the C
     function."""
     call, fluxes = _bind(tree, recon, rt, cell, xq, yq, area, mask_edge)
     err = call()
+    if err == _SHARED_TOO_LARGE:
+        t2, t3 = call.widths
+        raise RuntimeError(
+            f"integrate_fluxes_cuda: the tracer table of {t2 + t3} columns "
+            f"({t2} 2D, {t3} layered) needs "
+            f"{shared_bytes(t2, t3, xq.element_size())} B of shared memory "
+            "a block, more than this card lets a block take")
     if err != 0:
         raise RuntimeError(f"integrate_fluxes_cuda: CUDA error {err}")
     _COUNTS.launches += 1
@@ -214,6 +241,7 @@ def _bind(tree, recon, rt, cell, xq, yq, area, mask_edge):
         return fn(*c_args)
     # the tensors behind the pointers live as long as the call
     call.held = (table, xq, yq, wq, area, cell, mask_edge, meta, out2, out3)
+    call.widths = (T2, T3)
     fluxes = {}
     for (name, nCat, o) in out2d:
         fluxes[name] = out2[:, o:o + nCat]

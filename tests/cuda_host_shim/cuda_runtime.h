@@ -17,16 +17,23 @@
 //     shared by every block, so they are right only for blocks run one
 //     after another.
 //   * The device queries report a small card: $SHIM_SMS multiprocessors
-//     (3 if unset), one co-resident block each, and kShimSmemOptin bytes of
-//     shared memory per block, so that a small mesh already exercises both
-//     sides of a kernel's shared-memory budget and, on one multiprocessor,
-//     blocks that own more columns than threads.
+//     (3 if unset), one co-resident block each, and $SHIM_SMEM_OPTIN bytes
+//     (kShimSmemOptin if unset) of shared memory per block, so that a small
+//     mesh already exercises both sides of a kernel's shared-memory budget
+//     and, on one multiprocessor, blocks that own more columns than threads.
+//   * As on a card, a `<<<>>>` launch may take more dynamic shared memory
+//     than the default ($SHIM_SMEM_DEFAULT bytes, 48 KB if unset) only
+//     after `cudaFuncSetAttribute(kernel,
+//     cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)` allowed it, and
+//     never more than the opt-in limit; a launch refused so runs nothing
+//     and leaves its error for `cudaGetLastError()`.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdlib>
+#include <map>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -67,15 +74,26 @@ enum {
   cudaErrorInvalidValue = 1,
   cudaErrorCooperativeLaunchTooLarge = 720,
 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-
-constexpr int kShimSmemOptin = 32768;
-inline int shim_sms() {
-  const char* s = std::getenv("SHIM_SMS");
-  return s ? std::atoi(s) : 3;
+inline cudaError_t shim_last_error = cudaSuccess;
+inline cudaError_t cudaGetLastError() {
+  const cudaError_t e = shim_last_error;
+  shim_last_error = cudaSuccess;
+  return e;
 }
 
+constexpr int kShimSmemOptin = 32768;
+inline int shim_env(const char* name, int fallback) {
+  const char* s = std::getenv(name);
+  return s ? std::atoi(s) : fallback;
+}
+inline int shim_sms() { return shim_env("SHIM_SMS", 3); }
+inline int shim_smem_optin() { return shim_env("SHIM_SMEM_OPTIN", kShimSmemOptin); }
+inline int shim_smem_default() { return shim_env("SHIM_SMEM_DEFAULT", 49152); }
+// the dynamic shared memory each kernel was allowed by cudaFuncSetAttribute
+inline std::map<const void*, int> shim_smem_allowed;
+
 enum cudaDeviceAttr {
+  cudaDevAttrMaxSharedMemoryPerBlock = 8,
   cudaDevAttrMultiProcessorCount = 16,
   cudaDevAttrMaxSharedMemoryPerBlockOptin = 97,
 };
@@ -84,16 +102,20 @@ enum cudaLaunchAttributeID { cudaLaunchAttributeCooperative = 2 };
 
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
-  *v = a == cudaDevAttrMultiProcessorCount ? shim_sms() : kShimSmemOptin;
+  *v = a == cudaDevAttrMultiProcessorCount ? shim_sms()
+       : a == cudaDevAttrMaxSharedMemoryPerBlock ? shim_smem_default()
+       : shim_smem_optin();
   return cudaSuccess;
 }
 template <class F>
-cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
-  return bytes <= kShimSmemOptin ? cudaSuccess : cudaErrorInvalidValue;
+cudaError_t cudaFuncSetAttribute(F f, cudaFuncAttribute, int bytes) {
+  if (bytes > shim_smem_optin()) return cudaErrorInvalidValue;
+  shim_smem_allowed[reinterpret_cast<const void*>(f)] = bytes;
+  return cudaSuccess;
 }
 template <class F>
 cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t smem) {
-  *n = smem <= (size_t)kShimSmemOptin ? 1 : 0;
+  *n = smem <= (size_t)shim_smem_optin() ? 1 : 0;
   return cudaSuccess;
 }
 
@@ -151,15 +173,22 @@ void shim_run(dim3 grid3, int block, size_t smem, bool together, F kernel_call) 
   }
 }
 
-template <class F>
-void shim_launch(dim3 grid, int block, size_t smem, F kernel_call) {
+template <class K, class F>
+void shim_launch(K kernel, dim3 grid, int block, size_t smem, F kernel_call) {
+  const auto it = shim_smem_allowed.find(reinterpret_cast<const void*>(kernel));
+  const size_t allowed = std::max<size_t>(
+      shim_smem_default(), it == shim_smem_allowed.end() ? 0 : it->second);
+  if (smem > allowed) {
+    shim_last_error = cudaErrorInvalidValue;
+    return;
+  }
   shim_run(grid, block, smem, false, kernel_call);
 }
 
 template <class... Exp, class... Act>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Exp...),
                                Act&&... args) {
-  if (cfg->dynamicSmemBytes > (size_t)kShimSmemOptin ||
+  if (cfg->dynamicSmemBytes > (size_t)shim_smem_optin() ||
       cfg->gridDim.x > (unsigned)shim_sms())
     return cudaErrorCooperativeLaunchTooLarge;
   shim_run(cfg->gridDim.x, cfg->blockDim.x, cfg->dynamicSmemBytes, true,

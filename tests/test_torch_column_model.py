@@ -498,15 +498,29 @@ def test_float32_step_keeps_float32():
     ("use_brine_height", True), ("use_biogeochemistry", True),
     ("use_skeletal_biochemistry", True), ("solve_zsalinity", True)])
 def test_left_out_column_options_raise(option, value):
-    """Every column option the port leaves out (brine height, z-salinity
-    and biogeochemistry, ROADMAP Queue 1 item 10e) raises when the model
-    is built, naming the roadmap item; none runs silently."""
+    """The column options the port once left out (brine height,
+    z-salinity and biogeochemistry, ROADMAP Queue 1 item 10e, ported
+    since) build in `SeaIceModel` and `ShardedSeaIceModel` and carry
+    their tracers, every block with the whole model's tree (their
+    initial profiles against the JAX package's:
+    `test_convert_carries_bgc_tracers`)."""
+    from seaice_tpu_torch.parallel import ShardedSeaIceModel
     cfg = _sphere_cfg(C)
     cfg = dataclasses.replace(cfg, column=dataclasses.replace(
         cfg.column, **{option: value}))
     mesh, _ = panel_reorder(icosahedral_mesh(1), 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        SeaIceModel(mesh, cfg, dtype=F64, device="cpu")
+    model = SeaIceModel(mesh, cfg, dtype=F64, device="cpu")
+    own = {"use_brine_height": ("brineHeight",),
+           "use_biogeochemistry": ("brineHeight", "bioTracers",
+                                   "bioMobileFraction"),
+           "use_skeletal_biochemistry": ("sklBgc",),
+           "solve_zsalinity": ("brineHeight", "verticalSalinity")}[option]
+    assert set(own) <= set(model.tree.names)
+    sm = ShardedSeaIceModel(mesh, cfg, 2, devices="cpu")
+    assert all(m.column is not None and m.tree.names == model.tree.names
+               for m in sm.models)
+    for s in sm.init_state():
+        assert set(own) <= set(s.tracers)
 
 
 # the column options: one model each, stepped twice by both packages (the
@@ -516,6 +530,8 @@ def test_left_out_column_options_raise(option, value):
 SNOW_CASE = "snow_ITDrdg_formdrag_highfreq"
 PONDS_SNICAR = "cesm_sliq_snicar_aero"
 PONDS_MODAL = "topo_feedback_dedd_modal_aero"
+ZSAL_SKL = "bl99_zsal_skl"
+ZBGC_ZAERO = "zbgc_full_zaero"
 OPTION_CASES = {
     SNOW_CASE: dict(use_snow_tracers=True, snwredist="ITDrdg",
                     use_form_drag=True, highfreq=True),
@@ -529,9 +545,34 @@ OPTION_CASES = {
     PONDS_MODAL: dict(pond_scheme="topo",
                       include_pond_freshwater_feedback=True,
                       n_aerosols=2, use_modal_aerosols=True),
+    # brine height, z-salinity and biogeochemistry: BL99 with the
+    # vertical salinity and the skeletal scheme (winter), and mushy with
+    # the vertical zBGC on the full roster and the z-layer aerosols
+    # (MELT, seeded deposition); `zbgc_params` as the keyword arguments
+    # of each package's ZbgcParams.  4 bio layers, not the default 7: the
+    # reference's zBGC runs its reaction network layer by layer, op by op,
+    # and 7 layers cost 5 s more of this file's 60-s budget for these cases
+    ZSAL_SKL: dict(ktherm=1, solve_zsalinity=True,
+                   use_skeletal_biochemistry=True, n_bio_layers=4),
+    ZBGC_ZAERO: dict(use_biogeochemistry=True, n_bio_layers=4,
+                     zbgc_params=dict(
+        n_algae=3, use_C=True, use_DON=True, use_Fe=True, use_DMS=True,
+        use_PON=True, use_hum=True, use_zaero=True, n_zaero=3)),
 }
 # the column fluxes these options add, held like the tracers
 OPTION_FLUXES = ("faero_ocn", "fpond", "fresh")
+# the BGC diagnostics (`ColumnFluxes.bgc`) of the BGC cases, held like
+# the tracers but the carbon residual (a sum of reaction terms that
+# cancel to rounding), held to TRACER_LIMIT of the largest bio tracer,
+# and the two fluxes formed as differences of brine heights, held to
+# BRINE_DIFFERENCE_LIMIT (ROADMAP Queue 3, fault 17): the Darcy velocity
+# (the brine surface's height above sea level times 1 - exp(-rate dt),
+# a difference that cancels where the rate is slow) and the bio flux to
+# the ocean (the column content times the brine height's fall, hbr -
+# hbr_old), where a last-bit difference grows by the cancellation
+CARBON_RESIDUAL = "bgc_carbon_error"
+BRINE_DIFFERENCES = ("darcy_v", "flux_bio")
+BRINE_DIFFERENCE_LIMIT = 1e-11
 # the other snow redistribution schemes: SNOW_CASE's first step, then its
 # second under the scheme (winter atmosphere)
 SNWREDIST_CASES = {"snow_bulk": "bulk", "snow_ITDsd": "ITDsd"}
@@ -542,9 +583,29 @@ TRACER_LIMIT = 1e-12
 
 
 def _option_cfg(C, name):
+    """The sphere config with the options of OPTION_CASES[name] (C: the
+    port's or the JAX package's config module; `zbgc_params` made by the
+    same package's ZbgcParams)."""
     cfg = _sphere_cfg(C)
+    opts = dict(OPTION_CASES[name])
+    if "zbgc_params" in opts:
+        if C.__name__.startswith("seaice_tpu_torch"):
+            from seaice_tpu_torch.column.zbgc import ZbgcParams
+        else:
+            from seaice_tpu.column.zbgc import ZbgcParams
+        opts["zbgc_params"] = ZbgcParams(**opts["zbgc_params"])
     return dataclasses.replace(cfg, column=dataclasses.replace(
-        cfg.column, **OPTION_CASES[name]))
+        cfg.column, **opts))
+
+
+def _deposition_species(cfg):
+    """The species of aerosol deposition a config's column takes: its
+    bulk aerosols, or its z-layer aerosols."""
+    col = cfg.column
+    if col.n_aerosols:
+        return col.n_aerosols
+    zp = col.zbgc_params
+    return zp.n_zaero if zp is not None and zp.use_zaero else 0
 
 
 def _sfc_fluxes(nc, ncat):
@@ -560,7 +621,7 @@ def _option_runs(name):
     """(melt,) pairs to run: the combined snow case also under MELT,
     where real ponds feed the form drag; the pond cases under MELT
     only."""
-    if OPTION_CASES[name].get("n_aerosols"):
+    if OPTION_CASES[name].get("n_aerosols") or name == ZBGC_ZAERO:
         return (True,)
     return (False, True) if name == SNOW_CASE else (False,)
 
@@ -613,7 +674,8 @@ def reference_option_steps():
             sfc = {k: jnp.asarray(v) for k, v in _sfc_fluxes(
                 nc, jm.cfg.run.n_categories).items()}
         n_aero = jm.cfg.column.n_aerosols
-        faero = jnp.asarray(_faero(nc, n_aero)) if n_aero else None
+        n_dep = _deposition_species(jm.cfg)
+        faero = jnp.asarray(_faero(nc, n_dep)) if n_dep else None
         jstep = jm.make_step(jit=False)
         for melt in _option_runs(name):
             atm_j = type(atm)(**{f.name: jnp.asarray(
@@ -643,6 +705,10 @@ def reference_option_steps():
                 out[name, melt, "fluxes"] = {
                     k: np.asarray(getattr(jd["column_fluxes"], k))
                     for k in OPTION_FLUXES}
+            if jd["column_fluxes"].bgc is not None:
+                out[name, melt, "bgc"] = {
+                    k: np.asarray(v)
+                    for k, v in jd["column_fluxes"].bgc.items()}
     return out
 
 
@@ -671,9 +737,9 @@ def test_column_option_steps_match_reference(reference_option_steps, name,
         sfc = {k: torch.as_tensor(v)
                for k, v in _sfc_fluxes(nc, ncat).items()}
     n_aero = model.cfg.column.n_aerosols
-    faero = None
+    n_dep = _deposition_species(model.cfg)
+    faero = torch.as_tensor(_faero(nc, n_dep)) if n_dep else None
     if n_aero:
-        faero = torch.as_tensor(_faero(nc, n_aero))
         state = state.replace(tracers=dict(state.tracers, **{
             k: torch.as_tensor(v) for k, v in _real_ponds(
                 state.tracers, state.tracers).items()}))
@@ -704,6 +770,176 @@ def test_column_option_steps_match_reference(reference_option_steps, name,
         assert float(fl.faero_ocn.abs().max()) > 0.0
         if model.column.include_pond_freshwater_feedback:
             assert float(fl.fpond.abs().max()) > 0.0   # fresh withheld
+    if (name, melt, "bgc") in reference_option_steps:
+        bgc_ref = reference_option_steps[name, melt, "bgc"]
+        bgc_got = diags["column_fluxes"].bgc
+        assert set(bgc_got) == set(bgc_ref)
+        bio = np.abs(got.get("bioTracers", 0.0)).max()
+        for k, a in bgc_ref.items():
+            if k == CARBON_RESIDUAL:
+                err = float(np.abs(bgc_got[k].numpy() - a).max())
+                assert err <= TRACER_LIMIT * bio, (k, err, bio)
+            else:
+                _close(k, bgc_got[k].numpy(), a,
+                       BRINE_DIFFERENCE_LIMIT if k in BRINE_DIFFERENCES
+                       else TRACER_LIMIT)
+    if name == ZSAL_SKL:
+        assert (got["verticalSalinity"] >= 0.1 - 1e-12).all()
+        assert (got["sklBgc"][..., 0][got["iceAreaCategory"] > 1e-6]
+                > 0.0).all()
+    if name == ZBGC_ZAERO:
+        zp = model.column.zbgc_params
+        zsl = zp.index()["zaero"]
+        bio = got["bioTracers"]
+        bio = bio.reshape(bio.shape[:-1] + (zp.n_bio, -1))
+        # the remap leaves rounding-size negatives (-2e-61), as in JAX
+        assert bio.min() > -NOISE and bio[..., zsl, :].max() > 0.0
+
+
+# the flags of the brine height, z-salinity and biogeochemistry: one column
+# step (`ColumnPhysics.step_thermodynamics`) of the sphere's full-physics
+# column (winter atmosphere) with each flag on against the same step with
+# it off, both packages, op by op after the option steps above (the same
+# shapes: the vertical zBGC on ZBGC_ZAERO's roster).  The z-layer aerosols
+# are held by their deposition: the same roster with seeded `faero_atm`
+# against it without (the empty slots are passive, and a roster without
+# them would compile every zBGC operation of the reference again)
+BGC_FLAGS = {
+    "use_brine_height": dict(use_brine_height=True, n_bio_layers=4),
+    "solve_zsalinity": dict(solve_zsalinity=True, n_bio_layers=4),
+    "use_skeletal_biochemistry": dict(use_skeletal_biochemistry=True),
+    "use_biogeochemistry": dict(
+        use_biogeochemistry=True, n_bio_layers=4,
+        zbgc_params=OPTION_CASES[ZBGC_ZAERO]["zbgc_params"]),
+}
+BGC_FLAGS["use_zaero"] = BGC_FLAGS["use_biogeochemistry"]
+BGC_FLAG_OFF = {"use_zaero": "use_biogeochemistry"}
+# a field moved where it changed by more than this share of its max
+MOVED = 1e-9
+
+
+def _flag_deposition(name, cfg, nc):
+    """The z-aerosol deposition of a flag case: for use_zaero, seeded up
+    to 1e-9 kg/m^2/s (the rate of `tests/test_zaero.py`)."""
+    return 500.0 * _faero(nc, _deposition_species(cfg)) \
+        if name == "use_zaero" else None
+
+
+def _flag_cfg(C, name):
+    cfg = _sphere_cfg(C)
+    opts = dict(BGC_FLAGS.get(name, {}))
+    if "zbgc_params" in opts:
+        if C.__name__.startswith("seaice_tpu_torch"):
+            from seaice_tpu_torch.column.zbgc import ZbgcParams
+        else:
+            from seaice_tpu.column.zbgc import ZbgcParams
+        opts["zbgc_params"] = ZbgcParams(**opts["zbgc_params"])
+    return dataclasses.replace(cfg, column=dataclasses.replace(
+        cfg.column, **opts))
+
+
+def _column_fields(tracers, fl):
+    """{name: numpy} of a column step's tracers, its column fluxes and its
+    BGC diagnostics (prefixed "bgc.")."""
+    def arr(v):
+        return v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    out = {k: arr(v) for k, v in tracers.items()}
+    for f in dataclasses.fields(fl):
+        v = getattr(fl, f.name)
+        if f.name not in ("bgc", "warnings", "thermo_iterations") and \
+                v is not None:
+            out[f.name] = arr(v)
+    for k, v in (fl.bgc or {}).items():
+        out["bgc." + k] = arr(v)
+    return out
+
+
+def _moved(on, off, start):
+    """The fields of the step `on` that moved against the step `off` (a
+    field `off` lacks: against its value before the step, `start`; one of
+    another shape moved)."""
+    moved = set()
+    for k, a in on.items():
+        b = off.get(k, start.get(k))
+        if b is None or b.shape != a.shape or np.abs(a - b).max() > \
+                MOVED * max(np.abs(a).max(), np.abs(b).max(), 1e-300):
+            moved.add(k)
+    return moved
+
+
+@pytest.fixture(scope="module")
+def reference_flag_steps(reference_option_steps):
+    """`seaice_tpu`'s column step of each BGC_FLAGS case and of the base
+    (the sphere's column): {name: (fields, the tracers before)}."""
+    import jax.numpy as jnp
+    from seaice_tpu import config as JC
+    from seaice_tpu.mesh import icosahedral_mesh as jicos
+    from seaice_tpu.mesh.panels import panel_reorder as jreorder
+    from seaice_tpu.model import SeaIceModel as JModel
+    from seaice_tpu.parallel.sharded import full_physics_inputs as jinputs
+
+    mesh_j, _ = jreorder(jicos(SUBDIV), SUBDIV)
+    nc = mesh_j.n_cells
+    out = {}
+    for name in ("base",) + tuple(BGC_FLAGS):
+        jm = JModel(mesh_j, _flag_cfg(JC, name), dtype=jnp.float64,
+                    build_unstructured=False)
+        area, vol, snow, extra, atm, ocn, coszen = jinputs(
+            mesh_j, jm.cfg, jnp.float64)
+        atm_j, ocn_j = (type(f)(**{g.name: jnp.asarray(getattr(f, g.name))
+                                   for g in dataclasses.fields(f)})
+                        for f in (atm, ocn))
+        tr = dict(jm.init_state(area, vol, snow).tracers, **extra)
+        dep = _flag_deposition(name, jm.cfg, nc)
+        tr1, fl = jm.column.step_thermodynamics(
+            jm.cfg.run.dt, dict(tr), atm_j, ocn_j,
+            coszen=jnp.asarray(coszen),
+            faero_atm=None if dep is None else jnp.asarray(dep))
+        out[name] = (_column_fields(tr1, fl),
+                     {k: np.asarray(v) for k, v in tr.items()})
+    return out
+
+
+@pytest.mark.parametrize("flag", list(BGC_FLAGS))
+def test_bgc_flag_moves_answer_as_reference(reference_flag_steps, flag):
+    """Each flag of the brine height, z-salinity and biogeochemistry moves
+    the port's column step, and moves it as it moves `seaice_tpu`'s: the
+    step with the flag on equals the reference's (every tracer and flux
+    to TRACER_LIMIT, NOISE fields under NOISE, the carbon residual to
+    TRACER_LIMIT of the largest bio tracer, the Darcy velocity and the
+    bio flux to BRINE_DIFFERENCE_LIMIT), and the fields it moves
+    against the step with the flag off are the reference's, its own
+    tracer among them."""
+    off_name = BGC_FLAG_OFF.get(flag, "base")
+    got = {}
+    for name in (flag, off_name):
+        model, state, _, atm, ocn, coszen = _port_sphere(
+            SUBDIV, _flag_cfg(C, name))
+        dep = _flag_deposition(name, model.cfg, model.mesh.n_cells)
+        tr1, fl = model.column.step_thermodynamics(
+            model.cfg.run.dt, dict(state.tracers), atm, ocn, coszen=coszen,
+            faero_atm=None if dep is None else torch.as_tensor(dep))
+        got[name] = _column_fields(tr1, fl)
+    ref_on, start = reference_flag_steps[flag]
+    ref_off = reference_flag_steps[off_name][0]
+    on = got[flag]
+    assert set(on) == set(ref_on)
+    bio = np.abs(on["bioTracers"]).max() if "bioTracers" in on else 1.0
+    for k, a in ref_on.items():
+        if k == "bgc." + CARBON_RESIDUAL:
+            assert np.abs(on[k] - a).max() <= TRACER_LIMIT * bio, k
+        else:
+            _close(k, on[k], a, BRINE_DIFFERENCE_LIMIT
+                   if k[len("bgc."):] in BRINE_DIFFERENCES else TRACER_LIMIT)
+    moved = _moved(on, got[off_name], start)
+    assert moved == _moved(ref_on, ref_off, start), (
+        sorted(moved ^ _moved(ref_on, ref_off, start)))
+    own = {"use_brine_height": "brineHeight",
+           "solve_zsalinity": "verticalSalinity",
+           "use_skeletal_biochemistry": "sklBgc",
+           "use_biogeochemistry": "bioTracers",
+           "use_zaero": "bioTracers"}[flag]
+    assert own in moved, (flag, sorted(moved))
 
 
 def test_convert_carries_snow_tracers():
@@ -741,6 +977,59 @@ def test_convert_carries_snow_tracers():
     for k in snow_names:
         assert torch.equal(state.tracers[k],
                            torch.as_tensor(np.array(snow[k]))), k
+
+
+def test_convert_carries_bgc_tracers():
+    """`convert` carries a JAX State with the brine height, the bio
+    tracers and their mobile fractions, the vertical salinity and the
+    skeletal pools bitwise (one tree with all five: the model of the
+    vertical zBGC and the z-salinity, handed the skeletal pools too), and
+    the JAX package's initial profiles of them equal the port's."""
+    import jax.numpy as jnp
+    from seaice_tpu import config as JC
+    from seaice_tpu.mesh import icosahedral_mesh as jicos
+    from seaice_tpu.mesh.panels import panel_reorder as jreorder
+    from seaice_tpu.model import SeaIceModel as JModel
+    from seaice_tpu.transport.tracers import standard_tracer_tree as jtree
+    from seaice_tpu.utils.pytree import replace
+    from seaice_tpu_torch.convert import flatten_arrays, from_reference_arrays
+    from seaice_tpu_torch.transport.tracers import standard_tracer_tree
+
+    bgc = dict(use_biogeochemistry=True, solve_zsalinity=True)
+    kw = dict(n_ice_layers=4, n_snow_layers=1, pond_scheme="lvl",
+              use_level_ice=True, use_brine_height=True,
+              n_bio_tracers=4 * 8, n_bio_grid_points=8,
+              use_skeletal_bgc=True, n_vertical_salinity=7)
+    mesh_j, _ = jreorder(jicos(1), 1)
+    jm = JModel(mesh_j, dataclasses.replace(_sphere_cfg(JC), column=(
+        dataclasses.replace(_sphere_cfg(JC).column, **bgc))),
+        dtype=jnp.float64, tracer_tree=jtree(**kw),
+        build_unstructured=False)
+    mesh, _ = panel_reorder(icosahedral_mesh(1), 1)
+    model = SeaIceModel(mesh, dataclasses.replace(_sphere_cfg(C), column=(
+        dataclasses.replace(_sphere_cfg(C).column, **bgc))), dtype=F64,
+        device="cpu", tracer_tree=standard_tracer_tree(**kw))
+    names = ("brineHeight", "bioTracers", "bioMobileFraction",
+             "verticalSalinity", "sklBgc")
+    nc, ncat = mesh.n_cells, jm.cfg.run.n_categories
+    area = np.full((nc, ncat), 0.3)
+    js = jm.init_state(area, area * 1.2, area * 0.1)
+    own = model.init_state(area, area * 1.2, area * 0.1)
+    assert set(names) <= set(js.tracers) and set(own.tracers) == set(
+        js.tracers)
+    for k in names:
+        assert np.array_equal(own.tracers[k].numpy(),
+                              np.asarray(js.tracers[k])), k
+    rng = np.random.default_rng(9)
+    new = {k: jnp.asarray(rng.uniform(0.0, 30.0, js.tracers[k].shape))
+           for k in names}
+    js = replace(js, tracers=dict(js.tracers, **new))
+    _, state, _ = from_reference_arrays(None, flatten_arrays(js), "cpu",
+                                        F64)
+    assert set(state.tracers) == set(model.tree.names)
+    for k in names:
+        assert torch.equal(state.tracers[k],
+                           torch.as_tensor(np.array(new[k]))), k
 
 
 def test_convert_carries_full_physics_state_and_forcing():

@@ -348,6 +348,46 @@ def test_sharded_coupled_driver_passes_prescribed_fluxes():
         assert _rel(got[k], want[k]) <= LIMIT, (k, _rel(got[k], want[k]))
 
 
+def _bgc_options(name):
+    from seaice_tpu_torch.column.zbgc import ZbgcParams
+    if name == "zsal_skl":
+        return dict(ktherm=1, solve_zsalinity=True,
+                    use_skeletal_biochemistry=True)
+    return dict(use_biogeochemistry=True, shortwave="dEdd",
+                zbgc_params=ZbgcParams(
+                    n_algae=3, use_C=True, use_DON=True, use_Fe=True,
+                    use_DMS=True, use_PON=True, use_hum=True,
+                    use_zaero=True, n_zaero=3))
+
+
+@pytest.mark.parametrize("name", ["zsal_skl", "zbgc_zaero"])
+def test_coupled_drivers_run_the_bgc_options(name):
+    """The brine height, z-salinity and biogeochemistry options through
+    both coupled drivers (the box, one interval of 2 substeps): the
+    exports finite, the options' tracers moved; the 2-block driver's
+    exports equal the single-device driver's to LIMIT."""
+    from seaice_tpu_torch.coupled import CoupledDriver, ShardedCoupledDriver
+    from seaice_tpu_torch.parallel import ShardedSeaIceModel
+    model, state, mesh = _port_box()
+    model = model.with_column(**_bgc_options(name))
+    area, vol, snow = box.box_initial_state(mesh, n_categories=1)
+    state = model.init_state(area, vol, snow)
+    own = [k for k in ("brineHeight", "verticalSalinity", "sklBgc",
+                       "bioTracers") if k in state.tracers]
+    fields = _imports(mesh.n_cells)
+    dt2 = 2 * model.cfg.run.dt
+    drv = CoupledDriver(model, state, coupling_interval=dt2)
+    want = drv.advance(fields)
+    assert all(np.isfinite(v).all() for v in want.values())
+    for k in own:
+        assert not torch.equal(drv.state.tracers[k], state.tracers[k]), k
+    sm = ShardedSeaIceModel(mesh, model.cfg, 2, F64, devices="cpu")
+    got = ShardedCoupledDriver(sm, sm.init_state(area, vol, snow),
+                               coupling_interval=dt2).advance(fields)
+    for k in got:
+        assert _rel(got[k], want[k]) <= LIMIT, (k, _rel(got[k], want[k]))
+
+
 def test_prescribe_ice_state_matches_reference():
     from seaice_tpu.prescribed import prescribe_ice_state as jpres
     from seaice_tpu_torch.column.itd import category_boundaries

@@ -59,7 +59,7 @@ def _to_host_source(text):
     def conv(m):
         cfg = [x.strip() for x in m.group(2).split(",")]
         smem = cfg[2] if len(cfg) > 2 else "0"
-        return (f"shim_launch({cfg[0]}, {cfg[1]}, {smem}, "
+        return (f"shim_launch({m.group(1)}, {cfg[0]}, {cfg[1]}, {smem}, "
                 f"[&] {{ {m.group(1)}({m.group(3)}); }});")
     text, n = LAUNCH.subn(conv, text)
     text = DYN_SMEM.sub(r"\1* const \2 = reinterpret_cast<\1*>(shim_dyn_smem);",
@@ -582,28 +582,56 @@ def test_raster_loop_host_tables_copied_once(on_host):
     assert second is not first and torch.equal(second[0], 2.0 * first[0])
 
 
-def _flux_problem(dtype):
-    """The IR flux stage's inputs on the subdiv-2 sphere: 3 categories,
-    4 ice + 1 snow layers (2D and 3D tracers, chains of up to 3 factors),
-    random ice and velocities, and a fifth of the edges masked."""
+def _full_roster_tree():
+    """The tracer tree of the widest column configuration: 5 categories,
+    7 + 1 layers, level-ice ponds, the vertical zBGC on the full roster
+    (n_algae 3, every pool) with 3 z-aerosol bins (19 tracers on 8 bio
+    grid points) and its mobile fractions: 50 2D and 930 layered
+    columns."""
+    from seaice_tpu_torch.column.zbgc import ZbgcParams
+    from seaice_tpu_torch.model import column_tracer_tree
+    zp = ZbgcParams(n_algae=3, use_C=True, use_DON=True, use_Fe=True,
+                    use_DMS=True, use_PON=True, use_hum=True,
+                    use_zaero=True, n_zaero=3)
+    return column_tracer_tree(tconfig.Config(
+        run=tconfig.RunConfig(n_categories=5, n_ice_layers=7),
+        column=tconfig.ColumnConfig(pond_scheme="lvl",
+                                    use_biogeochemistry=True,
+                                    zbgc_params=zp)))
+
+
+def _flux_problem(dtype, tree=None, ncat=3, n_ice=4):
+    """The IR flux stage's inputs on the subdiv-2 sphere: by default 3
+    categories, 4 ice + 1 snow layers (2D and 3D tracers, chains of up to
+    3 factors), or the tracer tree `tree` of ncat categories with every
+    tracer seeded; random ice and velocities, and a fifth of the edges
+    masked."""
     from seaice_tpu_torch.model import SeaIceModel
     from seaice_tpu_torch.transport import remap as R
     from seaice_tpu_torch.transport.tracers import standard_tracer_tree
     from seaice_tpu_torch.utils.containers import to_device
     mesh = tmesh.icosahedral_mesh(2)
     cfg = tconfig.Config(
-        run=tconfig.RunConfig(dt=1800.0, n_categories=3, n_ice_layers=4),
+        run=tconfig.RunConfig(dt=1800.0, n_categories=ncat,
+                              n_ice_layers=n_ice),
         velocity=tconfig.VelocitySolverConfig(elastic_subcycle_number=2),
         advection=tconfig.AdvectionConfig(),
         column=tconfig.ColumnConfig(use_column_package=False))
     model = SeaIceModel(mesh, cfg, dtype=torch.float64, device="cpu",
-                        tracer_tree=standard_tracer_tree(n_ice_layers=4,
-                                                         n_snow_layers=1))
+                        tracer_tree=tree or standard_tracer_tree(
+                            n_ice_layers=4, n_snow_layers=1))
     rng = np.random.default_rng(5)
     nc, nv = mesh.n_cells, mesh.n_vertices
-    area = rng.uniform(0.0, 0.3, (nc, 3)) * (rng.uniform(size=(nc, 1)) > 0.3)
-    state = model.init_state(area, area * rng.uniform(0.5, 3.0, (nc, 3)),
+    area = rng.uniform(0.0, 0.3, (nc, ncat)) * (rng.uniform(size=(nc, 1))
+                                                 > 0.3)
+    state = model.init_state(area, area * rng.uniform(0.5, 3.0, (nc, ncat)),
                              area * 0.1)
+    if tree is not None:
+        state = state.replace(tracers={
+            k: (v if k in ("iceAreaCategory", "iceVolumeCategory",
+                           "snowVolumeCategory")
+                else torch.as_tensor(rng.uniform(0.1, 2.0, tuple(v.shape))))
+            for k, v in state.tracers.items()})
     tree, rt = model.tree, model.tensors.remap
     coc = model.tensors.mesh.cells_on_cell
     cocm = model.tensors.mesh.cells_on_cell_mask
@@ -644,3 +672,35 @@ def test_flux_source_matches_plain(on_host, dtype):
     assert any(g.dim() == 3 for g in got.values())
     _assert_close([got[k] for k in tree.names], [want[k] for k in tree.names],
                   dtype, "K2")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_flux_source_full_roster_width(on_host, monkeypatch, dtype):
+    """K2's source at the widest column tree's table (50 2D + 930 layered
+    columns: 20,768 B of shared memory a block in f32, 41,536 B in f64)
+    on a card whose default per-block budget (SHIM_SMEM_DEFAULT, 16 KB
+    here, 48 KB on an H100) both cross, so the launch runs only after the
+    kernel opts in to more; against the plain version.  Where the opt-in
+    limit is below the block's need, the wrapper raises naming the
+    table's width and never runs the plain version instead."""
+    from seaice_tpu_torch.transport.cuda_flux import shared_bytes
+    tree = _full_roster_tree()
+    args = _flux_problem(dtype, tree, ncat=5, n_ice=7)
+    t2 = sum(5 for s in tree.specs if s.n_layers == 0)
+    t3 = sum(5 * s.n_layers for s in tree.specs if s.n_layers)
+    assert (t2, t3) == (50, 930)
+    need = shared_bytes(t2, t3, torch.finfo(dtype).bits // 8)
+    assert need == {torch.float32: 20768, torch.float64: 41536}[dtype]
+    monkeypatch.setenv("SHIM_SMEM_DEFAULT", "16384")
+    monkeypatch.setenv("SHIM_SMEM_OPTIN", "65536")
+    want = remap_integrate_fluxes(*args)
+    before = cuda_flux.integrate_fluxes_cuda.launches
+    got = cuda_flux._launch(*args)
+    assert cuda_flux.integrate_fluxes_cuda.launches == before + 1
+    _assert_close([got[k] for k in tree.names], [want[k] for k in tree.names],
+                  dtype, "K2 full roster")
+    monkeypatch.setenv("SHIM_SMEM_OPTIN", str(need - 8))
+    with pytest.raises(RuntimeError, match="980 columns"):
+        cuda_flux._launch(*args)
+    assert cuda_flux.integrate_fluxes_cuda.launches == before + 1

@@ -353,21 +353,37 @@ def test_constructor_asked_for_the_cpu_gives_the_cpu(name):
 
 
 def test_column_package_is_the_next_slice():
-    """The column package builds (the default config is the column
+    """Every column option builds (the default config is the column
     package with BL99 thermodynamics), in the sharded model too (each
-    block carries it); an option of it that the port leaves out raises,
-    naming its roadmap item, in both."""
+    block carries it): the brine height, z-salinity, skeletal and
+    vertical biogeochemistry with the z-layer aerosols, the last options
+    the port once left out (ROADMAP Queue 1 item 10e), among them; the
+    reference's exclusive options raise ValueError in both."""
     import dataclasses
     from seaice_tpu_torch import config as C
+    from seaice_tpu_torch.column.zbgc import ZbgcParams
     from seaice_tpu_torch.model import SeaIceModel
     from seaice_tpu_torch.parallel import ShardedSeaIceModel
     mesh, _ = _small_model_args()
     assert SeaIceModel(mesh, C.Config(), device="cpu").column is not None
-    cfg = C.Config(column=C.ColumnConfig(solve_zsalinity=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        SeaIceModel(mesh, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ShardedSeaIceModel(mesh, cfg, 2, devices="cpu")
+    zp = ZbgcParams(n_algae=3, use_C=True, use_DON=True, use_Fe=True,
+                    use_DMS=True, use_PON=True, use_hum=True, use_zaero=True)
+    for opts in (dict(solve_zsalinity=True, use_skeletal_biochemistry=True),
+                 dict(use_biogeochemistry=True, shortwave="dEdd",
+                      zbgc_params=zp)):
+        cfg = C.Config(column=C.ColumnConfig(**opts))
+        assert SeaIceModel(mesh, cfg, device="cpu").column is not None
+        sm = ShardedSeaIceModel(mesh, cfg, 2, devices="cpu")
+        assert all(m.column is not None for m in sm.models)
+    for opts in (dict(use_biogeochemistry=True,
+                      use_skeletal_biochemistry=True),
+                 dict(use_biogeochemistry=True, n_aerosols=2,
+                      zbgc_params=zp)):
+        cfg = C.Config(column=C.ColumnConfig(**opts))
+        with pytest.raises(ValueError, match="exclusive"):
+            SeaIceModel(mesh, cfg, device="cpu")
+        with pytest.raises(ValueError, match="exclusive"):
+            ShardedSeaIceModel(mesh, cfg, 2, devices="cpu")
     cfg = dataclasses.replace(cfg, column=C.ColumnConfig())
     sm = ShardedSeaIceModel(mesh, cfg, 2, devices="cpu")
     assert all(m.column is not None for m in sm.models)

@@ -86,13 +86,20 @@ def _enum_keys(conv):
     return sorted(conv.__closure__[0].cell_contents)
 
 
+# the one row where the port's table differs from the JAX package's:
+# supported in the port, which runs the skeletal scheme (ROADMAP Queue 3,
+# fault 9); unsupported in the JAX table
+SKELETAL = ("biogeochemistry", "config_use_skeletal_biochemistry")
+
+
 def _every_option_namelist():
-    """{record: {option: value}}: every supported option of the table at
+    """{record: {option: value}}: every option supported by both tables at
     a non-default legal value, where it has one (one pond scheme on, the
     topographic one)."""
     records = {}
     for o in T._TABLE:
-        if o.disposition != "supported":
+        if o.disposition != "supported" or (o.record, o.full_name) == \
+                SKELETAL:
             continue
         d = o.default
         if isinstance(d, bool):
@@ -119,15 +126,25 @@ def _every_option_namelist():
 
 
 def test_every_supported_option_gives_the_reference_config():
+    """Every option both tables support, at a non-default value, parses to
+    the reference's Config and RunSetup; the skeletal-BGC row, supported
+    in the port alone, sets the port's option where the JAX parser
+    refuses it."""
     records = _every_option_namelist()
     n = sum(len(r) for r in records.values())
-    assert n == T.audit_summary()["supported"] == 251
+    assert n == J.audit_summary()["supported"] == 251
+    assert T.audit_summary()["supported"] == n + 1
     cj, sj, ct, st = _both(records)
     assert ct == cj and st == sj
     # the non-default values reached the config
     assert ct["column"]["pond_scheme"] == "topo"
     assert ct["column"]["zbgc_params"] is not None
     assert ct["run"]["dt"] != 3600.0
+    skl = {SKELETAL[0]: {SKELETAL[1]: True}}
+    cfg, _ = T.config_from_namelist(skl)
+    assert cfg.column.use_skeletal_biochemistry is True
+    with pytest.raises(J.NamelistError, match="not supported"):
+        J.config_from_namelist(skl)
 
 
 @pytest.mark.parametrize("text, match", [
@@ -146,16 +163,25 @@ def test_hard_errors_match_reference(text, match):
 
 
 def test_audit_table_and_summary_match_reference():
-    assert T.audit_summary() == J.audit_summary() == {
+    """The port's table is the JAX package's, row by row, but for the
+    skeletal-BGC row (SKELETAL): supported in the port, unsupported in
+    the JAX table; so one option moves from unsupported to supported."""
+    assert J.audit_summary() == {
         "supported": 251, "na": 30, "unsupported": 35, "total": 316}
+    assert T.audit_summary() == {
+        "supported": 252, "na": 30, "unsupported": 34, "total": 316}
     rows_t, rows_j = list(T.audit_rows()), list(J.audit_rows())
     assert len(rows_t) == len(rows_j) == 316
+    differ = []
     for t, j in zip(rows_t, rows_j):
         # record, option, disposition and default equal; a supported
         # option's target equal (the reasons name each package's files)
-        assert (t[0], t[1], t[2], t[4]) == (j[0], j[1], j[2], j[4])
-        if t[2] == "supported":
+        assert (t[0], t[1], t[4]) == (j[0], j[1], j[4])
+        if t[2] != j[2]:
+            differ.append((t[0], t[1], j[2], t[2]))
+        elif t[2] == "supported":
             assert t[3] == j[3]
+    assert differ == [SKELETAL + ("unsupported", "supported")]
     assert set(T.REGISTRY) == set(J.REGISTRY)
 
 
@@ -175,19 +201,39 @@ def test_month_durations_are_rejected():
 
 
 def test_unported_model_options_parse_and_raise_when_built():
-    """A supported option whose model option the port does not run parses
-    to the reference's Config; building the model raises, naming its
-    ROADMAP item."""
+    """The z-salinity namelist (once an option the port's model left out,
+    ROADMAP Queue 1 item 10e, ported since) parses to the reference's
+    Config, and the model it configures (the 4 x 4 box from
+    `full_physics_inputs`) builds and steps: one step, the vertical
+    salinity and the brine height finite and moved, the z-salinity
+    diagnostics in the column fluxes."""
+    import numpy as np
     import torch
-    from seaice_tpu_torch.mesh import icosahedral_mesh
     from seaice_tpu_torch.model import SeaIceModel
+    from seaice_tpu_torch.parallel.sharded import full_physics_inputs
+    from seaice_tpu_torch.testcases import box
     text = "&biogeochemistry\n config_use_vertical_zsalinity = .true.\n/\n"
     cj, sj, ct, st = _both(text)
     assert ct == cj and ct["column"]["solve_zsalinity"]
     cfg, _ = T.config_from_namelist(text)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        SeaIceModel(icosahedral_mesh(1), cfg, dtype=torch.float64,
-                    device="cpu")
+    mesh = box.box_test_mesh(4, 4)
+    mesh.f_vertex = box.box_coriolis_parameter(mesh)
+    model = SeaIceModel(mesh, cfg, dtype=torch.float64, device="cpu")
+    assert {"brineHeight", "verticalSalinity"} <= set(model.tree.names)
+    area, vol, snow, extra, atm, ocn, cz = full_physics_inputs(
+        mesh, cfg, torch.float64, "cpu")
+    s0 = model.init_state(area, vol, snow)
+    s0 = s0.replace(tracers=dict(s0.tracers, **extra))
+    s1, diags = model.make_step()(model.tensors, s0,
+                                  box.box_forcing(mesh, 0.0, torch.float64,
+                                                  "cpu"),
+                                  atm, ocn, coszen=cz)
+    for k in ("brineHeight", "verticalSalinity"):
+        assert bool(torch.isfinite(s1.tracers[k]).all()), k
+        assert not torch.equal(s1.tracers[k], s0.tracers[k]), k
+    bgc = diags["column_fluxes"].bgc
+    assert {"fzsal", "fzsal_g", "zsal_tot"} <= set(bgc)
+    assert np.isfinite(bgc["zsal_tot"].numpy()).all()
 
 
 def test_snow_grain_radius_prescribed_fluxes_namelist_builds_and_steps():

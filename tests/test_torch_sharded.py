@@ -356,10 +356,11 @@ def _hold_to_unsharded(label, sm, sstate, state, tracers=TRACERS):
                                    err_msg=k, **TRACER_LIMITS)
 
 
-def _sharded_full_physics(mesh, cfg, n_shards, n_steps):
+def _sharded_full_physics(mesh, cfg, n_shards, n_steps, faero=None):
     """n_steps of the unsharded and the n_shards-block full-physics step
-    from the same `full_physics_inputs`: (sm, sstate, sdiags, state,
-    ex), ex the blocks' initial thermodynamic tracers."""
+    from the same `full_physics_inputs` (with the aerosol deposition
+    faero [nCells, nAero], numpy, where given): (sm, sstate, sdiags,
+    state, ex), ex the blocks' initial thermodynamic tracers."""
     from seaice_tpu_torch.parallel.sharded import full_physics_inputs
     area, vol, snow, extra, atm, ocn, coszen = full_physics_inputs(
         mesh, cfg, F64, "cpu")
@@ -377,12 +378,14 @@ def _sharded_full_physics(mesh, cfg, n_shards, n_steps):
         lambda m: tbox.box_forcing(m, t=0.0, device="cpu"))
     satm, socn = sm.scatter_cell_tree(atm), sm.scatter_cell_tree(ocn)
     scz = sm.scatter_cell_tree(coszen)
+    fa = None if faero is None else torch.as_tensor(faero)
+    sfa = None if faero is None else sm.scatter_cell_tree(fa)
     step, sstep = ref.make_step(), sm.make_step()
     for _ in range(n_steps):
         state, diags = step(ref.tensors, state, forcing, atm, ocn,
-                            coszen=coszen)
+                            coszen=coszen, faero_atm=fa)
         sstate, sdiags = sstep(sm.tensors, sm.halo, sstate, sforcing, satm,
-                               socn, scz)
+                               socn, scz, faero_atm=sfa)
     assert all("column_fluxes" in d and "coupling_prep" in d
                for d in sdiags)
     return sm, sstate, sdiags, state, ex
@@ -432,6 +435,30 @@ def test_sharded_highfreq_snow_matches_unsharded():
                                    rtol=0, atol=1e-15)
     assert float(sm.gather_tracers(sstate)["snowGrainRadius"].max()) > \
         54.526
+
+
+def test_sharded_zbgc_zaero_matches_unsharded():
+    """The vertical zBGC on the full roster (3 algal classes, every pool)
+    with 3 z-layer aerosol bins and seeded deposition in 2 blocks: two
+    steps against the unsharded step at JAX's own limits, the brine
+    height, the bio tracers and their mobile fractions included; the
+    BGC diagnostics of every block are there."""
+    from seaice_tpu_torch.column.zbgc import ZbgcParams
+    mesh, cfg = _full_physics_box()
+    zp = ZbgcParams(n_algae=3, use_C=True, use_DON=True, use_Fe=True,
+                    use_DMS=True, use_PON=True, use_hum=True,
+                    use_zaero=True, n_zaero=3)
+    cfg = dataclasses.replace(cfg, column=dataclasses.replace(
+        cfg.column, use_biogeochemistry=True, zbgc_params=zp))
+    faero = np.random.default_rng(4).uniform(0.0, 1e-9, (mesh.n_cells, 3))
+    sm, sstate, sdiags, state, _ = _sharded_full_physics(mesh, cfg, 2, 2,
+                                                         faero)
+    _hold_to_unsharded("sharded zBGC + z-aerosols", sm, sstate, state,
+                       TRACERS + ("brineHeight", "bioTracers",
+                                  "bioMobileFraction"))
+    assert all({"flux_bio", "bgc_carbon_error"} <=
+               set(d["column_fluxes"].bgc) for d in sdiags)
+    assert float(sm.gather_tracers(sstate)["bioTracers"].max()) > 1.0
 
 
 def _runner_forcing(mesh):
