@@ -419,25 +419,29 @@ def full_physics_case(subdiv, n_cat, n_ice, n_sub, dtype, device,
     shortwave, a slab ocean's frzmlt and coszen = clip(cos(lat - 0.3)).
     Returns (model, state, forcing, (AtmosForcing, OceanForcing,
     coszen))."""
-    from seaice_tpu_torch import config as C
     from seaice_tpu_torch.mesh import icosahedral_mesh
     from seaice_tpu_torch.mesh.panels import panel_reorder
     from seaice_tpu_torch.model import SeaIceModel
 
-    dt = 1800.0
     mesh = icosahedral_mesh(subdiv)
     if panel:
         mesh, _ = panel_reorder(mesh, subdiv)
-    cfg = C.Config(
-        run=C.RunConfig(dt=dt, n_categories=n_cat, n_ice_layers=n_ice),
+    model = SeaIceModel(mesh, full_physics_config(n_cat, n_ice, n_sub),
+                        dtype=dtype, device=device)
+    return (model,) + full_physics_inputs(model)
+
+
+def full_physics_config(n_cat, n_ice, n_sub):
+    """`full_physics_case`'s configuration."""
+    from seaice_tpu_torch import config as C
+    return C.Config(
+        run=C.RunConfig(dt=1800.0, n_categories=n_cat, n_ice_layers=n_ice),
         velocity=C.VelocitySolverConfig(
             elastic_subcycle_number=n_sub, rotate_cartesian_grid=True,
             include_metric_terms=True, geostrophic_surface_tilt=False),
         advection=C.AdvectionConfig(conservation_check=True),
         column=C.ColumnConfig(ktherm=2, shortwave="dEdd",
                               pond_scheme="lvl", kstrength=1))
-    model = SeaIceModel(mesh, cfg, dtype=dtype, device=device)
-    return (model,) + full_physics_inputs(model)
 
 
 def full_physics_inputs(model):
@@ -4186,6 +4190,526 @@ def small_reference(cases=None):
                  f"CPU: {worst}")
 
 
+# --- the partitioned model across processes ----------------------------------
+
+# the ranks phase: RANKS processes sharing the one card under gloo (every
+# halo staged through pinned host buffers), one NCCL process alone (world
+# size 1: a real all-gather of card buffers); the spawned processes'
+# limit, the exchanges timed, and the blocks of the f64 overlap check
+RANKS, RANKS_STEPS, RANKS_TIMEOUT_S = 2, 2, 400.0
+EXCHANGES_TIMED = 20
+OVERLAP_F64_SHARDS = 2
+RANKS_LABEL = ("two processes on one card (and one alone): the transport's "
+               "cost, not a multi-card speed")
+
+
+def ranks_inputs(workdir):
+    """`full_physics_case`'s raw sphere, its initial state and forcing as
+    numpy in workdir/inputs.npz, and the forcing files of its mesh:
+    every process of the phase starts from these.  Returns (mesh,
+    config, arrays)."""
+    import os
+    from seaice_tpu_torch.io.synthetic import write_forcing_files
+    model, state, forcing, (atm, ocn, coszen) = full_physics_case(
+        SUBDIV, N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES, torch.float32, None,
+        panel=False)
+    arrays = {"tracer." + k: t.cpu().numpy()
+              for k, t in state.tracers.items()}
+    for tag, obj in (("forcing", forcing), ("atm", atm), ("ocn", ocn)):
+        arrays.update({f"{tag}.{f.name}": getattr(obj, f.name).cpu().numpy()
+                       for f in dataclasses.fields(obj)})
+    arrays["coszen"] = coszen.cpu().numpy()
+    np.savez(os.path.join(workdir, "inputs.npz"), **arrays)
+    os.makedirs(os.path.join(workdir, "forcing"))
+    write_forcing_files(os.path.join(workdir, "forcing"), model.mesh)
+    return model.mesh, model.cfg, arrays
+
+
+def ranks_state(sm, arrays):
+    """The blocks' (states, forcing, column forcing) of `ranks_inputs`."""
+    from seaice_tpu_torch.column.driver import AtmosForcing, OceanForcing
+    from seaice_tpu_torch.dynamics.evp import DynamicsForcing
+
+    def group(tag, cls):
+        return cls(**{f.name: arrays[f"{tag}.{f.name}"]
+                      for f in dataclasses.fields(cls)})
+
+    tr = {k[len("tracer."):]: a for k, a in arrays.items()
+          if k.startswith("tracer.")}
+    states = [st.replace(tracers=t) for st, t in
+              zip(sm.init_state(), sm.scatter_cell_tree(tr))]
+    col = tuple(sm.scatter_cell_tree(x) for x in (
+        group("atm", AtmosForcing), group("ocn", OceanForcing),
+        arrays["coszen"]))
+    return states, sm.scatter_cell_tree(group("forcing", DynamicsForcing)), \
+        col
+
+
+def ranks_steps(sm, arrays, record=False):
+    """RANKS_STEPS steps of the column-on model from `ranks_inputs`, the
+    launch counts reset before and read after (the last step recorded
+    where asked): (state, {"ms_per_step", "launches"}, the recorded
+    calls, the whole fields)."""
+    from seaice_tpu_torch.kernels import launch_counts, reset_launch_counts
+    state, forcing, col = ranks_state(sm, arrays)
+    step = stepper(sm, col)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ms, calls = [], None
+    for i in range(RANKS_STEPS):
+        t0 = time.perf_counter()
+        if record and i == RANKS_STEPS - 1:
+            state, calls = capture_kernel_inputs(sm, state, forcing, col)
+        else:
+            state, _ = step(state, forcing)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    out = {"ms_per_step": ms, "launches": launch_counts()}
+    return state, out, calls, global_fields(sm, state)
+
+
+def exchange_timing(sm):
+    """The vertex halo of the K6 loops' shared velocity buffer
+    (`exchange_uv`), EXCHANGES_TIMED times after one: ms per exchange (one
+    a subcycle) by the host clock around each, synchronised (median,
+    min, max), and the bytes the gloo-staged route copies between card
+    and host per exchange.  Across ranks every rank calls it together."""
+    k, nv = len(sm.blocks), sm.blocks[0].mesh.n_vertices
+    uv = torch.randn((2, k * nv + 1), dtype=sm.dtype, device=sm.device)
+    sm.exchange_uv(uv)
+    torch.cuda.synchronize()
+    b0, ms = sm.comm.bytes_staged, []
+    for _ in range(EXCHANGES_TIMED):
+        t0 = time.perf_counter()
+        sm.exchange_uv(uv)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    plan = sm.plans["vertex"]
+    return {"route": sm.comm.route, "halo_mode": sm.halo_mode,
+            "exchange_ms_per_subcycle": float(np.median(ms)),
+            "exchange_ms_min_max": [min(ms), max(ms)],
+            "bytes_staged_per_exchange":
+                (sm.comm.bytes_staged - b0) / EXCHANGES_TIMED,
+            "rows_sent": plan.n_send, "rows_received": plan.n_recv,
+            "rounds": plan.rounds, "export_rows": plan.n_rows}
+
+
+def overlap_check(dtype, n_shards, halo_mode):
+    """The interior/boundary overlap on the column-off raw sphere without
+    metric terms (the overlap's configurations: with them it is off, as
+    in the JAX package), from a state one step from rest: one subcycle
+    of every block's K6 loop (the step's recorded `evp_subcycle_prepare`
+    calls) under the overlap (`subcycle_exports`, then
+    `ShardedSeaIceModel.evp_overlap`) against one without (K6, then the
+    exchange), held to TOL[dtype]; the whole step, held to the larger of
+    1e-7 and ten times the no-overlap step's response to its velocities
+    and stresses one ulp larger (ROADMAP Queue 3, fault 2).  Relative to
+    max |u|, |v| of the whole mesh."""
+    import copy
+    from seaice_tpu_torch.dynamics import evp as evp_mod
+    from seaice_tpu_torch.dynamics.evp import DynamicsForcing
+    from seaice_tpu_torch.parallel import ShardedSeaIceModel
+    mesh, cfg, tree, ice, forcing = sphere_case(
+        SUBDIV, N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES)
+    cfg = dataclasses.replace(cfg, velocity=dataclasses.replace(
+        cfg.velocity, include_metric_terms=False))
+    t0 = time.perf_counter()
+    sm = ShardedSeaIceModel(mesh, cfg, n_shards, dtype=dtype,
+                            tracer_tree=tree, overlap=True,
+                            halo_mode=halo_mode,
+                            devices=f"cuda:{torch.cuda.current_device()}")
+    built = time.perf_counter() - t0
+    if not sm.overlap_enabled:
+        fail("ranks: the overlap is not enabled on its configuration")
+    plain = copy.copy(sm)
+    plain.overlap = None
+    state = sm.init_state(*ice)
+    sforcing = sm.scatter_cell_tree(DynamicsForcing(**forcing))
+    state, _ = stepper(plain)(state, sforcing)
+
+    def rel(a, b):
+        return max(float(np.abs(x - y).max()) /
+                   max(float(np.abs(y).max()), 1e-300) for x, y in zip(a, b))
+
+    # one subcycle of the recorded loops, with and without the overlap
+    _, calls = capture_calls(lambda: stepper(plain)(state, sforcing))
+    prep = calls["evp_subcycle_prepare"]
+    over, exports = sharded_loops(sm, prep, dtype), []
+    for lp, (args, kw), ov in zip(over, prep, sm.overlap):
+        ft = args[0]
+        (uo, vo, mass, mass_f, rhs_u, rhs_v, ocean_u, ocean_v, sv,
+         area) = args[8:18]
+        zero = torch.zeros_like(rhs_u)      # the surface tilt is in rhs
+        exports.append(evp_mod.subcycle_exports(
+            ov, ft, args[6], args[7], (uo, vo, mass, mass_f, rhs_u, rhs_v,
+                                       zero, zero, ocean_u, ocean_v, sv,
+                                       area, ft.denominator),
+            kw["dt_elastic"], kw["damping_timescale"])(
+                lp.u, lp.v, lp.t11, lp.t22, lp.t12))
+    sm.evp_overlap(over, exports, {})
+    base = sharded_loops(sm, prep, dtype)
+    solve = {}
+    sm.evp_subcycle(base, solve)
+    sm.exchange_uv(solve["uv"])
+
+    def uv_of(loops):
+        return tuple(sm.gather_vertices([getattr(lp, k) for lp in loops]
+                                        ).cpu().numpy() for k in "uv")
+
+    one = rel(uv_of(over), uv_of(base))
+    del calls, prep, over, base, solve
+
+    ms = {}
+
+    def uv(model, st, tag=None):
+        step = stepper(model)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, _ = step(st, sforcing)
+        torch.cuda.synchronize()
+        if tag:
+            ms[tag] = 1e3 * (time.perf_counter() - t1)
+        return sm.gather_velocity(out)
+
+    ulp = 1.0 + float(torch.finfo(dtype).eps)
+    pert = [st.replace(velocity=st.velocity.replace(**{
+        k: getattr(st.velocity, k) * ulp for k in (
+            "u_velocity", "v_velocity", "stress11", "stress22",
+            "stress12")})) for st in state]
+    base = uv(plain, state, "without")
+    whole = rel(uv(sm, state, "with"), base)
+    resp = rel(uv(plain, pert), base)
+    limit = max(1e-7, 10.0 * resp)
+    out = {"dtype": str(dtype), "blocks": n_shards, "route": sm.comm.route,
+           "halo_mode": halo_mode, "seconds_to_build": built,
+           "one_subcycle_rel_err": one, "one_subcycle_limit": TOL[dtype],
+           "step_rel_err": whole, "step_one_ulp_response": resp,
+           "step_limit": limit, "max_speed": float(np.abs(base[0]).max()),
+           "ms_per_step_with_and_without": [ms["with"], ms["without"]]}
+    if not one <= TOL[dtype]:
+        fail(f"ranks: one subcycle under the overlap differs from one "
+             f"without, {one} > {TOL[dtype]} ({dtype})")
+    if not whole <= limit:
+        fail(f"ranks: a step under the overlap differs from one without, "
+             f"{whole} > {limit} ({dtype})")
+    return out
+
+
+def gloo_rank(workdir, rank):
+    """One of the RANKS processes sharing the card under gloo (the
+    gloo-staged route), 2 of the SHARDS blocks each: the column-on raw
+    sphere ring and all-gather, RANKS_STEPS steps each (the ring's last
+    recorded: K6 against its plain version, `check_k6`, on this rank's
+    blocks), two ShardedStandaloneRunner steps from the forcing files
+    (the per-rank restart read back bitwise), one ShardedCoupledDriver
+    interval, the f32 overlap check.  Returns (results, whole fields)."""
+    import os
+    from seaice_tpu_torch.coupled import ShardedCoupledDriver
+    from seaice_tpu_torch.io import (load_sharded_checkpoint,
+                                     read_restart_timestamp)
+    from seaice_tpu_torch.io.forcing_reader import (core_atmos_from_files,
+                                                    ncar_ocean_from_file)
+    from seaice_tpu_torch.mesh import icosahedral_mesh
+    from seaice_tpu_torch.parallel import ShardedSeaIceModel
+    from seaice_tpu_torch.run import RunStreams, ShardedStandaloneRunner
+    with np.load(os.path.join(workdir, "inputs.npz")) as z:
+        arrays = dict(z)
+    mesh = icosahedral_mesh(SUBDIV)
+    cfg = full_physics_config(N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES)
+    res, fields = {"rank": rank}, {}
+    dev = f"cuda:{torch.cuda.current_device()}"
+    t0 = time.perf_counter()
+    sm = ShardedSeaIceModel(mesh, cfg, SHARDS, dtype=torch.float32,
+                            devices=dev)
+    res["ring"] = {"seconds_to_build": time.perf_counter() - t0,
+                   "route": sm.comm.route, "blocks": list(sm.block_ids)}
+    state, steps, calls, fields["ring"] = ranks_steps(sm, arrays, True)
+    res["ring"].update(steps)
+    prep = calls["evp_subcycle_prepare"]
+    if len(prep) != len(sm.blocks):
+        fail(f"ranks: rank {rank} recorded {len(prep)} K6 loops")
+    k6 = check_k6(sm, prep, 3, short_loop_from_response=True)
+    res["k6"] = {k: v for k, v in k6.items() if "err" in k or k in (
+        "short_loop_limit", "ms", "plain_ms", "kernel_ms", "bound_ms",
+        "shapes")}
+    del calls, prep
+
+    # two runner steps from the forcing files, the restart after both
+    fdir, rdir = (os.path.join(workdir, d) for d in ("forcing", "restart"))
+    os.makedirs(rdir, exist_ok=True)
+    names = ("core_sixhourly.nc", "core_monthly.nc", "ocean.nc")
+    six, mon, ocn = (os.path.join(fdir, n) for n in names)
+    runner = ShardedStandaloneRunner(
+        sm, state, atmos_forcing=core_atmos_from_files(
+            six, mon, mesh.lon_cell, mesh.lat_cell),
+        ocean_forcing=ncar_ocean_from_file(ocn),
+        streams=RunStreams(restart_dir=rdir, restart_interval=2 * 1800.0))
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.run(1)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    ts = read_restart_timestamp(rdir)
+    back, clock = load_sharded_checkpoint(
+        rdir, f"restart.{ts}", sm.part, sm.init_state(), shards=sm.block_ids)
+    differ = [k for k, (a, b) in enumerate(zip(back, runner.state))
+              if not all(torch.equal(x, y) for x, y in zip(
+                  state_leaves(a), state_leaves(b)))]
+    res["runner"] = {"ms_per_runner_step": ms, "restart": ts,
+                     "clock": clock, "blocks_differing": differ}
+    if differ:
+        fail(f"ranks: rank {rank}'s blocks {differ} read back from the "
+             "restart differ")
+
+    # one coupled interval from the initial state
+    states, _, _ = ranks_state(sm, arrays)
+    drv = ShardedCoupledDriver(sm, states, coupling_interval=COUPLING_INTERVAL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export = drv.advance(coupled_imports(mesh.n_cells))
+    res["coupled"] = {"ms_per_interval": 1e3 * (time.perf_counter() - t0),
+                      "substeps": drv.n_substeps,
+                      "export_fields": sorted(export)}
+    fields["coupled"] = export
+    if set(export) != COUPLED_EXPORTS - {"Fioi_taux", "Fioi_tauy"} or \
+            not all(np.isfinite(v).all() for v in export.values()):
+        fail(f"ranks: rank {rank}'s coupled export {sorted(export)} wrong "
+             "or not finite")
+    del state, runner, back, drv, states
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ag = ShardedSeaIceModel(mesh, cfg, SHARDS, dtype=torch.float32,
+                            devices=dev, halo_mode="allgather")
+    res["allgather"] = {"seconds_to_build": time.perf_counter() - t0}
+    _, steps, _, fields["allgather"] = ranks_steps(ag, arrays)
+    res["allgather"].update(steps)
+    res["overlap"] = overlap_check(torch.float32, SHARDS, "ring")
+    # the exchanges timed last, when the other processes of the phase
+    # are most likely done
+    res["ring"]["exchange"] = exchange_timing(sm)
+    res["allgather"]["exchange"] = exchange_timing(ag)
+    return res, fields
+
+
+def nccl_rank(workdir, rank):
+    """The NCCL process alone (world size 1): the column-on raw sphere in
+    SHARDS blocks with the all-gather, RANKS_STEPS steps (each exchange
+    a real NCCL all-gather of card buffers), and the f64 overlap check
+    on OVERLAP_F64_SHARDS blocks with the all-gather (issued before K6,
+    waited for after it)."""
+    import os
+    from seaice_tpu_torch.mesh import icosahedral_mesh
+    from seaice_tpu_torch.parallel import ShardedSeaIceModel
+    with np.load(os.path.join(workdir, "inputs.npz")) as z:
+        arrays = dict(z)
+    mesh = icosahedral_mesh(SUBDIV)
+    cfg = full_physics_config(N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES)
+    t0 = time.perf_counter()
+    sm = ShardedSeaIceModel(mesh, cfg, SHARDS, dtype=torch.float32,
+                            halo_mode="allgather",
+                            devices=f"cuda:{torch.cuda.current_device()}")
+    res, fields = {"allgather": {"seconds_to_build":
+                                 time.perf_counter() - t0,
+                                 "route": sm.comm.route}}, {}
+    _, steps, _, fields["allgather"] = ranks_steps(sm, arrays)
+    res["allgather"].update(steps)
+    res["overlap"] = overlap_check(torch.float64, OVERLAP_F64_SHARDS,
+                                   "allgather")
+    res["allgather"]["exchange"] = exchange_timing(sm)
+    return res, fields
+
+
+def state_leaves(st):
+    v = st.velocity
+    return [getattr(v, f.name) for f in dataclasses.fields(v)] + \
+        [st.tracers[k] for k in sorted(st.tracers)]
+
+
+def rank_worker(role, rank, world, workdir):
+    """A spawned process of the ranks phase ("gloo": one of RANKS, or
+    "nccl": alone): joins its process group (a file rendezvous in
+    workdir), finds the kernels the parent built (it must not build
+    any), runs its part and writes workdir/<role>.rank<rank>.json and
+    .npz.  A failed check exits non-zero; the group's timeout ends a
+    rank whose peer died."""
+    import datetime
+    import os
+    import pickle
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl" if role == "nccl" else "gloo",
+        init_method="file://" + os.path.join(workdir, f"rendezvous_{role}"),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        from seaice_tpu_torch.kernels import build
+        build.build_cuda()
+        build.get_native_stencil_lib()
+        if build.build_log:
+            fail(f"ranks: {role} rank {rank} built {sorted(build.build_log)}")
+        res, fields = (gloo_rank if role == "gloo" else nccl_rank)(workdir,
+                                                                  rank)
+        base = os.path.join(workdir, f"{role}.rank{rank}")
+        with open(base + ".pkl", "wb") as f:
+            pickle.dump(fields, f)
+        with open(base + ".json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def ranks_phase(workdir, card, kernels):
+    """The partitioned model across processes (`parallel/comm.py`): RANKS
+    spawned processes share the card under gloo, each holding 2 of the
+    SHARDS blocks, and one NCCL process holds all of them (world size 1;
+    NCCL refuses two ranks on one card, so NCCL between cards is not
+    run here); each starts from `ranks_inputs` after the kernels are
+    built.  Here: the same model in one process, RANKS_STEPS steps with
+    each halo mode, the reference every run of that mode is held to
+    bitwise (ring and all-gather on the ranks, the NCCL all-gather); the
+    ranks' coupled exports equal each other.  A failed or hung process
+    fails the phase."""
+    import multiprocessing
+    import os
+    import pickle
+    from seaice_tpu_torch.parallel import ShardedSeaIceModel
+    t_phase = time.perf_counter()
+    mesh, cfg, arrays = ranks_inputs(workdir)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=rank_worker, args=("gloo", r, RANKS,
+                                                   workdir))
+             for r in range(RANKS)]
+    procs.append(ctx.Process(target=rank_worker,
+                             args=("nccl", 0, 1, workdir)))
+    for p in procs:
+        p.start()
+    try:
+        # the one-process runs of both halo modes (the modes differ in
+        # the padded halo slots, which the column's convergence loops of
+        # a block see)
+        ref, want, models = {}, {}, {}
+        for mode in ("ring", "allgather"):
+            models[mode] = ShardedSeaIceModel(
+                mesh, cfg, SHARDS, dtype=torch.float32, halo_mode=mode)
+            _, ref[mode], _, want[mode] = ranks_steps(models[mode], arrays)
+        deadline = time.monotonic() + RANKS_TIMEOUT_S
+        while any(p.is_alive() for p in procs):
+            bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                fail(f"ranks: a process exited with {bad} or the phase "
+                     f"passed {RANKS_TIMEOUT_S} s")
+            time.sleep(0.2)
+        if any(p.exitcode != 0 for p in procs):
+            fail(f"ranks: exit codes {[p.exitcode for p in procs]}")
+        for mode, sm in models.items():
+            ref[mode]["exchange"] = exchange_timing(sm)
+        del models, sm
+        torch.cuda.empty_cache()
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+
+    def load(role, rank):
+        base = os.path.join(workdir, f"{role}.rank{rank}")
+        with open(base + ".json") as f, open(base + ".pkl", "rb") as g:
+            return json.load(f), pickle.load(g)
+
+    gloo = [load("gloo", r) for r in range(RANKS)]
+    nccl = load("nccl", 0)
+    runs = {(f"gloo rank {r} {mode}", mode): g[1][mode]
+            for r, g in enumerate(gloo) for mode in ("ring", "allgather")}
+    runs[("nccl allgather", "allgather")] = nccl[1]["allgather"]
+    # NaN where NaN: under the all-gather a padded halo slot carries a real
+    # cell's state (ROADMAP Queue 3, fault 19)
+    differ = {label: sorted(k for k in want[mode] if not np.array_equal(
+                  got[k], want[mode][k], equal_nan=True))
+              for (label, mode), got in runs.items()}
+    nans = {f"one process {mode}": sorted(k for k, a in want[mode].items()
+                                          if np.isnan(a).any())
+            for mode in want}
+    exports = [g[1]["coupled"] for g in gloo]
+    export_differ = sorted(k for k in exports[0]
+                           if not np.array_equal(exports[0][k], exports[1][k]))
+    counts = {}
+    for res, _ in gloo + [nccl]:
+        for mode in ("ring", "allgather"):
+            for name, n in res.get(mode, {}).get("launches", {}).items():
+                counts[name] = counts.get(name, 0) + n
+    n_dyn = cfg.velocity.dynamics_subcycle_number
+    want_counts = {"evp_subcycle_step": N_SUBCYCLES * n_dyn * RANKS_STEPS,
+                   "integrate_fluxes_cuda": n_dyn * RANKS_STEPS}
+    wrong = {}
+    for label, res in [(f"gloo rank {r}", g[0]) for r, g in enumerate(gloo)] \
+            + [("nccl", nccl[0])]:
+        blocks = SHARDS if label == "nccl" else SHARDS // RANKS
+        for mode in ("ring", "allgather"):
+            got = res.get(mode, {}).get("launches")
+            if got is None:
+                continue
+            exp = {k: v * (blocks if k == "integrate_fluxes_cuda" else 1)
+                   for k, v in want_counts.items()}
+            if any(got.get(k, 0) != exp.get(k, 0)
+                   for k in set(got) | set(exp)):
+                wrong[f"{label} {mode}"] = got
+    by_transport = {f"in-process {mode}": ref[mode]["exchange"]
+                    for mode in ref}
+    for r, (res, _) in enumerate(gloo):
+        for mode in ("ring", "allgather"):
+            by_transport[f"gloo-staged {mode}, rank {r}"] = \
+                res[mode]["exchange"]
+    by_transport["nccl allgather, world size 1"] = \
+        nccl[0]["allgather"]["exchange"]
+    emit({"ranks": {
+        "label": RANKS_LABEL, "card": card, "blocks": SHARDS,
+        "ranks": RANKS, "steps": RANKS_STEPS,
+        "ms_per_step": {**{f"one process {mode}": ref[mode]["ms_per_step"]
+                           for mode in ref}, **{
+            f"gloo rank {r} {mode}": g[0][mode]["ms_per_step"]
+            for r, g in enumerate(gloo) for mode in ("ring", "allgather")},
+            "nccl allgather": nccl[0]["allgather"]["ms_per_step"]},
+        "exchange_by_transport": by_transport,
+        "bitwise_one_process": {k: not v for k, v in differ.items()},
+        "fields_with_nan": nans,
+        "fields_differing": {k: v for k, v in differ.items() if v},
+        "launches": {"one process ring": ref["ring"]["launches"], **{
+            f"gloo rank {r}": g[0]["ring"]["launches"]
+            for r, g in enumerate(gloo)},
+            "nccl": nccl[0]["allgather"]["launches"]},
+        "runner": [g[0]["runner"] for g in gloo],
+        "coupled": [g[0]["coupled"] for g in gloo],
+        "coupled_exports_equal": not export_differ,
+        "overlap": {"gloo f32": [g[0]["overlap"] for g in gloo],
+                    "nccl f64": nccl[0]["overlap"]},
+        "builds": {f"gloo rank {r}": {m: g[0][m]["seconds_to_build"]
+                                      for m in ("ring", "allgather")}
+                   for r, g in enumerate(gloo)},
+        "phase_seconds": time.perf_counter() - t_phase}})
+    emit({"ranks_k6_against_plain": {"card": card,
+                                     **{f"gloo rank {r}": g[0]["k6"]
+                                        for r, g in enumerate(gloo)}}})
+    if nans["one process ring"]:
+        fail(f"ranks: the ring run is not finite: {nans}")
+    if any(differ.values()):
+        fail(f"ranks: runs differ from the one-process run: "
+             f"{ {k: v for k, v in differ.items() if v} }")
+    if export_differ:
+        fail(f"ranks: the ranks' coupled exports differ in {export_differ}")
+    if wrong:
+        fail(f"ranks: launch counts {wrong}, expected per rank "
+             f"{want_counts} (K2 once a block)")
+    add_launches(kernels, "ranks: gloo ring, gloo all-gather, nccl", counts)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=3)
@@ -4444,6 +4968,15 @@ def main():
     workdir = tempfile.mkdtemp(prefix="chip_smoke_entry_")
     try:
         entry_scripts(card, kernels, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # the partitioned model across processes (gloo ranks sharing the
+    # card, an NCCL rank alone)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        ranks_phase(workdir, card, kernels)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()

@@ -7,13 +7,20 @@ entry()             -> (step, args): one timestep of the flagship box
                        box) at 8 elastic subcycles, float32, on the CUDA
                        card: call step(*args).
 dryrun_multichip(n) -> ONE sharded full-physics step of
-                       `ShardedSeaIceModel` with n blocks, all on the
-                       one card (several cards: ROADMAP Queue 1 item 9).
+                       `ShardedSeaIceModel` with n blocks: all on the
+                       one card, or, under a process group, spread over
+                       the ranks (one card each) with the
+                       interior/boundary overlap of the halo exchange.
 
 Both ask for the card unless given device="cpu".
 
     python entry_torch.py                  # the card
     python entry_torch.py --device cpu --nx 8 --subcycles 2 --blocks 2
+    # N ranks on N cards (NCCL), or on the CPU (gloo): the dry run only
+    python -m torch.distributed.run --nproc-per-node=N entry_torch.py \
+        --blocks N
+    python -m torch.distributed.run --nproc-per-node=2 entry_torch.py \
+        --device cpu --nx 8 --subcycles 2 --blocks 4
 """
 
 import os
@@ -47,17 +54,20 @@ def entry(device=None, nx=32, subcycles=8):
     return model.make_step(), (model.tensors, state, forcing)
 
 
-def dryrun_multichip(n_blocks: int, device=None, nx=32, subcycles=10):
+def dryrun_multichip(n_blocks: int, device=None, nx=32, subcycles=10,
+                     overlap=None):
     """ONE sharded full-physics step (mushy thermodynamics, dEdd
     shortwave, level-ice ponds, Rothrock strength, 5 categories, remap
     and ridging, ice age and first-year ice, 2 bulk aerosol species with
     their deposition, high-frequency coupling, the snow tracers with
     ITDrdg redistribution) of the nx x nx box (32 by default) cut into
-    n_blocks blocks, every block on the one device, `subcycles` elastic
-    subcycles (10), float32 (the
-    JAX package's `parallel/sharded.py::dryrun`, without the
-    interior/boundary overlap, which needs CUDA streams).  Returns the
-    blocks' states."""
+    n_blocks blocks, `subcycles` elastic subcycles (10), float32.  Under
+    an initialised process group the blocks are spread over the ranks
+    with the interior/boundary overlap on, as the JAX package's
+    `parallel/sharded.py::dryrun` runs them over its devices; without one
+    every block is on the one device, without the overlap.  overlap: True
+    or False sets the overlap either way.  Returns the rank's blocks'
+    states."""
     import numpy as np
     import torch
     from seaice_tpu_torch.config import (AdvectionConfig, ColumnConfig,
@@ -81,7 +91,11 @@ def dryrun_multichip(n_blocks: int, device=None, nx=32, subcycles=10):
                             use_snow_tracers=True, snwredist="ITDrdg"))
     mesh = box.box_test_mesh(nx, nx)
     mesh.f_vertex = box.box_coriolis_parameter(mesh)
-    sm = ShardedSeaIceModel(mesh, cfg, n_blocks, dtype=f32, devices=device)
+    from seaice_tpu_torch.parallel.comm import process_group
+    if overlap is None:
+        overlap = process_group() is not None
+    sm = ShardedSeaIceModel(mesh, cfg, n_blocks, dtype=f32, devices=device,
+                            overlap=overlap)
     area, vol, snow, extra, atm, ocn, coszen = full_physics_inputs(
         mesh, cfg, f32, sm.device)
     state = [st.replace(tracers=dict(st.tracers, **e)) for st, e in zip(
@@ -116,9 +130,25 @@ if __name__ == "__main__":
     ap.add_argument("--nx", type=int, default=32)
     ap.add_argument("--subcycles", type=int, default=8)
     args = ap.parse_args()
-    fn, fn_args = entry(args.device, args.nx, args.subcycles)
-    out, _ = fn(*fn_args)
-    assert bool(torch.isfinite(out.velocity.u_velocity).all())
-    print("entry() OK")
-    dryrun_multichip(args.blocks, args.device, args.nx, args.subcycles)
-    print("dryrun_multichip OK")
+    # launched by torch.distributed.run: one process per card (NCCL), or
+    # processes on the CPU (gloo); the dry run alone
+    ranks = "LOCAL_RANK" in os.environ
+    if ranks:
+        import torch.distributed as dist
+        if args.device == "cpu":
+            dist.init_process_group("gloo")
+        else:
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+            dist.init_process_group("nccl")
+    try:
+        if not ranks:
+            fn, fn_args = entry(args.device, args.nx, args.subcycles)
+            out, _ = fn(*fn_args)
+            assert bool(torch.isfinite(out.velocity.u_velocity).all())
+            print("entry() OK")
+        dryrun_multichip(args.blocks, args.device, args.nx, args.subcycles)
+        if not ranks or dist.get_rank() == 0:
+            print("dryrun_multichip OK")
+    finally:
+        if ranks:
+            dist.destroy_process_group()

@@ -77,7 +77,8 @@ class AnalysisDriver:
             m.init(model, state)
 
     def on_timestep(self, model, state, clock: ModelClock,
-                    diags: Optional[Dict[str, Any]] = None):
+                    diags: Optional[Dict[str, Any]] = None,
+                    write: bool = True):
         """precompute -> compute -> write, alarm-gated per member
         (reference timeLoop integration :321-331).  state: the state, or
         a function that returns it; diags: the step's diagnostics dict,
@@ -85,7 +86,8 @@ class AnalysisDriver:
         called once, and only in a step where a member precomputes or
         computes (the sharded runner gathers the blocks so).  Each member
         that computes finds the keys it names in `diag_keys` in
-        `last_diags`."""
+        `last_diags`.  write=False leaves the members' writes out (the
+        ranks of a partitioned run other than rank 0)."""
         due = [(m, m.compute_alarm.is_ringing(clock),
                 m.write_alarm.is_ringing(clock)) for m in self.members]
         busy = [m for m, compute, _ in due if compute or m.precomputes]
@@ -94,14 +96,14 @@ class AnalysisDriver:
                 state = state()
             if callable(diags):
                 diags = diags(sorted({k for m in busy for k in m.diag_keys}))
-        for m, compute, write in due:
+        for m, compute, due_write in due:
             if m in busy:
                 m.last_diags = {k: diags[k] for k in m.diag_keys
                                 if k in diags} if diags else {}
                 m.precompute(model, state, clock)
                 if compute:
                     m.results = m.compute(model, state, clock) or {}
-            if write:
+            if write and due_write:
                 m.write(self.stream, clock)
 
     def result(self, member_name: str) -> Dict[str, Any]:

@@ -277,13 +277,14 @@ class CoupledDriver:
 
 
 class ShardedCoupledDriver:
-    """CoupledDriver over a ShardedSeaIceModel (blocks in lockstep on one
-    card): the import fields go to the device in one copy and are
-    scattered to the blocks there, the sub-loop runs the sharded step,
-    and the interval-mean fluxes and the state are gathered from their
-    owners on the device for the export, fetched in one copy (the
-    reference's decomposed ice_run_mct loop; gathers happen only at the
-    coupler boundary, where the MCT rearranger sits).
+    """CoupledDriver over a ShardedSeaIceModel (the rank's blocks in
+    lockstep on its card): the import fields go to the device in one copy
+    and are scattered to the rank's blocks there, the sub-loop runs the
+    sharded step, and the interval-mean fluxes and the state are gathered
+    from their owners on the device for the export (across ranks a
+    collective: every rank returns the same export), fetched in one copy
+    (the reference's decomposed ice_run_mct loop; gathers happen only at
+    the coupler boundary, where the MCT rearranger sits).
 
     As in the JAX package's driver, the solar zenith is evaluated once
     per couple interval, at the interval-start clock, not per substep,
@@ -339,7 +340,7 @@ class ShardedCoupledDriver:
         model = self.model
         dyn, atmf, ocnf, coszen, sfcf = self.inputs(import_fields)
         state = self.state
-        fluxes = [FluxMean() for _ in range(model.n_shards)]
+        fluxes = [FluxMean() for _ in model.blocks]
         for _ in range(self.n_substeps):
             state, diags = self.step_fn(model.tensors, model.halo, state,
                                         dyn, atmf, ocnf, coszen,

@@ -37,9 +37,12 @@ onto that loop.
 The solve is written as a generator (`velocity_solve_steps`) that stops
 at each halo exchange (`utils/lockstep.py`); `make_velocity_solver` runs
 it with the caller's exchange functions, the partitioned model
-(`parallel/sharded.py`) runs one per block in lockstep.  The
-interior/boundary overlap of the halo exchange (`halo_overlap`) raises
-NotImplementedError (ROADMAP Queue 1 item 9).
+(`parallel/sharded.py`) runs one per block in lockstep.  Under the
+interior/boundary overlap of the halo exchange (`halo_overlap`,
+`SubcycleOverlap`) a block's loop of standard EVP computes its export
+vertices' new velocities first, through a small subset pipeline in plain
+torch (`subcycle_exports`), so that their exchange can run while K6
+computes the whole block.
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ from .cuda_panel import panel_cell_prepare, panel_cell_step
 from .cuda_panel_fused import evp_panel_loop
 from .cuda_raster import basis_tables, build_raster_loop
 from .cuda_unstructured import (evp_subcycle_finish, evp_subcycle_loop,
-                                evp_subcycle_prepare)
+                                evp_subcycle_prepare, evp_subcycle_step)
 from .momentum import (momentum_update, ocean_stress_coefficient,
                        solve_velocity_evp, solve_velocity_revised_evp)
 from .variational_fast import build_fast_tensors, strain_tensor_T
@@ -104,6 +107,131 @@ def is_variant(cfg: Config) -> bool:
             v.constitutive_relation != ConstitutiveRelation.EVP or
             v.average_variational_strains or not v.use_ocean_stress or
             v.ocean_stress_type != OceanStressType.QUADRATIC)
+
+
+def check_overlap(cfg: Config):
+    """Raise the JAX package's ValueError (`seaice_tpu/dynamics/evp.py:
+    690-699`) for a configuration the interior/boundary overlap cannot
+    split; the port raises it as well where the ocean drag is not
+    quadratic, which the JAX package's subset pipeline hard-codes while
+    its full grid follows the config (ROADMAP Queue 3, fault 18)."""
+    v = cfg.velocity
+    msg = ("halo_overlap requires the fast variational path with standard "
+           "EVP and no metric terms")
+    if (_uses_weak(cfg) or v.include_metric_terms or
+            v.constitutive_relation != ConstitutiveRelation.EVP or
+            v.average_variational_strains):
+        raise ValueError(msg)
+    if is_variant(cfg):
+        raise ValueError(
+            msg + ", and quadratic ocean drag: the JAX package's export "
+            "pipeline hard-codes it (ROADMAP Queue 3, fault 18)")
+
+
+@tensor_dataclass
+class SubcycleOverlap:
+    """Subset tensors of one block for the interior/boundary overlap (the
+    JAX package's `SubcycleOverlap`): the export vertices and the cells
+    around them, so that a subcycle computes the export vertices' new
+    velocities first (strain -> stress -> divergence -> momentum over
+    those cells only) and their exchange runs beside the whole block's
+    kernel."""
+    export_idx: Any         # [nE] local owned vertex ids (0-padded)
+    ec_idx: Any             # [nEc] local cell ids adjacent to exports
+    voc_T_E: Any            # [me, nEc] corner vertex ids
+    voc_mask_T_E: Any       # [me, nEc]
+    basis_grad_T_E: Any     # [me(b), 2, me(g), nEc]
+    basis_int_T_E: Any      # [me(s), 2, me(j), nEc]
+    flat_corner_idx_E: Any  # [vd, nE] = pos_in_ec*me + cva
+    cov_mask_E: Any         # [vd, nE]
+
+
+def build_subcycle_overlap(mesh: Mesh, fast, vertex_export_idx, dtype,
+                           device=None) -> SubcycleOverlap:
+    """The subset of a block's FastTensors its export vertices read (host
+    numpy, the JAX package's `build_subcycle_overlap`)."""
+    import numpy as np
+    me = mesh.max_edges
+    E = np.asarray(vertex_export_idx, np.int64)
+    cov = np.asarray(mesh.cells_on_vertex)[E]          # [nE, vd]
+    ec = np.unique(cov[cov >= 0])
+    if len(ec) == 0:
+        ec = np.zeros(1, np.int64)
+    pos = np.full(mesh.n_cells, 0, np.int64)
+    pos[ec] = np.arange(len(ec))
+    cva = np.asarray(mesh.cell_vertices_at_vertex)[E]  # [nE, vd]
+    ok = (cov >= 0) & (cva >= 0)
+    flat = pos[np.where(ok, cov, 0)] * me + np.where(ok, cva, 0)
+    device = resolve_device(device)
+    ecx = torch.as_tensor(ec).to(fast.voc_T.device)
+
+    def ix(a):
+        return torch.as_tensor(np.asarray(a, np.int64)).to(device)
+
+    def fl(t):
+        return t.to(device=device, dtype=dtype)
+
+    return SubcycleOverlap(
+        export_idx=ix(E), ec_idx=ix(ec),
+        voc_T_E=fast.voc_T.index_select(1, ecx).to(device),
+        voc_mask_T_E=fl(fast.voc_mask_T.index_select(1, ecx)),
+        basis_grad_T_E=fl(fast.basis_grad_T.index_select(3, ecx)),
+        basis_int_T_E=fl(fast.basis_int_T.index_select(3, ecx)),
+        flat_corner_idx_E=ix(flat.T),
+        cov_mask_E=fl(torch.as_tensor(ok.T.astype(np.float64))))
+
+
+def subcycle_exports(ov: SubcycleOverlap, fast, pressure, solve_stress,
+                     vertex, dt_elastic: float, damping_timescale: float):
+    """The export pipeline of one block's solve under the overlap (the
+    JAX package's `export_pipeline`, `evp.py:719-757`, plain torch on
+    the tensors' device): returns fn(u, v, t11, t22, t12) -> [nE, 2], the
+    new (u, v) at the export vertices after one subcycle from the loop's
+    state (stresses in the [maxEdges, nCells] layout).  vertex = (uo_v,
+    vo_v, mass_vertex, mass_f, air_u, air_v, tilt_u, tilt_v, ocean_u,
+    ocean_v, solve_velocity, area_vertex, denominator); the subset of
+    each is taken once per solve."""
+    E, ec = ov.export_idx, ov.ec_idx
+    p_E = pressure.index_select(0, ec)[None, :]
+    ss_E = (solve_stress.index_select(0, ec) > 0)[None, :]
+    (uo, vo, mv, mf, au, av, tu, tv, ou, ovv, sv, avert,
+     den) = (t.index_select(0, E) for t in vertex)
+    gx, gy = ov.basis_grad_T_E[:, 0], ov.basis_grad_T_E[:, 1]
+    bu, bv = ov.basis_int_T_E[:, 0], ov.basis_int_T_E[:, 1]
+    solve = sv > 0
+    zero = torch.zeros_like(uo)
+    drag = c.ICE_OCEAN_DRAG * c.DENSITY_SEAWATER
+
+    def exports(u, v, t11, t22, t12):
+        u_c = u[ov.voc_T_E] * ov.voc_mask_T_E
+        v_c = v[ov.voc_T_E] * ov.voc_mask_T_E
+        e11 = (u_c[:, None, :] * gx).sum(0)
+        e22 = (v_c[:, None, :] * gy).sum(0)
+        e12 = 0.5 * ((u_c[:, None, :] * gy).sum(0) +
+                     (v_c[:, None, :] * gx).sum(0))
+        o11, o22, o12 = (t.index_select(1, ec) for t in (t11, t22, t12))
+        n11, n22, n12, _ = constitutive.evp_stress_update(
+            o11, o22, o12, e11, e22, e12, p_E, dt_elastic,
+            damping_timescale)
+        n11 = torch.where(ss_E, n11, o11)
+        n22 = torch.where(ss_E, n22, o22)
+        n12 = torch.where(ss_E, n12, o12)
+        pu = (n11[:, None, :] * bu).sum(0) + (n12[:, None, :] * bv).sum(0)
+        pv = (n22[:, None, :] * bv).sum(0) + (n12[:, None, :] * bu).sum(0)
+        # the corner partials in (cell, corner) order, gathered per vertex
+        fu, fv = pu.t().reshape(-1), pv.t().reshape(-1)
+        du = -(fu[ov.flat_corner_idx_E] * ov.cov_mask_E).sum(0)
+        dv = -(fv[ov.flat_corner_idx_E] * ov.cov_mask_E).sum(0)
+        du = torch.where(solve, du / den, zero)
+        dv = torch.where(solve, dv / den, zero)
+        u_e, v_e = u.index_select(0, E), v.index_select(0, E)
+        oc = drag * avert * torch.sqrt((uo - u_e) ** 2 + (vo - v_e) ** 2)
+        oc = torch.where(solve, oc, zero)
+        u_n, v_n = solve_velocity_evp(u_e, v_e, mv, mf, du, dv, au, av, tu,
+                                      tv, ou, ovv, oc, sv, dt_elastic)
+        return torch.stack([u_n, v_n], 1)
+
+    return exports
 
 
 def build_dynamics_tensors(mesh: Mesh, cfg: Config, dtype=torch.float32,
@@ -313,25 +441,38 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
     masks, whose stencils reach one ring beyond the halo (the reference's
     exchange groups, velocity_solver.F:257-345).  An exchange may refresh
     in place and return its argument, or return new tensors.
-    halo_overlap: the interior/boundary overlap of the JAX package; not
-    ported, raises NotImplementedError.
+    halo_overlap: optional (SubcycleOverlap, exchange_from_buf, n_owned),
+    the interior/boundary overlap of the JAX package: each subcycle of
+    standard EVP computes the export vertices first (`subcycle_exports`),
+    then K6 runs, exchange_from_buf(buf [nE, 2]) -> [nHalo, 2] gives the
+    halo's new (u, v), and the owned export vertices take the subset
+    values; a configuration it cannot split raises ValueError
+    (`check_overlap`).
     dyn: optional; if given, returns a convenience wrapper with dyn bound.
 
     Returns step(dyn, state, forcing, ice_area_cat, ice_volume_cat,
                  snow_volume_cat, pressure_in=None) -> (state, diags).
     """
-    if halo_overlap is not None:
-        raise NotImplementedError(
-            "make_velocity_solver(halo_overlap=...): the interior/boundary "
-            "overlap of the halo exchange needs CUDA streams; ROADMAP "
-            "Queue 1 item 9")
     exchanges = {"vertex_uv": halo_exchange_vertex,
                  "cell_field": halo_exchange_cell_field,
                  "vertex_field": halo_exchange_vertex_field}
+    overlap = None
+    if halo_overlap is not None:
+        check_overlap(cfg)
+        overlap, exchange_from_buf, n_owned = halo_overlap
+
+        def overlapped(loop, exports):
+            evp_subcycle_step(loop)
+            halo_uv = exchange_from_buf(exports)
+            for j, t in enumerate((loop.u, loop.v)):
+                t[:n_owned].index_copy_(0, overlap.export_idx, exports[:, j])
+                t[n_owned:].copy_(halo_uv[:, j])
+
+        exchanges["evp_overlap"] = overlapped
     solve = velocity_solve_steps(
         cfg, halo=any(f is not None for f in exchanges.values()),
         min_dv_edge=min_dv_edge, raster=raster, use_pallas=use_pallas,
-        panel_n=panel_n, panel_mesh=panel_mesh)
+        panel_n=panel_n, panel_mesh=panel_mesh, overlap=overlap)
 
     def step(dyn, state, forcing, ice_area_cat, ice_volume_cat,
              snow_volume_cat, pressure_in=None):
@@ -347,7 +488,8 @@ def make_velocity_solver(cfg: Config, dyn: DynamicsTensors = None,
 def velocity_solve_steps(cfg: Config, *, halo: bool = False,
                          min_dv_edge: Optional[float] = None, raster=None,
                          use_pallas: Optional[bool] = None,
-                         panel_n: Optional[int] = None, panel_mesh=None):
+                         panel_n: Optional[int] = None, panel_mesh=None,
+                         overlap: Optional[SubcycleOverlap] = None):
     """The velocity solve as a generator function (`utils/lockstep.py`).
 
     Returns solve(dyn, state, forcing, ice_area_cat, ice_volume_cat,
@@ -382,7 +524,16 @@ def velocity_solve_steps(cfg: Config, *, halo: bool = False,
     torch; a variant's takes the panel shifts.
     use_pallas: False asks for a plain loop of standard EVP and raises;
     None and True mean the kernel routes above.
+    overlap: the block's SubcycleOverlap (with halo): each subcycle of K6
+    is then one stop ("evp_overlap", (loop, exports)), exports [nE, 2]
+    the export vertices' new (u, v) from `subcycle_exports`; whoever
+    drives the generator runs K6, the exchange of the exports, and writes
+    the export vertices and the halo of loop.u, loop.v.
     """
+    if overlap is not None:
+        check_overlap(cfg)
+        if not halo:
+            raise ValueError("overlap needs the halo exchange (halo=True)")
     if halo and (panel_n is not None or raster is not None):
         raise ValueError(
             "a halo exchange needs the any-connectivity loop: the panel "
@@ -641,9 +792,19 @@ def velocity_solve_steps(cfg: Config, *, halo: bool = False,
                 ocean_u, ocean_v, solve_velocity, area_vertex,
                 include_metric=metric, dt_elastic=dt_e,
                 damping_timescale=damping_t)
-            for _ in range(n_sub):
-                yield "evp_subcycle", (loop,)
-                yield "vertex_uv", (loop.u, loop.v)
+            if overlap is not None:
+                exports = subcycle_exports(
+                    overlap, dyn.fast, pressure, solve_stress,
+                    (uo_v, vo_v, mass_vertex, mass_f, air_u, air_v, tilt_u,
+                     tilt_v, ocean_u, ocean_v, solve_velocity, area_vertex,
+                     dyn.fast.denominator), dt_e, damping_t)
+                for _ in range(n_sub):
+                    yield "evp_overlap", (loop, exports(
+                        loop.u, loop.v, loop.t11, loop.t22, loop.t12))
+            else:
+                for _ in range(n_sub):
+                    yield "evp_subcycle", (loop,)
+                    yield "vertex_uv", (loop.u, loop.v)
             u, v, t11, t22, t12 = evp_subcycle_finish(loop)
         elif raster_loop is not None:
             # ONE call runs all subcycles on the raster with the four

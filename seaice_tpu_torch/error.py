@@ -29,10 +29,16 @@ class SeaIceAbort(RuntimeError):
         self.dump_path = dump_path
 
 
-def fetch_flags(checks: Dict[str, Any]) -> Dict[str, bool]:
+def fetch_flags(checks: Dict[str, Any], comm=None) -> Dict[str, bool]:
     """{name: flag tensor} -> {name: bool}, every flag reduced with
-    all() on the device and copied to the host together."""
+    all() on the device and copied to the host together.  comm: a
+    partitioned model's `parallel.comm.Comm`; across ranks a check fails
+    where it fails on any rank (the failures max-reduced, as the
+    reference max-reduces its abort flag across ranks), so that every
+    rank takes the same branch."""
     flags = torch.stack([torch.as_tensor(v).all() for v in checks.values()])
+    if comm is not None and comm.world_size > 1:
+        flags = comm.all_reduce_max((~flags).to(torch.uint8)) == 0
     return dict(zip(checks, flags.cpu().tolist()))
 
 
@@ -81,7 +87,7 @@ def raise_on_failed_checks(checks: Dict[str, Any], state: State,
                            timestamp: str,
                            run_dir: Optional[str] = None,
                            cell_masks: Optional[Dict[str, Any]] = None,
-                           write_dump=None) -> None:
+                           write_dump=None, comm=None) -> None:
     """Host abort gate for checks already computed on the device (by
     the runner's step, the per-step seaice_check_state analog).
 
@@ -89,8 +95,9 @@ def raise_on_failed_checks(checks: Dict[str, Any], state: State,
     for checks with per-cell attribution (column warnings); failing
     cells get a dedicated full-column dump.  The masks are fetched
     only on failure.  write_dump(run_dir, state, timestamp, failed)
-    -> path writes the abort dump (default `write_abort_dump`)."""
-    flags = fetch_flags(checks)
+    -> path writes the abort dump (default `write_abort_dump`).  comm:
+    the partitioned model's `parallel.comm.Comm` (`fetch_flags`)."""
+    flags = fetch_flags(checks, comm)
     if flags["ok"]:
         return
     failed = [k for k, v in flags.items() if k != "ok" and not v]

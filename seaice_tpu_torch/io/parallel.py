@@ -16,6 +16,11 @@ part and from the parts of the blocks that own its halo cells.  A
 partitioned state is the port's list of per-block States (the JAX
 package stacks them on a shard axis); `assemble_*` rebuilds global
 arrays for offline analysis.
+
+Across ranks (`parallel/comm.py`) each rank writes the part files of its
+own blocks (`shards`); rank 0 writes the manifest after a barrier, and a
+second barrier holds every rank until it is there.  A rank reads its own
+blocks back (`load_sharded_checkpoint(shards=...)`).
 """
 
 from __future__ import annotations
@@ -48,10 +53,12 @@ def _write_manifest(path: str, manifest: Dict[str, Any]):
     os.replace(tmp, path)
 
 
-def _owned_slice(part: Partition, s: int, kind: str, arr: np.ndarray
-                 ) -> Tuple[np.ndarray, np.ndarray]:
-    """(owned rows, their global ids) of a stacked [S, nLocal, ...]
-    cell or vertex field; pads (global id < 0) dropped."""
+def _owned_slice(part: Partition, s: int, kind: str, arr: np.ndarray,
+                 i: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """(owned rows, their global ids) of block s of a stacked
+    [nBlocks, nLocal, ...] cell or vertex field, block s at position i
+    (default s); pads (global id < 0) dropped."""
+    i = s if i is None else i
     b = part.blocks[s]
     if kind == CELL:
         n, gid = b.n_cells_owned, b.cell_global
@@ -59,7 +66,7 @@ def _owned_slice(part: Partition, s: int, kind: str, arr: np.ndarray
         n, gid = b.n_vertices_owned, b.vertex_global
     gid = gid[:n]
     ok = gid >= 0
-    return np.asarray(arr[s, :n][ok]), gid[ok]
+    return np.asarray(arr[i, :n][ok]), gid[ok]
 
 
 CELL, VERTEX = "cell", "vertex"
@@ -71,6 +78,31 @@ _VELOCITY_KINDS = {"u_velocity": VERTEX, "v_velocity": VERTEX,
 def _numpy(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
         else np.asarray(t)
+
+
+def _positions(part: Partition, n_states: int, shards):
+    """(block id, position in the states' list) of the blocks to write:
+    a list of every block's states is indexed by block id, a list of
+    some blocks' states (a rank's) holds `shards` in order."""
+    if shards is None:
+        shards = range(part.n_shards)
+    shards = list(shards)
+    if n_states == part.n_shards:
+        return [(s, s) for s in shards]
+    if n_states != len(shards):
+        raise ValueError(f"{n_states} states for the blocks {shards}")
+    return list(zip(shards, range(n_states)))
+
+
+def _write_manifest_once(comm, path: str, manifest: Dict[str, Any]):
+    """The manifest, written by rank 0 once every rank's parts are
+    written (in one process: at once)."""
+    if comm is not None:
+        comm.barrier()
+    if comm is None or comm.rank == 0:
+        _write_manifest(path, manifest)
+    if comm is not None:
+        comm.barrier()
 
 
 def _state_fields(states) -> List[Tuple[str, str, np.ndarray]]:
@@ -91,26 +123,34 @@ def save_sharded_checkpoint(directory: str, name: str, states,
                             part: Partition, n_cells_global: int,
                             n_vertices_global: int,
                             clock_metadata: Optional[Dict[str, Any]] = None,
-                            shards: Optional[Sequence[int]] = None):
-    """Write a partitioned State (one State per block) as one part file
-    per block, owned rows only, bitwise.  `shards`: which blocks to write
-    (default: all)."""
+                            shards: Optional[Sequence[int]] = None,
+                            comm=None):
+    """Write a partitioned State as one part file per block, owned rows
+    only, bitwise.  states: one State per block, or (a rank's) one per
+    block of `shards`; `shards`: which blocks to write (default: all).
+    comm: the model's `parallel.comm.Comm` when every rank writes its own
+    blocks (the manifest by rank 0, after a barrier)."""
     fields = _state_fields(states)
-    # every block's time, [S], as the JAX package's stacked state has it
-    time_val = np.stack([_numpy(st.time) for st in states])
-    if shards is None:
-        shards = range(part.n_shards)
-    for s in shards:
+    # every block's time, [S], as the JAX package's stacked state has it;
+    # the blocks step in lockstep, so a rank's blocks stand for the others
+    local_time = np.stack([_numpy(st.time) for st in states])
+    pos = _positions(part, len(states), shards)
+    if len(states) == part.n_shards:
+        time_val = local_time
+    else:
+        time_val = np.repeat(local_time[:1], part.n_shards, axis=0)
+        time_val[[s for s, _ in pos]] = local_time
+    for s, i in pos:
         payload: Dict[str, np.ndarray] = {}
         gids = {}
         for fname, kind, arr in fields:
             payload[f"{kind}:{fname}"], gids[kind] = _owned_slice(
-                part, s, kind, arr)
+                part, s, kind, arr, i)
         payload["cell_global"] = gids[CELL]
         payload["vertex_global"] = gids[VERTEX]
         payload["time"] = time_val
         atomic_savez(_part_path(directory, name, s), payload)
-    _write_manifest(_manifest_path(directory, name), {
+    _write_manifest_once(comm, _manifest_path(directory, name), {
         "n_shards": int(part.n_shards),
         "n_cells_global": int(n_cells_global),
         "n_vertices_global": int(n_vertices_global),
@@ -230,10 +270,20 @@ class ShardedOutputStream:
         self.directory = directory
         self.name = name
         self.part = part
+        self.shards: Optional[Sequence[int]] = None
+        self.comm = None
         self.n_cells_global = n_cells_global
         self.n_vertices_global = n_vertices_global
         self.records: List[Dict[str, Tuple[str, np.ndarray]]] = []
         self.timestamps: List[str] = []
+
+    def bind(self, model):
+        """Take the blocks of a partitioned model's rank: `write` then
+        takes that rank's blocks' fields, `flush` writes their part files
+        and, across ranks, rank 0 the manifest once every rank's parts are
+        written (`ShardedStandaloneRunner` binds its model)."""
+        self.shards = list(model.block_ids)
+        self.comm = model.comm
 
     def write(self, cell_fields: Dict[str, Any],
               vertex_fields: Dict[str, Any], timestamp: str):
@@ -256,20 +306,22 @@ class ShardedOutputStream:
         if not self.records:
             return
         part = self.part
+        n_states = len(next(iter(self.records[0].values()))[1])
         if shards is None:
-            shards = range(part.n_shards)
-        for s in shards:
+            shards = self.shards
+        for s, i in _positions(part, n_states, shards):
             payload: Dict[str, np.ndarray] = {}
             for key, (kind, _a) in self.records[0].items():
                 stackrows = []
                 for rec in self.records:
-                    rows, gid = _owned_slice(part, s, kind, rec[key][1])
+                    rows, gid = _owned_slice(part, s, kind, rec[key][1], i)
                     stackrows.append(rows)
                 payload[f"{kind}:{key}"] = np.stack(stackrows)
                 payload[f"{kind}_global"] = gid
             payload["xtime"] = np.array(self.timestamps)
             atomic_savez(_part_path(self.directory, self.name, s), payload)
-        _write_manifest(_manifest_path(self.directory, self.name), {
+        _write_manifest_once(self.comm, _manifest_path(self.directory,
+                                                       self.name), {
             "n_shards": int(part.n_shards),
             "n_cells_global": int(self.n_cells_global),
             "n_vertices_global": int(self.n_vertices_global),

@@ -1,5 +1,5 @@
 """Partitioned sea-ice model: the mesh split into blocks, stepped in one
-process.
+process or across processes, one rank per card.
 
 The port of the JAX package's `parallel/sharded.py`, the replacement for
 the reference's MPI block loop + dmpar halo exchange.  Each block runs the
@@ -9,21 +9,25 @@ structure; `partition.py`), and the halos are refreshed inside the step:
   per elastic subcycle: the vertex-velocity halo (the reference exchanges
     uVelocity/vVelocity once per subcycle,
     mpas_seaice_velocity_solver.F:2546-2584), between calls of the
-    one-subcycle EVP kernel `evp_subcycle_step`, one call for every block
-    of the card (`evp_subcycle`);
+    one-subcycle EVP kernel `evp_subcycle_step`, one call for all the
+    blocks of the rank (`evp_subcycle`);
   before the loop: the solveStress / solveVelocity masks and (u, v);
   per dynamics subcycle: the 2-deep cell halo of every tracer after
     transport (reference ...incremental_remap.F:2429-2487).
 
 The JAX package runs the blocks as SPMD under `shard_map`, each exchange a
-collective inside the per-block body.  Here the per-block body is a
-generator that stops at each exchange (`utils/lockstep.py`); the step
-advances every block to the same exchange point, refreshes the halos in
-place, and resumes them, all on one stream.
+collective inside the per-block body.  Here the SPMD unit is a process
+under `torch.distributed` (`comm.py`): under an initialised process group
+of W ranks, rank r holds blocks [r k, (r+1) k) (k = n_shards / W) on its
+own card; without one, every block is in this process (W = 1).  Within a
+rank the per-block body is a generator that stops at each exchange
+(`utils/lockstep.py`); the step advances the rank's blocks to the same
+exchange point, refreshes the halos in place, and resumes them.  Every
+rank reaches the same exchanges in the same order.
 
-An exchange gathers each block's export buffer (its owned entities that
-other blocks need) and fills every halo slot from the concatenation of
-those buffers, through a table fixed when the model is built:
+An exchange fills every halo slot from the blocks' export buffers (their
+owned entities that other blocks need) through a table fixed when the
+model is built:
 
   "allgather": slot <- buffers[src_shard][src_idx], every block shipping
     its exports to all; a padded halo slot (global id -1) takes entry
@@ -32,11 +36,19 @@ those buffers, through a table fixed when the model is built:
     (src, dst) copies (`color_halo_graph`); in round ci block dst takes
     src's buffer at its halo slots of colour ci.  In one process a round's
     copy is a reference, so the rounds are resolved into the table; padded
-    slots (colour -1) stay zero, as `_perm_halo` leaves them.
+    slots (colour -1) stay zero, as `_perm_halo` leaves them.  Across
+    ranks the rank-neighbour graph is coloured in the same way and each
+    exchange sends each peer rank one packed buffer (`comm.HaloPlan`).
 
-Both give every real halo slot the same value, bitwise.  All blocks live
-on one device: several devices (peer copies or NCCL) and `overlap=True`
-raise NotImplementedError (ROADMAP Queue 1 item 9).
+Both give every real halo slot the same value, bitwise, in one process
+and across ranks.
+
+`overlap=True` is the JAX package's interior/boundary overlap of the
+vertex exchange (`seaice_tpu/parallel/sharded.py:140-167`): each subcycle
+first computes the export vertices' new velocities through a small subset
+pipeline (`evp.subcycle_exports`), starts their exchange, runs K6 for
+all the rank's blocks, waits, and then gives the owned export vertices the
+subset values and the halo slots the received ones (`evp_overlap`).
 
 Every option of the velocity solve runs on the blocks: standard EVP by
 K6, each solver variant by its plain-torch loop (`evp.variant_subcycles`)
@@ -59,12 +71,15 @@ forcing.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..config import AdvectionType, Config
+from ..config import (AdvectionType, Config, ConstitutiveRelation,
+                      StrainScheme, StressDivergenceScheme)
 from ..dynamics import evp
 from ..dynamics.cuda_unstructured import (evp_subcycle_share_uv,
                                           evp_subcycle_step)
@@ -76,10 +91,8 @@ from ..transport.remap import make_remap_step
 from ..utils.containers import tensor_dataclass
 from ..utils.device import resolve_device
 from ..utils.lockstep import drive_lockstep
+from .comm import Comm, build_halo_plan, color_halo_graph, process_group
 from .partition import partition_mesh
-
-_LATER = "ROADMAP Queue 1 item 9"
-
 
 @tensor_dataclass
 class HaloMaps:
@@ -100,39 +113,6 @@ class HaloMaps:
     cell_halo_color: Any          # [nCellHalo]
     vertex_halo_gather: Any       # [nVertexHalo] into the concatenated
     cell_halo_gather: Any         # export buffers + one zero entry
-
-
-def color_halo_graph(edges, n_shards):
-    """Decompose the shard-neighbor digraph into partial permutations.
-
-    edges: set of (src_shard, dst_shard) pairs meaning 'dst needs halo
-    data owned by src'. Greedy bipartite edge coloring: each color
-    class uses every shard at most once as a source and once as a
-    target, so it is a valid round of point-to-point copies. The number
-    of colors is bounded by ~2x the max shard neighbor degree — a
-    topology constant, independent of the shard count (a 2-D Morton
-    block touches O(1) neighbor blocks however many shards there are).
-
-    Returns (perms, color_of): perms[c] = [(src, dst), ...];
-    color_of[(src, dst)] = c."""
-    perms = []
-    src_used = []    # per color: sets of used sources / targets
-    dst_used = []
-    color_of = {}
-    # deterministic order; long edges first makes greedy tighter
-    for (r, s) in sorted(edges):
-        for ci in range(len(perms) + 1):
-            if ci == len(perms):
-                perms.append([])
-                src_used.append(set())
-                dst_used.append(set())
-            if r not in src_used[ci] and s not in dst_used[ci]:
-                perms[ci].append((r, s))
-                src_used[ci].add(r)
-                dst_used[ci].add(s)
-                color_of[(r, s)] = ci
-                break
-    return [tuple(p) for p in perms], color_of
 
 
 def halo_gather_table(halo_mode, s, src_shard, src_idx, color, perms,
@@ -156,19 +136,44 @@ def halo_gather_table(halo_mode, s, src_shard, src_idx, color, perms,
     return table
 
 
+def rank_device(devices, world: int, rank: int) -> torch.device:
+    """The device of this rank's blocks: None, the rank's own card
+    (`resolve_device`); one device; or a list of devices that names one
+    device, or holds one device per rank."""
+    if not isinstance(devices, (list, tuple)):
+        return resolve_device(devices)
+    names = [resolve_device(d) for d in devices]
+    if len(set(names)) == 1:
+        return names[0]
+    if len(names) != world:
+        raise ValueError(
+            f"devices names {len(set(names))} cards for {world} "
+            "process(es): one process holds one card; launch one process "
+            "per card (python -m torch.distributed.run "
+            "--nproc-per-node=N ...), each with its own card, or pass a "
+            "list of one device per rank")
+    return names[rank]
+
+
 class ShardedSeaIceModel:
     """The model on a partitioned mesh: same Config and semantics as
-    SeaIceModel; tensors, halo maps, states and forcings are lists with
-    one entry per block (the JAX package stacks them on a shard axis)."""
+    SeaIceModel; `models`, `tensors`, `halo`, and the states and forcings
+    the step takes and returns are lists of this rank's blocks (the JAX
+    package stacks them on a shard axis); `block_ids` names them."""
 
     def __init__(self, mesh: Mesh, cfg: Config, n_shards: int,
                  dtype=torch.float32, devices=None,
                  halo_mode: str = "ring", overlap: bool = False,
-                 tracer_tree=None):
-        """devices: None (every block on the GPU, or an error without
-        one), one device, or a list of devices that names one device.
-        halo_mode: "ring" (rounds of neighbour copies, default) or
-        "allgather".  tracer_tree: as `SeaIceModel` takes it."""
+                 tracer_tree=None, group=None):
+        """devices: None (the rank's card, or an error without one), one
+        device, a list of devices that names one device, or a list of one
+        device per rank.  halo_mode: "ring" (rounds of neighbour copies,
+        default) or "allgather".  overlap: the interior/boundary overlap
+        of the vertex exchange where the configuration allows it
+        (`overlap_enabled`).  tracer_tree: as `SeaIceModel` takes it.
+        group: a `torch.distributed` process group (None: the default
+        group where one is initialised, else this process alone); its
+        world size must divide n_shards."""
         if cfg.advection.advection_type == AdvectionType.UPWIND:
             raise ValueError(
                 "upwind advection on a partitioned mesh: the JAX "
@@ -176,28 +181,40 @@ class ShardedSeaIceModel:
                 "remapping and leaves the tracers unmoved under upwind; "
                 "the port does not copy a step that drops transport "
                 "(ROADMAP Queue 3, fault 10)")
-        if overlap:
-            raise NotImplementedError(
-                "overlap=True: the interior/boundary overlap of the halo "
-                "exchange needs the exchange on its own CUDA stream; in "
-                f"one process on one stream nothing overlaps; {_LATER}")
-        if isinstance(devices, (list, tuple)):
-            names = {resolve_device(d) for d in devices}
-            if len(names) != 1:
-                raise NotImplementedError(
-                    f"blocks on {len(names)} devices: peer copies or NCCL "
-                    f"between cards are not ported; {_LATER}")
-            devices = names.pop()
-        self.device = resolve_device(devices)
+        group = process_group(group)
+        world = 1 if group is None else dist.get_world_size(group)
+        rank = 0 if group is None else dist.get_rank(group)
+        if n_shards % world:
+            raise ValueError(
+                f"{n_shards} blocks on {world} ranks: n_shards must be a "
+                "multiple of the world size")
+        k = n_shards // world
+        self.block_ids = range(rank * k, (rank + 1) * k)
+        self.device = rank_device(devices, world, rank)
+        self.comm = Comm(group, self.device)
         self.global_mesh = mesh
         self.cfg = cfg
         self.dtype = dtype
         self.halo_mode = halo_mode
+        # the interior/boundary overlap where the JAX package runs it
+        # (`seaice_tpu/parallel/sharded.py:161-167`)
+        v = cfg.velocity
+        self.overlap_enabled = bool(
+            overlap and v.use_velocity_solver
+            and v.strain_scheme == StrainScheme.VARIATIONAL
+            and v.stress_divergence_scheme ==
+            StressDivergenceScheme.VARIATIONAL
+            and v.constitutive_relation == ConstitutiveRelation.EVP
+            and not v.include_metric_terms
+            and not v.average_variational_strains)
+        if self.overlap_enabled:
+            evp.check_overlap(cfg)
         self.part = partition_mesh(mesh, n_shards)
         self.n_shards = n_shards
+        self.blocks = [self.part.blocks[s] for s in self.block_ids]
         self.models = [SeaIceModel(b.mesh, cfg, dtype, device=self.device,
                                    tracer_tree=tracer_tree)
-                       for b in self.part.blocks]
+                       for b in self.blocks]
         self.tree = self.models[0].tree
         self.tensors = [m.tensors for m in self.models]
 
@@ -228,58 +245,84 @@ class ShardedSeaIceModel:
             return torch.as_tensor(np.asarray(a, np.float64)).to(
                 device=self.device, dtype=dtype)
 
-        self.halo = []
+        # every block's colours and one-process gather tables (the plans
+        # of the ranks are built from all of them)
+        cols, tables = [], {"vertex": [], "cell": []}
         for s, b in enumerate(self.part.blocks):
             cv, vv = halo_valid(b)
-            v_col = colors(b.vertex_halo_src_shard, vv, s)
-            c_col = colors(b.cell_halo_src_shard, cv, s)
-            self.halo.append(HaloMaps(
-                vertex_export_idx=ix(b.vertex_export_idx),
-                vertex_halo_src_shard=ix(b.vertex_halo_src_shard),
-                vertex_halo_src_idx=ix(b.vertex_halo_src_idx),
-                cell_export_idx=ix(b.cell_export_idx),
-                cell_halo_src_shard=ix(b.cell_halo_src_shard),
-                cell_halo_src_idx=ix(b.cell_halo_src_idx),
-                vertex_owned_mask=fl(b.vertex_owned_mask),
-                cell_owned_mask=fl(b.cell_owned_mask),
-                vertex_halo_color=ix(v_col), cell_halo_color=ix(c_col),
-                vertex_halo_gather=ix(halo_gather_table(
-                    halo_mode, s, b.vertex_halo_src_shard,
-                    b.vertex_halo_src_idx, v_col, self.halo_perms,
-                    len(b.vertex_export_idx), n_shards)),
-                cell_halo_gather=ix(halo_gather_table(
-                    halo_mode, s, b.cell_halo_src_shard,
-                    b.cell_halo_src_idx, c_col, self.halo_perms,
-                    len(b.cell_export_idx), n_shards))))
+            cols.append((colors(b.vertex_halo_src_shard, vv, s),
+                         colors(b.cell_halo_src_shard, cv, s)))
+            for kind, col in zip(("vertex", "cell"), cols[-1]):
+                tables[kind].append(halo_gather_table(
+                    halo_mode, s, getattr(b, f"{kind}_halo_src_shard"),
+                    getattr(b, f"{kind}_halo_src_idx"), col,
+                    self.halo_perms, len(getattr(b, f"{kind}_export_idx")),
+                    n_shards))
+        self.halo = [HaloMaps(
+            vertex_export_idx=ix(b.vertex_export_idx),
+            vertex_halo_src_shard=ix(b.vertex_halo_src_shard),
+            vertex_halo_src_idx=ix(b.vertex_halo_src_idx),
+            cell_export_idx=ix(b.cell_export_idx),
+            cell_halo_src_shard=ix(b.cell_halo_src_shard),
+            cell_halo_src_idx=ix(b.cell_halo_src_idx),
+            vertex_owned_mask=fl(b.vertex_owned_mask),
+            cell_owned_mask=fl(b.cell_owned_mask),
+            vertex_halo_color=ix(cols[s][0]), cell_halo_color=ix(cols[s][1]),
+            vertex_halo_gather=ix(tables["vertex"][s]),
+            cell_halo_gather=ix(tables["cell"][s]))
+            for s, b in zip(self.block_ids, self.blocks)]
         self.n_vertices_owned = self.part.blocks[0].n_vertices_owned
         self.n_cells_owned = self.part.blocks[0].n_cells_owned
-        # the vertex halo of every block as one gather and one scatter on
-        # the K6 loops' shared velocity buffer [2, B*nv + 1]
-        # (`evp_subcycle_share_uv`): the same tables composed with the
-        # export lists, the zero entry of the ring at B*nv
+        # the rank's exchanges of each kind (`comm.HaloPlan`): every
+        # exchange across ranks, and the overlapped vertex exchange
+        self.plans = {kind: build_halo_plan(
+            halo_mode, tables[kind],
+            len(getattr(self.part.blocks[0], f"{kind}_export_idx")), rank,
+            world, self.device) for kind in ("vertex", "cell")}
+        # the K6 loops' shared velocity buffer [2, k*nv + 1]
+        # (`evp_subcycle_share_uv`): block b's vertex i at b*nv + i; in one
+        # process the vertex halo of every block is one gather and one
+        # scatter on it (the tables composed with the export lists, the
+        # zero entry of the ring at k*nv), across ranks and under the
+        # overlap its export rows and halo slots
         nv = self.part.blocks[0].mesh.n_vertices
         if any(b.mesh.n_vertices != nv for b in self.part.blocks):
             raise ValueError("blocks of unequal vertex counts")
         exp = np.stack([b.vertex_export_idx for b in self.part.blocks])
         n_exp = exp.shape[1]
-        src, dst = [], []
-        for s, h in enumerate(self.halo):
-            t = h.vertex_halo_gather.cpu().numpy()
-            r, j = np.divmod(np.minimum(t, n_shards * n_exp - 1), n_exp)
-            src.append(np.where(t == n_shards * n_exp, n_shards * nv,
-                                r * nv + exp[r, j]))
-            dst.append(s * nv + self.n_vertices_owned + np.arange(len(t)))
-        self.uv_halo_src = ix(np.concatenate(src))
-        self.uv_halo_dst = ix(np.concatenate(dst))
+        n_halo = nv - self.n_vertices_owned
+        self.uv_export_pos = ix(np.concatenate(
+            [b * nv + exp[s] for b, s in enumerate(self.block_ids)]))
+        self.uv_halo_pos = ix(np.concatenate(
+            [b * nv + self.n_vertices_owned + np.arange(n_halo)
+             for b in range(k)]))
+        if self.comm.route == "in-process":
+            src = []
+            for t in tables["vertex"]:
+                r, j = np.divmod(np.minimum(t, n_shards * n_exp - 1), n_exp)
+                src.append(np.where(t == n_shards * n_exp, n_shards * nv,
+                                    r * nv + exp[r, j]))
+            self.uv_halo_src = ix(np.concatenate(src))
+        # the overlap's subset tensors, per block
+        self.overlap = None
+        if self.overlap_enabled:
+            self.overlap = [evp.build_subcycle_overlap(
+                b.mesh, m.tensors.dynamics.fast, b.vertex_export_idx, dtype,
+                self.device) for b, m in zip(self.blocks, self.models)]
 
     # -- state scatter/gather ------------------------------------------------
+
+    def local_blocks(self, stacked):
+        """This rank's blocks of a stacked [S, ...] host array."""
+        return stacked[self.block_ids.start:self.block_ids.stop]
 
     def init_state(self, ice_area_cat=None, ice_volume_cat=None,
                    snow_volume_cat=None) -> List[State]:
         def sc(f):
             if f is None:
-                return [None] * self.n_shards
-            return self.part.scatter_cell_field(np.asarray(f))
+                return [None] * len(self.blocks)
+            return self.local_blocks(
+                self.part.scatter_cell_field(np.asarray(f)))
 
         return [m.init_state(a, v, sn) for m, a, v, sn in zip(
             self.models, sc(ice_area_cat), sc(ice_volume_cat),
@@ -287,67 +330,52 @@ class ShardedSeaIceModel:
 
     def scatter_forcing(self, forcing_fn):
         """forcing_fn(local_mesh) -> DynamicsForcing; one per block."""
-        return [forcing_fn(b.mesh) for b in self.part.blocks]
+        return [forcing_fn(b.mesh) for b in self.blocks]
 
     def scatter_cell_tree(self, tree):
         """A container of global [nCells, ...] fields (an array, a tensor,
         a dict, or a dataclass such as DynamicsForcing) -> one container
-        per block, on the blocks' device; floating fields in the model's
-        dtype."""
+        per block of the rank, on the blocks' device; floating fields in
+        the model's dtype."""
+        n = len(self.blocks)
         if tree is None:
-            return [None] * self.n_shards
+            return [None] * n
         if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
             parts = {f.name: self.scatter_cell_tree(getattr(tree, f.name))
                      for f in dataclasses.fields(tree)}
             return [dataclasses.replace(tree, **{k: p[s]
                                                  for k, p in parts.items()})
-                    for s in range(self.n_shards)]
+                    for s in range(n)]
         if isinstance(tree, dict):
             parts = {k: self.scatter_cell_tree(v) for k, v in tree.items()}
-            return [{k: p[s] for k, p in parts.items()}
-                    for s in range(self.n_shards)]
+            return [{k: p[s] for k, p in parts.items()} for s in range(n)]
         if isinstance(tree, torch.Tensor):
             tree = tree.detach().cpu().numpy()
-        local = self.part.scatter_cell_field(np.asarray(tree))
+        local = self.local_blocks(
+            self.part.scatter_cell_field(np.asarray(tree)))
         out = [torch.as_tensor(a).to(self.device) for a in local]
         return [t.to(self.dtype) if t.is_floating_point() else t
                 for t in out]
 
-    def _owner_rows(self, kind: str):
-        """Per block, (local rows, global rows) of the entities of `kind`
-        ("cell" or "vertex") it owns, as device index tensors (cached)."""
-        cache = self.__dict__.setdefault("_owner_row_cache", {})
-        if kind not in cache:
-            rows = []
-            for b in self.part.blocks:
-                n = (b.n_cells_owned if kind == "cell"
-                     else b.n_vertices_owned)
-                gid = getattr(b, f"{kind}_global")[:n]
-                loc = np.nonzero(gid >= 0)[0]
-                rows.append(tuple(torch.as_tensor(a.astype(np.int64)).to(
-                    self.device) for a in (loc, gid[loc])))
-            cache[kind] = rows
-        return cache[kind]
-
     def scatter_cells(self, tree):
         """A container of global [nCells, ...] tensors already on the
         device (a tensor, a dict, or a dataclass such as DynamicsForcing)
-        -> one container per block, each block's cells taken on the
-        device, padded cells zero (the device counterpart of
+        -> one container per block of the rank, each block's cells taken
+        on the device, padded cells zero (the device counterpart of
         `scatter_cell_tree`, bitwise)."""
+        n = len(self.blocks)
         if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
             parts = {f.name: self.scatter_cells(getattr(tree, f.name))
                      for f in dataclasses.fields(tree)}
             return [dataclasses.replace(tree, **{k: p[s]
                                                  for k, p in parts.items()})
-                    for s in range(self.n_shards)]
+                    for s in range(n)]
         if isinstance(tree, dict):
             parts = {k: self.scatter_cells(v) for k, v in tree.items()}
-            return [{k: p[s] for k, p in parts.items()}
-                    for s in range(self.n_shards)]
+            return [{k: p[s] for k, p in parts.items()} for s in range(n)]
         cache = self.__dict__.setdefault("_scatter_cache", [])
         if not cache:
-            for b in self.part.blocks:
+            for b in self.blocks:
                 gid = torch.as_tensor(b.cell_global.astype(np.int64)).to(
                     self.device)
                 cache.append((gid.clamp(min=0), gid >= 0))
@@ -358,72 +386,143 @@ class ShardedSeaIceModel:
             out.append(torch.where(valid, loc, torch.zeros_like(loc)))
         return out
 
-    def _gather_rows(self, kind: str, n_global: int, blocks):
-        rows = self._owner_rows(kind)
-        b0 = blocks[0]
-        out = torch.zeros((n_global,) + tuple(b0.shape[1:]), dtype=b0.dtype,
-                          device=b0.device)
-        for (loc, gid), t in zip(rows, blocks):
-            out.index_copy_(0, gid, t.index_select(0, loc))
+    def _owner_rows(self, kind: str):
+        """(per block of the rank, its owned rows of `kind` ("cell" or
+        "vertex") as (local rows, global rows) device index tensors; the
+        rows every rank contributes to a gather across ranks, padded to
+        the largest rank's count: (that count, the positions of the real
+        rows in the gathered rows, their global rows)), cached."""
+        cache = self.__dict__.setdefault("_owner_row_cache", {})
+        if kind not in cache:
+            rows = []
+            for b in self.part.blocks:
+                n = (b.n_cells_owned if kind == "cell"
+                     else b.n_vertices_owned)
+                gid = getattr(b, f"{kind}_global")[:n]
+                loc = np.nonzero(gid >= 0)[0]
+                rows.append((loc, gid[loc]))
+            k, world = len(self.blocks), self.comm.world_size
+            counts = [sum(len(rows[s][0]) for s in range(r * k, (r + 1) * k))
+                      for r in range(world)]
+            n_max = max(counts)
+            pos = np.concatenate([r * n_max + np.arange(c)
+                                  for r, c in enumerate(counts)])
+
+            def ix(a):
+                return torch.as_tensor(np.asarray(a, np.int64)).to(
+                    self.device)
+
+            cache[kind] = (
+                [(ix(rows[s][0]), ix(rows[s][1])) for s in self.block_ids],
+                (n_max, ix(pos), ix(np.concatenate([g for _, g in rows]))))
+        return cache[kind]
+
+    def _gather_fields(self, kind: str, n_global: int, fields):
+        """fields: a list of fields, each a list of the rank's blocks'
+        [nLocal, ...] tensors -> for each field the global [n_global, ...]
+        tensor on the device, each row from its owner (bitwise: copies
+        only).  The rank's owned rows of every field of one dtype go in
+        one packed buffer, all-gathered across ranks (in one process the
+        buffer itself), so that every rank gets the whole fields."""
+        mine, (n_max, pos, gid_all) = self._owner_rows(kind)
+        out = [None] * len(fields)
+        by_dtype = {}
+        for i, blocks in enumerate(fields):
+            by_dtype.setdefault(blocks[0].dtype, []).append(i)
+        for dtype, idx in by_dtype.items():
+            flat = [[t.reshape(t.shape[0], math.prod(t.shape[1:]))
+                     for t in fields[i]] for i in idx]
+            cols = np.cumsum([0] + [f[0].shape[1] for f in flat])
+            buf = torch.zeros((n_max, int(cols[-1])), dtype=dtype,
+                              device=self.device)
+            for j, blocks in enumerate(flat):
+                buf[:sum(len(loc) for loc, _ in mine),
+                    cols[j]:cols[j + 1]] = torch.cat(
+                        [t.index_select(0, loc)
+                         for (loc, _), t in zip(mine, blocks)])
+            rows = self.comm.all_gather(buf).index_select(0, pos)
+            for j, i in enumerate(idx):
+                shape = tuple(fields[i][0].shape[1:])
+                g = torch.zeros((n_global, int(cols[j + 1] - cols[j])),
+                                dtype=dtype, device=self.device)
+                g.index_copy_(0, gid_all, rows[:, cols[j]:cols[j + 1]])
+                out[i] = g.reshape((n_global,) + shape)
         return out
 
     def gather_cells(self, blocks: List[torch.Tensor]) -> torch.Tensor:
-        """The blocks' [nCellsLocal, ...] tensors -> the global [nCells,
-        ...] tensor on the device, each cell from its owner (the device
-        counterpart of `part.gather_cell_field`, bitwise)."""
-        return self._gather_rows("cell", self.global_mesh.n_cells, blocks)
+        """The rank's blocks' [nCellsLocal, ...] tensors -> the global
+        [nCells, ...] tensor on the device, each cell from its owner (the
+        device counterpart of `part.gather_cell_field`, bitwise); across
+        ranks a collective: every rank calls it and gets the whole
+        field."""
+        return self._gather_fields("cell", self.global_mesh.n_cells,
+                                   [blocks])[0]
 
     def gather_vertices(self, blocks: List[torch.Tensor]) -> torch.Tensor:
-        return self._gather_rows("vertex", self.global_mesh.n_vertices,
-                                 blocks)
+        return self._gather_fields("vertex", self.global_mesh.n_vertices,
+                                   [blocks])[0]
 
     def gather_state(self, states: List[State]) -> State:
         """The blocks' states -> one State of the whole mesh on the
-        device: the velocities and the tracers from their owners; the
-        corner stresses, in each block's own corner order, are left out
-        (None), as the JAX package's sharded coupled driver leaves them."""
-        def vert(name):
-            return self.gather_vertices([getattr(st.velocity, name)
-                                         for st in states])
+        device (a collective across ranks): the velocities and the
+        tracers from their owners; the corner stresses, in each block's
+        own corner order, are left out (None), as the JAX package's
+        sharded coupled driver leaves them."""
+        names = ("u_velocity", "v_velocity", "solve_velocity_prev")
+        vert = self._gather_fields(
+            "vertex", self.global_mesh.n_vertices,
+            [[getattr(st.velocity, k) for st in states] for k in names])
+        tr = list(states[0].tracers)
+        cells = self._gather_fields(
+            "cell", self.global_mesh.n_cells,
+            [[st.tracers[k] for st in states] for k in tr])
         return State(
             velocity=states[0].velocity.replace(
-                u_velocity=vert("u_velocity"), v_velocity=vert("v_velocity"),
                 stress11=None, stress22=None, stress12=None,
-                solve_velocity_prev=vert("solve_velocity_prev")),
-            tracers={k: self.gather_cells([st.tracers[k] for st in states])
-                     for k in states[0].tracers},
-            time=states[0].time)
+                **dict(zip(names, vert))),
+            tracers=dict(zip(tr, cells)), time=states[0].time)
 
     def gather_tracers(self, states: List[State]) -> Dict[str, np.ndarray]:
-        return {name: self.part.gather_cell_field(
-                    np.stack([st.tracers[name].detach().cpu().numpy()
-                              for st in states]), self.global_mesh.n_cells)
-                for name in states[0].tracers}
+        """Every tracer of the whole mesh, numpy (a collective across
+        ranks)."""
+        tr = list(states[0].tracers)
+        cells = self._gather_fields(
+            "cell", self.global_mesh.n_cells,
+            [[st.tracers[k] for st in states] for k in tr])
+        return {k: t.cpu().numpy() for k, t in zip(tr, cells)}
 
     def gather_velocity(self, states: List[State]):
-        def g(name):
-            return self.part.gather_vertex_field(
-                np.stack([getattr(st.velocity, name).detach().cpu().numpy()
-                          for st in states]), self.global_mesh.n_vertices)
-        return g("u_velocity"), g("v_velocity")
+        """(u, v) of the whole mesh, numpy (a collective across ranks)."""
+        u, v = self._gather_fields(
+            "vertex", self.global_mesh.n_vertices,
+            [[getattr(st.velocity, k) for st in states]
+             for k in ("u_velocity", "v_velocity")])
+        return u.cpu().numpy(), v.cpu().numpy()
 
     # -- halo exchange and step ---------------------------------------------
 
     def exchange(self, kind: str, fields_per_block, halo=None, solve=None):
         """Refresh, in place, the halo entries of every block's fields:
-        fields_per_block[s] is a tuple of block s's cell fields
+        fields_per_block[b] is a tuple of the rank's block b's cell fields
         (kind "cell_field") or vertex fields ("vertex_field",
         "vertex_uv"), each [nLocal, ...].  halo: the blocks' HaloMaps
-        (default: the model's).  solve: the velocity solve under way
-        (`evp_subcycle`); where the fields are its loops' velocities, held
-        in one buffer, the exchange is one gather and one scatter."""
+        (default: the model's; across ranks only the model's).  solve: the
+        velocity solve under way (`evp_subcycle`); where the fields are its
+        loops' velocities, held in one buffer, the exchange works on that
+        buffer."""
         halo = self.halo if halo is None else halo
         if kind == "vertex_uv" and solve and halo is self.halo and all(
                 f[0] is lp.u and f[1] is lp.v
                 for f, lp in zip(fields_per_block, solve["loops"])):
-            uv = solve["uv"]
-            uv.index_copy_(1, self.uv_halo_dst,
-                           uv.index_select(1, self.uv_halo_src))
+            self.exchange_uv(solve["uv"])
+            return
+        if self.comm.route != "in-process":
+            if halo is not self.halo:
+                raise ValueError("across ranks an exchange takes the "
+                                 "model's own halo maps")
+            self._exchange_packed(
+                "cell" if kind == "cell_field" else "vertex",
+                fields_per_block)
             return
         if kind == "cell_field":
             n_own = self.n_cells_owned
@@ -446,34 +545,100 @@ class ShardedSeaIceModel:
                 torch.index_select(buf, 0, table[s],
                                    out=fields[j][n_own:])
 
-    def evp_subcycle(self, loops, solve=None):
-        """One elastic subcycle of every block's velocity solve: the K6
-        loops of the blocks on the card, in block order, in one call.
-        solve: a dict for the solve under way; at its first subcycle the
-        loops' velocities move into one buffer (`evp_subcycle_share_uv`),
-        which `exchange` then refreshes in two operations."""
+    def _exchange_packed(self, kind: str, fields_per_block):
+        """The exchange across ranks: every field's export rows of the
+        rank's blocks packed into one buffer [k nExport, F], the plan's
+        transport, then each block's halo slots from the full buffer."""
+        n_own = (self.n_cells_owned if kind == "cell"
+                 else self.n_vertices_owned)
+        export = [getattr(h, f"{kind}_export_idx") for h in self.halo]
+        n_exp = export[0].shape[0]
+        flat = [[f.view(f.shape[0], -1) for f in fields]
+                for fields in fields_per_block]
+        dtypes = {f.dtype for fields in flat for f in fields}
+        if len(dtypes) != 1:
+            raise ValueError(f"one exchange packs one dtype, not {dtypes}")
+        cols = np.cumsum([0] + [f.shape[1] for f in flat[0]])
+        exports = torch.empty((len(flat) * n_exp, int(cols[-1])),
+                              dtype=dtypes.pop(), device=self.device)
+        for b, fields in enumerate(flat):
+            rows = exports[b * n_exp:(b + 1) * n_exp]
+            for j, f in enumerate(fields):
+                rows[:, cols[j]:cols[j + 1]] = f.index_select(0, export[b])
+        plan = self.plans[kind]
+        full = self.comm.exchange(plan, exports)
+        for b, fields in enumerate(flat):
+            slots = full.index_select(0, plan.table[b])
+            for j, f in enumerate(fields):
+                f[n_own:].copy_(slots[:, cols[j]:cols[j + 1]])
+
+    def exchange_uv(self, uv):
+        """The vertex halo of the K6 loops' shared velocity buffer uv
+        [2, k*nv + 1], in place: in one process one gather and one
+        scatter; across ranks its export rows packed [k nExport, 2], the
+        transport, and every halo slot from the full buffer."""
+        if self.comm.route == "in-process":
+            uv.index_copy_(1, self.uv_halo_pos,
+                           uv.index_select(1, self.uv_halo_src))
+        else:
+            self._fill_uv_halo(uv, self.comm.exchange(
+                self.plans["vertex"],
+                uv.t().index_select(0, self.uv_export_pos)))
+
+    def _fill_uv_halo(self, uv, full):
+        """Every halo slot of the shared velocity buffer from the full
+        buffer of a vertex exchange."""
+        slots = full.index_select(0, self.plans["vertex"].table.reshape(-1))
+        uv.index_copy_(1, self.uv_halo_pos, slots.t())
+
+    def _share(self, loops, solve):
         loops = tuple(loops)
         if solve is not None and solve.get("loops") != loops:
             solve["loops"], solve["uv"] = loops, evp_subcycle_share_uv(loops)
+        return loops
+
+    def evp_subcycle(self, loops, solve=None):
+        """One elastic subcycle of every block's velocity solve: the K6
+        loops of the rank's blocks, in block order, in one call.
+        solve: a dict for the solve under way; at its first subcycle the
+        loops' velocities move into one buffer (`evp_subcycle_share_uv`),
+        on which `exchange` then works."""
+        evp_subcycle_step(*self._share(loops, solve))
+
+    def evp_overlap(self, loops, exports, solve):
+        """One elastic subcycle under the interior/boundary overlap: the
+        blocks' export rows [nExport, 2] (the subset pipeline's new u, v,
+        `evp.subcycle_exports`) are packed and their exchange started,
+        the K6 call for all the rank's blocks runs on the current stream,
+        the exchange is waited for, then the owned export vertices take
+        the subset values and the halo slots the received ones
+        (`seaice_tpu/dynamics/evp.py:777-785`)."""
+        loops = self._share(loops, solve)
+        uv = solve["uv"]
+        rows = torch.cat(exports)
+        pending = self.comm.start(self.plans["vertex"], rows)
         evp_subcycle_step(*loops)
+        full = self.comm.finish(pending)
+        uv.index_copy_(1, self.uv_export_pos, rows.t())
+        self._fill_uv_halo(uv, full)
 
     def make_step(self):
         """Build step(tensors, halo, state, forcing, atmos=None,
         ocean=None, coszen=None, day_of_year=None, lat=None, faero_atm=None,
         sfc_fluxes=None) -> (state, diags), each argument but day_of_year
-        (one number for all blocks) a list with one entry per block: the
-        step of `SeaIceModel` on every block, in lockstep, the velocity
-        solve by the one-subcycle EVP kernel (a solver variant by its
-        plain loop) with the vertex halo refreshed between subcycles.  With the column package and
-        `atmos` (AtmosForcing, OceanForcing, coszen and lat per block, as
-        `scatter_cell_tree` makes them) each block runs the column phases
-        on its own cells.  The config's optional
-        conservation and monotonicity checks sum over a block and are
-        left out, as in the JAX package."""
+        (one number for all blocks) a list with one entry per block of
+        the rank: the step of `SeaIceModel` on every block, in lockstep,
+        the velocity solve by the one-subcycle EVP kernel (a solver
+        variant by its plain loop) with the vertex halo refreshed between
+        subcycles (overlapped with the kernel under `overlap_enabled`).
+        With the column package and `atmos` (AtmosForcing, OceanForcing,
+        coszen and lat per block, as `scatter_cell_tree` makes them) each
+        block runs the column phases on its own cells.  The config's
+        optional conservation and monotonicity checks sum over a block and
+        are left out, as in the JAX package.  Across ranks every rank
+        calls the step together."""
         cfg = self.cfg
         check_kernel_options(cfg)
-        vel_solve = evp.velocity_solve_steps(
-            cfg, halo=True, min_dv_edge=self.part.min_dv_edge)
         remap_step = None
         if cfg.advection.advection_type == AdvectionType.INCREMENTAL_REMAP:
             # the departure-triangle search is sized by the global mesh's
@@ -482,9 +647,13 @@ class ShardedSeaIceModel:
                 self.tree, self.global_mesh.vertex_degree,
                 monotonic=cfg.advection.monotonic)
         columns = [m.column for m in self.models]
-        bodies = [dynamics_transport_steps(cfg, self.tree, vel_solve,
-                                           remap_step, adv_checks=False,
-                                           column=col) for col in columns]
+        overlap = self.overlap or [None] * len(self.blocks)
+        bodies = [dynamics_transport_steps(
+            cfg, self.tree, evp.velocity_solve_steps(
+                cfg, halo=True, min_dv_edge=self.part.min_dv_edge,
+                overlap=ov),
+            remap_step, adv_checks=False, column=col)
+            for col, ov in zip(columns, overlap)]
 
         def step(tensors, halo, state, forcing, atmos=None, ocean=None,
                  coszen=None, day_of_year=None, lat=None, faero_atm=None,
@@ -494,16 +663,18 @@ class ShardedSeaIceModel:
             def advance(kind, fields):
                 if kind == "evp_subcycle":
                     self.evp_subcycle([f[0] for f in fields], solve)
+                elif kind == "evp_overlap":
+                    self.evp_overlap([f[0] for f in fields],
+                                     [f[1] for f in fields], solve)
                 else:
                     self.exchange(kind, fields, halo, solve)
 
-            blocks = range(self.n_shards)
+            blocks = range(len(self.blocks))
             thermo = columns[0] is not None and atmos is not None
             if thermo:
-                coszen = coszen or [None] * self.n_shards
-                lat = lat or [None] * self.n_shards
-                sfc_fluxes = sfc_fluxes or [None] * self.n_shards
-                faero_atm = faero_atm or [None] * self.n_shards
+                none = [None] * len(self.blocks)
+                coszen, lat = coszen or none, lat or none
+                sfc_fluxes, faero_atm = sfc_fluxes or none, faero_atm or none
                 # every block's cells carry all their vertices, whose
                 # velocities the last exchange of the previous step
                 # refreshed, so a highfreq cell velocity is the owner's

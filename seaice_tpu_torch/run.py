@@ -347,7 +347,17 @@ class ShardedStandaloneRunner(_TimeLoop):
     gathers the state.  analysis: an `analysis.AnalysisDriver`, or None;
     its members see the whole mesh (`parallel.sharded.GlobalView`), the
     state gathered on the device after a step in which one of them
-    precomputes or computes."""
+    precomputes or computes.
+
+    Across ranks (the model's process group) every rank runs the loop
+    over its own blocks: it reads the forcing records and scatters them
+    to its blocks, writes the part files of its blocks (rank 0 the
+    manifests and the restart timestamp), and gathers with the others
+    for the members, which compute on every rank and write on rank 0;
+    the state-check flags are reduced across ranks before the abort
+    gate, so that every rank takes the same branch.  The runner binds its
+    output stream to the model's blocks (`ShardedOutputStream.bind`).
+    """
 
     def __init__(self, model, state,
                  atmos_forcing: Optional[CoreAtmosForcing] = None,
@@ -357,6 +367,8 @@ class ShardedStandaloneRunner(_TimeLoop):
                  analysis=None):
         super().__init__(model, state, atmos_forcing, ocean_forcing, clock,
                          streams, analysis)
+        if self.streams.output is not None:
+            self.streams.output.bind(model)
         if analysis is not None:
             from .parallel.sharded import GlobalView
             self._view = GlobalView(model)
@@ -375,11 +387,12 @@ class ShardedStandaloneRunner(_TimeLoop):
 
     def _scatter(self, fields, scalars=()):
         """Global cell fields (numpy) -> for each field, a list of the
-        blocks' tensors in the model dtype, and the scalars as 0-d
+        rank's blocks' tensors in the model dtype, and the scalars as 0-d
         tensors, all in one copy."""
-        part, n = self.model.part, self.model.n_shards
-        blocks = [part.scatter_cell_field(np.asarray(f, np.float64))
-                  for f in fields]
+        model = self.model
+        n = len(model.blocks)
+        blocks = [model.local_blocks(model.part.scatter_cell_field(
+            np.asarray(f, np.float64))) for f in fields]
         views = upload([b[s] for b in blocks for s in range(n)] +
                        [np.float64(x) for x in scalars],
                        self.dtype, self.device)
@@ -392,7 +405,7 @@ class ShardedStandaloneRunner(_TimeLoop):
         names = [(gi, k) for gi, g in enumerate(groups) for k in g]
         per_field, clock_t = self._scatter(
             [groups[gi][k] for gi, k in names], scalars)
-        dicts = [[{} for _ in range(self.model.n_shards)] for _ in groups]
+        dicts = [[{} for _ in self.model.blocks] for _ in groups]
         for (gi, k), blocks in zip(names, per_field):
             for s, t in enumerate(blocks):
                 dicts[gi][s][k] = t
@@ -428,7 +441,8 @@ class ShardedStandaloneRunner(_TimeLoop):
     def _abort_gate(self, checks, cell_masks):
         raise_on_failed_checks(checks, self.state, self.clock.timestamp(),
                                run_dir=self.streams.restart_dir,
-                               write_dump=self._write_abort_dump)
+                               write_dump=self._write_abort_dump,
+                               comm=self.model.comm)
 
     def _analyse(self):
         """The members on the whole mesh: the state and the diagnostics
@@ -442,7 +456,8 @@ class ShardedStandaloneRunner(_TimeLoop):
 
         self.analysis.on_timestep(self._view,
                                   lambda: model.gather_state(self.state),
-                                  self.clock, diags)
+                                  self.clock, diags,
+                                  write=model.comm.rank == 0)
 
     def _write_abort_dump(self, run_dir, states, timestamp, failed):
         from .io.parallel import save_sharded_checkpoint
@@ -453,7 +468,8 @@ class ShardedStandaloneRunner(_TimeLoop):
             run_dir, name, states, model.part, model.global_mesh.n_cells,
             model.global_mesh.n_vertices, clock_metadata={
                 "year": self.clock.year, "seconds": self.clock.seconds,
-                "failed_checks": [str(f) for f in failed]})
+                "failed_checks": [str(f) for f in failed]},
+            shards=model.block_ids, comm=model.comm)
         return os.path.join(run_dir, name)
 
     def _write_output(self):
@@ -475,5 +491,8 @@ class ShardedStandaloneRunner(_TimeLoop):
             model.part, model.global_mesh.n_cells,
             model.global_mesh.n_vertices,
             clock_metadata={"year": self.clock.year,
-                            "seconds": self.clock.seconds})
-        write_restart_timestamp(self.streams.restart_dir, ts)
+                            "seconds": self.clock.seconds},
+            shards=model.block_ids, comm=model.comm)
+        if model.comm.rank == 0:
+            write_restart_timestamp(self.streams.restart_dir, ts)
+        model.comm.barrier()

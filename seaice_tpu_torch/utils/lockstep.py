@@ -15,7 +15,11 @@ at "evp_subcycle" a block hands over its K6 loop
 (`dynamics/cuda_unstructured.py`), and every block's loop advances by one
 elastic subcycle in one call of `evp_subcycle_step`, two launches
 whatever the number of blocks.  The exchange of the new velocities
-follows as its own step.
+follows as its own step.  Under the interior/boundary overlap the two are
+one stop, "evp_overlap": a block hands over its loop and its export
+vertices' new velocities, and the driver starts their exchange, makes
+the K6 call, and writes the export vertices and the halo of the loop's
+velocities once the exchange is in.
 
 `drive` runs one generator (one block, or an unpartitioned mesh) to its
 end; `drive_lockstep` runs one generator per block, advancing all of them
@@ -33,8 +37,10 @@ from ..dynamics.cuda_unstructured import evp_subcycle_step
 
 # "cell_field": cell fields [nCells, ...];  "vertex_field": vertex fields
 # [nVertices];  "vertex_uv": the velocity pair (u, v), [nVertices] each;
-# "evp_subcycle": (loop,), one subcycle of the block's velocity solve
-KINDS = ("cell_field", "vertex_field", "vertex_uv", "evp_subcycle")
+# "evp_subcycle": (loop,), one subcycle of the block's velocity solve;
+# "evp_overlap": (loop, exports [nExport, 2]), the same under the overlap
+KINDS = ("cell_field", "vertex_field", "vertex_uv", "evp_subcycle",
+         "evp_overlap")
 
 
 def drive(gen, exchanges: Optional[Dict[str, Callable]] = None):
@@ -45,13 +51,20 @@ def drive(gen, exchanges: Optional[Dict[str, Callable]] = None):
     field(s).  A returned tensor that is not the one handed over is copied
     into it, so both functional and in-place exchanges work.  A kind
     without a function (or exchanges=None) is the identity: one block.
-    "evp_subcycle" is the K6 call for this one block."""
+    "evp_subcycle" is the K6 call for this one block; "evp_overlap"
+    needs its function, fn(loop, exports), which makes the K6 call and
+    the exchange."""
     try:
         kind, fields = gen.send(None)
         while True:
             fn = exchanges.get(kind) if exchanges else None
             if kind == "evp_subcycle":
                 evp_subcycle_step(*fields)
+            elif kind == "evp_overlap":
+                if fn is None:
+                    raise ValueError("an 'evp_overlap' stop needs its "
+                                     "exchange function")
+                fn(*fields)
             elif fn is not None:
                 if kind == "vertex_uv":
                     new = fn(*fields)

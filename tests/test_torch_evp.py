@@ -3,6 +3,8 @@ CUDA kernel is held against on the card) against the JAX package's: the
 XLA path and the Pallas kernel `build_unstructured_solver` in interpret
 mode.  float64, same numpy inputs to both."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import jax
@@ -140,11 +142,18 @@ def test_layouts_agree():
 
 @pytest.mark.parametrize("what", ["halo"])
 def test_later_slices_raise(what):
-    """What the port leaves out says so: the vertex exchange itself is
-    ported (K6, and every solver variant's plain loop); the overlap of
-    the exchange with the interior's compute is not."""
+    """What the port once left out is ported: the overlap of the vertex
+    exchange with the interior's compute (`halo_overlap`) is accepted
+    for standard EVP, and a configuration it cannot split raises the
+    JAX package's ValueError (the weak scheme here; the overlap itself
+    is held in `test_torch_sharded.py`)."""
     kw = {"halo_overlap": (None, lambda buf: buf, 0)}
     cfg = tconfig.Config(velocity=tconfig.VelocitySolverConfig(
-        elastic_subcycle_number=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tevp.make_velocity_solver(cfg, **kw)
+        elastic_subcycle_number=2, include_metric_terms=False))
+    assert callable(tevp.make_velocity_solver(cfg, **kw))
+    weak = dataclasses.replace(cfg, velocity=dataclasses.replace(
+        cfg.velocity, strain_scheme=tconfig.StrainScheme.WEAK,
+        stress_divergence_scheme=tconfig.StressDivergenceScheme.WEAK))
+    with pytest.raises(ValueError, match="halo_overlap requires the fast "
+                       "variational path with standard EVP"):
+        tevp.make_velocity_solver(weak, **kw)

@@ -41,6 +41,7 @@ MODULES = [
     "seaice_tpu_torch.kernels.build", "seaice_tpu_torch.native",
     "seaice_tpu_torch.parallel", "seaice_tpu_torch.parallel.partition",
     "seaice_tpu_torch.parallel.sharded", "seaice_tpu_torch.utils.lockstep",
+    "seaice_tpu_torch.parallel.comm",
     "seaice_tpu_torch.forcing", "seaice_tpu_torch.forcing.clock",
     "seaice_tpu_torch.forcing.core", "seaice_tpu_torch.io",
     "seaice_tpu_torch.io.mesh_reader", "seaice_tpu_torch.io.forcing_reader",
@@ -94,6 +95,7 @@ def test_sources_do_not_name_the_jax_package_in_imports():
                 "dynamics/variational_panel.py", "dynamics/cuda_panel.py",
                 "dynamics/cuda_panel_fused.py", "dynamics/cuda_raster.py",
                 "parallel/partition.py", "parallel/sharded.py",
+                "parallel/comm.py",
                 "forcing/clock.py", "forcing/core.py", "io/mesh_reader.py",
                 "io/forcing_reader.py", "io/state_reader.py",
                 "io/checkpoint.py", "io/output.py", "io/parallel.py",

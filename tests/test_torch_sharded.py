@@ -724,3 +724,286 @@ def test_reference_sharded_step_skips_upwind_transport():
     assert moved > 1e-5                            # unsharded: transport
     assert np.array_equal(sm.gather_tracers(sout)["iceAreaCategory"],
                           area)                    # sharded: none
+
+
+# -- the partitioned model across ranks -----------------------------------
+#
+# One gloo group of two ranks runs every case of `torch_rank_cases.py`
+# (each rank its blocks, the gathers collective); the same functions run
+# here, in one process, as the reference they are held to bitwise.
+
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import time  # noqa: E402
+
+import torch_rank_cases as rank_cases  # noqa: E402
+
+WORLD = 2
+
+
+class _Ranks:
+    """The two ranks, started at once; `result(case)` waits for a case's
+    files of both ranks and fails the test where a rank failed or the
+    wait passes its limit."""
+
+    def __init__(self, out):
+        self.out = str(out)
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))),
+            GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+        script = os.path.abspath(rank_cases.__file__)
+        self.logs = [open(os.path.join(self.out, f"log.rank{r}.txt"), "w")
+                     for r in range(WORLD)]
+        self.procs = [subprocess.Popen(
+            [sys.executable, script, str(r), str(WORLD),
+             os.path.join(self.out, "rendezvous"), self.out],
+            env=env, stdout=log, stderr=subprocess.STDOUT)
+            for r, log in enumerate(self.logs)]
+
+    def result(self, case, limit=120.0):
+        paths = [os.path.join(self.out, f"{case}.rank{r}.npz")
+                 for r in range(WORLD)]
+        t0 = time.monotonic()
+        while not all(os.path.exists(p) for p in paths):
+            failed = [r for r, p in enumerate(self.procs)
+                      if p.poll() not in (None, 0)]
+            if failed or time.monotonic() - t0 > limit:
+                self.stop()
+                logs = "".join(open(log.name).read() for log in self.logs)
+                pytest.fail(f"ranks {failed or 'timed out'} before "
+                            f"{case!r}:\n{logs[-4000:]}")
+            time.sleep(0.02)
+        return [dict(np.load(p)) for p in paths]
+
+    def stop(self):
+        for p in self.procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=10)
+        for log in self.logs:
+            log.close()
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    run = _Ranks(tmp_path_factory.mktemp("ranks"))
+    yield run
+    run.stop()
+    assert all(p.returncode == 0 for p in run.procs)
+
+
+def _one_process(case, workdir=None):
+    """The case run here, in one process."""
+    return dict(rank_cases.cases(str(workdir))).get(case)()
+
+
+def _bitwise(got, want, keys=None):
+    """Both ranks' results equal the one-process run's, bitwise (a rank
+    holds the halo fields of its own blocks only)."""
+    for r, g in enumerate(got):
+        for k in (keys or want):
+            if k in g:
+                np.testing.assert_array_equal(g[k], want[k],
+                                              err_msg=f"rank {r}: {k}")
+    halos = {k for g in got for k in g if k.startswith("halo_field.")}
+    assert halos == {k for k in want if k.startswith("halo_field.")}
+
+
+def _hold_box_to_reference(got, jm, jout):
+    u_r, v_r = jm.gather_velocity(jout)
+    assert np.abs(u_r).max() > 1e-3
+    np.testing.assert_allclose(got["u"], u_r, atol=1e-12, rtol=1e-9)
+    np.testing.assert_allclose(got["v"], v_r, atol=1e-12, rtol=1e-9)
+    for name, a in jm.gather_tracers(jout).items():
+        np.testing.assert_allclose(got["tracer." + name], a, atol=1e-13,
+                                   rtol=1e-10, err_msg=name)
+
+
+@pytest.mark.parametrize("mode", ["ring", "allgather"])
+def test_ranks_box_match_reference_and_one_process(ranks, mode):
+    """The 12 x 12 box in 4 blocks on 2 ranks of a gloo group: against the
+    JAX package's sharded step at `test_sharded_step_matches_reference`'s
+    limits, and bitwise the one-process port, the halo slots of a
+    refreshed vertex field included (zero in a padded slot of the ring,
+    entry (0, 0) in the all-gather's)."""
+    want = _one_process(f"box4_{mode}")
+    jm, _, _, jout = _jax_box(4)
+    got = ranks.result(f"box4_{mode}")
+    _bitwise(got, want)
+    _hold_box_to_reference(got[0], jm, jout)
+
+
+def test_ranks_two_blocks_match_reference(ranks):
+    """2 blocks on 2 ranks: one block a rank, every halo row across the
+    group."""
+    want = _one_process("box2")
+    jm, _, _, jout = _jax_box(2)
+    got = ranks.result("box2")
+    _bitwise(got, want)
+    _hold_box_to_reference(got[0], jm, jout)
+
+
+def test_ranks_overlap_matches_reference(ranks):
+    """The interior/boundary overlap on 2 ranks (the 16 x 16 box, 8
+    subcycles, 4 blocks, 3 steps): every subcycle overlapped, against the
+    JAX package's `ShardedSeaIceModel(overlap=True)` to 1e-12 of max |u|
+    (`tests/test_sharded.py::test_overlap_matches_no_overlap`'s limit),
+    and bitwise the one-process overlap."""
+    cfg = jbox_config(elastic_subcycles=8)
+    mesh = jbox.box_test_mesh(16, 16)
+    mesh.f_vertex = jbox.box_coriolis_parameter(mesh)
+    jm = JSharded(mesh, cfg, 4, dtype=jnp.float64, overlap=True)
+    assert jm.overlap_enabled and not jm.use_fused_unstructured
+    jstate = jm.init_state(*jbox.box_initial_state(mesh, n_categories=1))
+    jforcing = jm.scatter_forcing(lambda m: jbox.box_forcing(m, t=0.0))
+    jstep = jm.make_step()
+    for _ in range(3):
+        jstate, _ = jstep(jm.tensors, jm.halo, jstate, jforcing)
+    want = _one_process("overlap")
+    got = ranks.result("overlap")
+    _bitwise(got, want)
+    assert int(got[0]["overlapped_subcycles"]) == 3 * 8
+    u_r, v_r = jm.gather_velocity(jstate)
+    scale = np.abs(u_r).max()
+    assert scale > 1e-3
+    np.testing.assert_allclose(got[0]["u"], u_r, rtol=0, atol=1e-12 * scale)
+    np.testing.assert_allclose(got[0]["v"], v_r, rtol=0, atol=1e-12 * scale)
+    for name, a in jm.gather_tracers(jstate).items():
+        np.testing.assert_allclose(got[0]["tracer." + name], a, atol=1e-12,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("variant", ["weak", "metric", "revised"])
+def test_overlap_enabled_as_reference(variant):
+    """`overlap_enabled` is the JAX package's decision: off for the weak
+    scheme, metric terms and revised EVP (and on for the box's standard
+    EVP, `test_ranks_overlap_matches_reference`)."""
+    from seaice_tpu import config as jconfig
+    vel = {"weak": lambda c: dict(
+        strain_scheme=c.StrainScheme.WEAK,
+        stress_divergence_scheme=c.StressDivergenceScheme.WEAK),
+        "metric": lambda c: dict(include_metric_terms=True),
+        "revised": lambda c: dict(
+            constitutive_relation=c.ConstitutiveRelation.EVP_REVISED),
+    }[variant]
+    got = {}
+    for pkg, box_pkg, Model, kw in (
+            (jconfig, jbox, JSharded, dict(dtype=jnp.float64)),
+            (tconfig, tbox, ShardedSeaIceModel,
+             dict(dtype=F64, devices="cpu"))):
+        cfg = pkg.box_test_config(elastic_subcycles=2)
+        cfg = dataclasses.replace(cfg, velocity=dataclasses.replace(
+            cfg.velocity, **vel(pkg)))
+        got[pkg is jconfig] = Model(box_pkg.box_test_mesh(8, 8), cfg, 2,
+                                    overlap=True, **kw).overlap_enabled
+    assert got[False] is got[True] is False
+
+
+def test_ranks_sphere_with_column_bitwise(ranks):
+    """The subdiv-2 sphere with the column (metric terms, remap, ridging)
+    in 4 blocks on 2 ranks, 2 steps: bitwise the one-process run."""
+    want = _one_process("sphere_column")
+    got = ranks.result("sphere_column")
+    assert np.abs(want["u"]).max() > 1e-3
+    assert np.abs(want["ridge_convergence"]).max() > 0
+    _bitwise(got, want)
+
+
+def test_ranks_runner_checkpoint_bitwise(ranks, tmp_path):
+    """ShardedStandaloneRunner on 2 ranks, 2 full-physics steps: each
+    rank writes its blocks' restart and history parts and reads its
+    blocks' restart back bitwise; the assembled restart and history, and
+    the state, equal the one-process run's."""
+    want = _one_process("runner", tmp_path)
+    got = ranks.result("runner")
+    assert set(got[0]) == set(want)
+    _bitwise(got, want)
+    for g in got:
+        assert len(g["blocks_read_back_differ"]) == 0
+        assert float(g["clock_seconds"]) == 3600.0
+    assert "restart.tracers.iceAreaCategory" in want
+
+
+def test_ranks_coupled_driver_bitwise(ranks):
+    """ShardedCoupledDriver on 2 ranks, one interval: every rank returns
+    the export of the one-process driver, bitwise."""
+    want = _one_process("coupled")
+    got = ranks.result("coupled")
+    assert set(got[0]) == set(want) and len(want) > 10
+    _bitwise(got, want)
+
+
+def test_ranks_abort_gate_takes_one_branch(ranks, tmp_path):
+    """A non-finite ice area in one rank's block stops every rank: the
+    state-check flags are max-reduced across ranks before the abort gate,
+    each rank writes its blocks' abort dump and reads them back, as the
+    one-process runner does."""
+    want = _one_process("abort", tmp_path)
+    got = ranks.result("abort")
+    assert "finite_area" in str(want["message"])
+    for g in got:
+        assert str(g["message"]).startswith(
+            "critical state-check failure at 0001-01-01_00:10:00")
+        assert "finite_area" in g["failed_checks"].tolist()
+    _bitwise(got, want, ["area", "failed_checks"])
+    assert np.isnan(want["area"]).any()
+
+
+def test_ranks_dryrun_multichip_bitwise(ranks):
+    """`entry_torch.dryrun_multichip(4)` on 2 ranks (the overlap on, every
+    subcycle under it): each rank's blocks bitwise the one-process run
+    with the overlap."""
+    want = _one_process("dryrun")
+    got = ranks.result("dryrun")
+    assert int(want["overlapped_subcycles"]) > 0
+    blocks = set()
+    for g in got:
+        assert int(g["overlapped_subcycles"]) == int(
+            want["overlapped_subcycles"])
+        keys = [k for k in g if k.startswith("block")]
+        blocks |= {k.split(".")[0] for k in keys}
+        _bitwise([{k: g[k] for k in keys}], want)
+    assert blocks == {f"block{s}" for s in range(4)}
+
+
+def test_ranks_analysis_member_writes_on_rank_zero(ranks, tmp_path):
+    """ShardedStandaloneRunner with one analysis member on 2 ranks: the
+    member's results, computed on the collective gathers, equal the
+    one-process run's on both ranks, bitwise; only rank 0 writes."""
+    want = _one_process("analysis", tmp_path)
+    got = ranks.result("analysis")
+    assert int(want["records_written"]) == 1
+    assert float(want["member.total_ice_area"][0]) > 0
+    members = [k for k in want if k.startswith("member.")]
+    _bitwise(got, want, members)
+    assert all(set(members) <= set(g) for g in got)
+    assert [int(g["records_written"]) for g in got] == [1, 0]
+
+
+def test_ranks_world_size_must_divide_blocks(ranks):
+    """3 blocks on 2 ranks raise ValueError; one process naming two
+    distinct devices raises ValueError asking for one process per
+    card."""
+    for g in ranks.result("indivisible"):
+        assert "multiple of the world size" in str(g["message"])
+    mesh = tbox.box_test_mesh(8, 8)
+    with pytest.raises(ValueError, match="one process per card"):
+        ShardedSeaIceModel(mesh, tconfig.box_test_config(2), 2, F64,
+                           devices=["cpu", "meta"])
+
+
+def test_overlap_raises_where_the_reference_mixes_drag_laws():
+    """Linear ocean drag with `overlap=True`: the JAX package enables its
+    overlap and drags the export vertices quadratically (ROADMAP Queue 3,
+    fault 18); the port raises ValueError naming the fault, and builds
+    without the overlap."""
+    cfg = tconfig.box_test_config(2)
+    cfg = dataclasses.replace(cfg, velocity=dataclasses.replace(
+        cfg.velocity, ocean_stress_type=tconfig.OceanStressType.LINEAR))
+    mesh = tbox.box_test_mesh(8, 8)
+    with pytest.raises(ValueError, match="fault 18"):
+        ShardedSeaIceModel(mesh, cfg, 2, F64, devices="cpu", overlap=True)
+    assert not ShardedSeaIceModel(mesh, cfg, 2, F64,
+                                  devices="cpu").overlap_enabled
