@@ -133,9 +133,10 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
      the counts and checks the state (finite, |u| bounded, every tracer
      product conserved; on the full-physics path, which changes the
      mass, aice <= 1 + 1e-6, the remap's own conservation error, no
-     unconverged column); on the full-physics path it also times each
-     phase of the model's own step, counts the host syncs of a step, and holds the float32
-     state against the same steps in float64 (BASELINE.md's budget);
+     unconverged column); on the full-physics path it also counts the
+     host syncs of a step and holds the float32 state against the same
+     steps in float64 (BASELINE.md's budget); with --profile each traced
+     path splits its device and idle time by the program's own spans;
   5. checks small float64 models (raw sphere, panel sphere by both routes,
      box, sphere in 4 blocks, full-physics panel sphere, `CoupledDriver`
      on the 8 x 8 box with the column; the raw sphere with revised EVP,
@@ -592,76 +593,6 @@ def full_physics_path(label, model, state, forcing, col, n_steps,
             fail(f"{label}: {name} launched {n} times in {n_steps} steps, "
                  f"expected {want.get(name, 0)}")
     return state, float(np.median(ms)), iters, calls, counts, diags
-
-
-def full_physics_phases(model, state, forcing, col, reps=3):
-    """Host-clock milliseconds of each phase of the model's OWN
-    full-physics step, with a synchronise before and after each phase
-    (median over reps steps, each phase summed over the step's dynamics
-    subcycles): column thermodynamics, ice strength, velocity solve,
-    remap, ridging, post-dynamics, and the rest of the step (the remap's
-    conservation check, tracer bookkeeping).  The step is the one
-    `SeaIceModel.make_step` builds, with timing wrappers around the
-    velocity solve and the remap step it is handed and around the
-    model's `ColumnPhysics` methods; the wrappers are taken out again."""
-    from seaice_tpu_torch import model as model_mod
-    from seaice_tpu_torch.dynamics import evp
-    acc = {}
-
-    def add(name, t0):
-        torch.cuda.synchronize()
-        acc[name] = acc.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
-
-    def timer(name, fn):
-        def wrapped(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            add(name, t0)
-            return out
-        return wrapped
-
-    def gen_timer(name, fn):          # the velocity solve is a generator
-        def wrapped(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = yield from fn(*a, **kw)
-            add(name, t0)
-            return out
-        return wrapped
-
-    vss, mrs = evp.velocity_solve_steps, model_mod.make_remap_step
-    column = model.column
-    methods = {"step_thermodynamics": "step_thermodynamics",
-               "ice_strength": "ice_strength", "step_ridging": "ridging",
-               "step_post_dynamics": "post_dynamics"}
-    evp.velocity_solve_steps = lambda *a, **kw: gen_timer(
-        "velocity_solve", vss(*a, **kw))
-    model_mod.make_remap_step = lambda *a, **kw: timer("remap", mrs(*a, **kw))
-    for m, name in methods.items():
-        setattr(column, m, timer(name, getattr(column, m)))
-    try:
-        step = stepper(model, col)
-    finally:
-        evp.velocity_solve_steps, model_mod.make_remap_step = vss, mrs
-    try:
-        rows = []
-        for _ in range(reps):
-            acc.clear()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, _ = step(state, forcing)
-            torch.cuda.synchronize()
-            total = 1e3 * (time.perf_counter() - t0)
-            rows.append(dict(acc, rest=total - sum(acc.values()),
-                             step=total))
-    finally:
-        for m in methods:
-            delattr(column, m)       # back to the class's methods
-    want = set(methods.values()) | {"velocity_solve", "remap"}
-    if not want <= set(rows[0]):
-        fail(f"full physics: the step ran no {sorted(want - set(rows[0]))}")
-    return {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
 
 
 def f32_against_f64(f32, n_steps):
@@ -1747,71 +1678,35 @@ def main_path(label, model, state, forcing, n_steps, expect):
 
 
 def profile(model, state, forcing, step_ms):
-    """Where a panel-sphere step's time goes (--profile): host-clock
-    milliseconds of each phase with a synchronise after it, then
-    `trace_steps`."""
-    from seaice_tpu_torch.dynamics import evp
-    from seaice_tpu_torch.transport import remap as R
-    from seaice_tpu_torch.transport.cuda_flux import integrate_fluxes_cuda
-    cfg, tree, t = model.cfg, model.tree, model.tensors
-    lay = getattr(model.mesh, "panel_layout", None)
-    vel_step = evp.make_velocity_solver(
-        cfg, panel_n=lay.N if lay is not None else None,
-        panel_mesh=model.mesh if lay is not None else None)
-    tr = dict(state.tracers)
-    phases = {}
-
-    def timed(name, fn, reps=5):
-        out = fn()
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            ts.append(1e3 * (time.perf_counter() - t0))
-        phases[name] = float(np.median(ts))
-        return out
-
-    vel, _ = timed("velocity_solve", lambda: vel_step(
-        t.dynamics, state.velocity, forcing, tr["iceAreaCategory"],
-        tr["iceVolumeCategory"], tr["snowVolumeCategory"]))
-    coc, cocm = t.mesh.cells_on_cell, t.mesh.cells_on_cell_mask
-    fields = R.to_transport_fields(tree, tr)
-    mask_cell, masks = R.make_masks(tree, fields)
-    recon = timed("remap_reconstruct", lambda: R.reconstruct_fields(
-        tree, fields, masks, mask_cell, t.remap, coc, cocm, monotonic=True))
-    dpx, dpy = R.departure_points(vel.u_velocity, vel.v_velocity,
-                                  cfg.dynamics_timestep)
-    tris = timed("remap_departure_triangles",
-                 lambda: R.find_departure_triangles(
-                     t.remap, dpx, dpy, model.mesh.vertex_degree))
-    cell, xq, yq, area = timed(
-        "remap_quadrature_points",
-        lambda: R.triangles_to_cell_coords(t.remap, tris))
-    fluxes = timed("remap_flux_integration", lambda: integrate_fluxes_cuda(
-        tree, recon, t.remap, cell, xq, yq, area, tris["mask_edge"]))
-    timed("remap_update", lambda: R.zap_small_mass(
-        tree, R.update_mass_and_tracers(tree, fields, fluxes, t.remap,
-                                        t.area_cell)))
-
-    trace_steps("panel sphere", model, state, forcing, step_ms, phases)
+    """Where a panel-sphere step's time goes (--profile): `trace_steps`,
+    whose phase split comes from the program's own spans."""
+    trace_steps("panel sphere", model, state, forcing, step_ms)
 
 
-def trace_steps(label, model, state, forcing, step_ms, phases=None, n=2,
+def trace_steps(label, model, state, forcing, step_ms, extra=None, n=2,
                 col=None, advance=None, host_events=True):
     """A torch.profiler trace of n whole steps of a path: device-busy ms
     and CUDA kernels per step, the device's idle share (1 - busy over
     `step_ms`, the path's UNTRACED median ms per step of this run: tracing
     slows the host severalfold, so the traced wall time would overstate
-    the idle share), the package's own kernels and the top device
-    kernels.  advance: a callable taking one step in place of the model's
-    step (a runner's run(1)).  host_events=False records the device's
-    events alone: the idle share is the same sum, and the trace of a path
-    of tens of thousands of launches is processed in a fraction of the
-    time."""
+    the idle share), the package's own kernels, the top device kernels,
+    and the phase split: each of the program's spans with the device ms
+    of the operations launched in it and the idle ms while the host was
+    in it, a step (`benchmark/harness/spans.py`, the innermost span; each
+    device operation paired with its call by the profiler's correlation
+    id; where some cannot pair, the split is left out and the line says
+    so, with the first of them).  extra: more numbers of the path for the
+    line.  advance: a callable taking one step in place of the model's
+    step (a runner's run(1)).  host_events=False records the device's events alone (no
+    phase split): the idle share is the same sum, and the trace of a
+    path of tens of thousands of launches is processed in a fraction of
+    the time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
+
+    from benchmark.harness.spans import Spans
     step = stepper(model, col)
+    torch.cuda.synchronize()          # nothing queued before the session
     with torch.profiler.profile(
             activities=[ProfilerActivity.CUDA] + (
                 [ProfilerActivity.CPU] if host_events else [])) as prof:
@@ -1840,8 +1735,31 @@ def trace_steps(label, model, state, forcing, step_ms, phases=None, n=2,
                      "ir_flux_kernel"):
             if name + "<" in key:
                 own[name] = [ms / n, count / n]
+    phase = None
+    if host_events:
+        ops = ([], [])
+        for e in prof.events():
+            ops[e.device_type != DeviceType.CUDA].append(
+                (e.name, e.time_range.start, e.time_range.end, e.id))
+        sp = Spans(*ops)
+        phase = {"launch_calls": sp.n_launches,
+                 "device_ops": sp.n_device, "spans": len(sp.spans),
+                 "launched_by": sorted(sp.launch_names)}
+        if sp.unpaired:
+            t0 = min(e[1] for e in ops[1])
+            phase["not_split"] = (
+                f"{len(sp.unpaired)} device operations have no call in "
+                f"the trace, the first "
+                f"{[[n[:60], s - t0] for n, s in sp.unpaired[:3]]} "
+                f"(name, us after the trace's first host event)")
+        if sp.ok:
+            phase["device_ms"] = {str(k): v / 1e3 / n for k, v in
+                                  sp.device_by_innermost().items()}
+            phase["idle_ms"] = {str(k): v / 1e3 / n for k, v in
+                                sp.idle_by_innermost().items()}
     emit({"profile": {
-        "path": label, "phase_ms": phases, "traced_steps": n,
+        "path": label, "phase_ms": phase, "traced_steps": n,
+        "extra": extra,
         "wall_ms_per_step_traced": wall / n,
         "wall_ms_per_step_untraced": step_ms,
         "device_busy_ms_per_step": busy / n,
@@ -2159,7 +2077,7 @@ def file_driven_run(inputs, n_steps, reps, card, workdir):
     second.restore_clock(meta)
     bare_ms = bare_step_ms(second)
     trace_steps(label, model, None, None, float(np.median(ms)),
-                phases={"bare_model_step_ms": float(np.median(bare_ms)),
+                extra={"bare_model_step_ms": float(np.median(bare_ms)),
                         "bare_model_step_ms_each": bare_ms,
                         "runner_step_ms": float(np.median(ms)),
                         "traced_steps": [half + 1, half + 2]},
@@ -4889,9 +4807,9 @@ def main():
     # column physics around K3 + K2.  One step to spin up, a second one
     # that is recorded (K3 with the Rothrock strength and K2 with the
     # column's tracer table, each against its plain version), then the
-    # path (args.steps steps), the phases of the model's own step, the
-    # host syncs of one step, and the float32 state against the same
-    # steps in float64 ---
+    # path (args.steps steps), the host syncs of one step (the step's
+    # phases are its spans, in `trace_steps` with --profile), and the
+    # float32 state against the same steps in float64 ---
     t0 = time.perf_counter()
     model, state, forcing, col = full_physics_case(
         SUBDIV, N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES, torch.float32, None)
@@ -4912,15 +4830,14 @@ def main():
         "full-physics panel sphere", model, state, forcing, col, args.steps)
     add_launches(kernels, "full-physics panel sphere", counts)
     f32_fields = global_fields(model, state)
-    phases = full_physics_phases(model, state, forcing, col)
     _, syncs = count_host_syncs(lambda: step(state, forcing))
     emit({"full_physics_split": {
-        "card": card, "ms_per_step_untraced": fp_ms, "phase_ms": phases,
+        "card": card, "ms_per_step_untraced": fp_ms,
         "host_syncs_per_step": syncs,
         "thermo_iterations_per_step": iters}})
     if args.profile:
         trace_steps("full-physics panel sphere", model, state, forcing,
-                    fp_ms, phases, col=col)
+                    fp_ms, col=col)
     del model, state, forcing, col, step
     torch.cuda.empty_cache()
     f32_against_f64(f32_fields, 2 + args.steps)

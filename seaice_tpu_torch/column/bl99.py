@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..diagnostics import count
 from . import constants as c
 from .thermo_shared import (dsurface_heat_flux_dTsf,
                             ice_enthalpy_from_temperature,
@@ -105,6 +106,8 @@ def run_until_converged(one_iteration, carry, converged_index: int,
         if (niter % CONVERGENCE_CHECK_EVERY == 0 or niter == nitermax) \
                 and bool(carry[converged_index].all()):
             break
+    count("column.picard_calls")
+    count("column.picard_iterations", niter)
     return carry, niter
 
 

@@ -1,5 +1,5 @@
 """Diagnostics: state sanity checks, conservation budgets, regional
-statistics, and phase timers.
+statistics, and the program's spans and counters.
 
 The port of the JAX package's `diagnostics.py`, the reference's
 `mpas_seaice_diagnostics.F` (seaice_check_state :170, load-balance
@@ -7,19 +7,23 @@ timers :504) and its conservation_check / regional statistics analysis
 members (`mpas_seaice_conservation_check.F:1915+`,
 `mpas_seaice_regional_statistics.F`).  `check_state` returns 0-d
 tensors on the state's device and makes no host sync; the host decides
-in `error.py`.
+in `error.py`.  `RECORDER` holds the spans and counters that the program
+puts where its work happens (`span`, `count`).
 """
 
 from __future__ import annotations
 
+import functools
 import time
-from typing import Any, Dict, Optional
+from typing import TYPE_CHECKING, Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from . import constants as c
-from .model import State
+
+if TYPE_CHECKING:
+    from .model import State
 
 
 # -- state sanity check (reference seaice_check_state) ------------------------
@@ -238,7 +242,153 @@ def hemisphere_region_mask(mesh) -> np.ndarray:
     return (np.asarray(lat) < 0.0).astype(np.int32)
 
 
-# -- phase timers -------------------------------------------------------------
+# -- spans and counters -------------------------------------------------------
+
+MARK_OPEN, MARK_CLOSE = "seaice>", "seaice<"
+
+
+class _Span:
+    """`with RECORDER.span(name):`, or `@RECORDER.span(name)` over a
+    function (see `Recorder`)."""
+    __slots__ = ("rec", "name")
+
+    def __init__(self, rec: "Recorder", name: str):
+        self.rec, self.name = rec, name
+
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with self:
+                return fn(*args, **kwargs)
+        return spanned
+
+    def __enter__(self):
+        self.rec._enter(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        self.rec._exit()
+        return False
+
+
+class Recorder:
+    """Named spans and counters of the program, the analog of the
+    reference's hierarchical mpas_timer instrumentation
+    (velocity_solver.F:579-669).
+
+    A span keeps, by name, its host-clock total, how often it closed and
+    the name of the span it was opened in; nothing is kept per instance.
+    While a torch profiler records, a span also puts two empty ranges into
+    the trace, `seaice>name#k` where it opens and `seaice<name#k` where it
+    closes, k the instance number of the `step` span it belongs to (0
+    before the first step).  The ranges enclose no launch, so they put
+    nothing on the device, and they lie on the profiler's clock beside
+    the device's operations (`benchmark/harness/spans.py` reads them).
+    A span must close before the generator that opened it yields
+    (`utils/lockstep.py` interleaves the blocks' generators).
+
+    Counters: `count(name, n)`.  The kernel wrappers count their own
+    launches (`kernels.launch_counts()`); `report` reads them there.
+    `enabled = False` makes spans and counters do nothing (to measure
+    what they cost)."""
+
+    def __init__(self):
+        self.enabled = True
+        self.totals: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
+        self.parents: Dict[str, Optional[str]] = {}
+        self.counters: Dict[str, int] = {}
+        self.step_id = 0
+        # (name, parent, start, marked) of each open span, None for one
+        # opened while disabled
+        self._open = []
+
+    def span(self, name: str) -> _Span:
+        return _Span(self, name)
+
+    def count(self, name: str, n: int = 1):
+        if self.enabled:
+            self.counters[name] = self.counters.get(name, 0) + n
+
+    def _enter(self, name: str):
+        if not self.enabled:
+            self._open.append(None)
+            return
+        if name == "step":
+            self.step_id += 1
+        marked = _profiling()
+        if marked:
+            _mark(f"{MARK_OPEN}{name}#{self.step_id}")
+        parent = self._open[-1][0] if self._open and self._open[-1] \
+            else None
+        self._open.append((name, parent, time.perf_counter(), marked))
+
+    def _exit(self):
+        top = self._open.pop()
+        if top is None:
+            return
+        name, parent, t0, marked = top
+        dt = time.perf_counter() - t0
+        self.totals[name] = self.totals.get(name, 0.0) + dt
+        self.counts[name] = self.counts.get(name, 0) + 1
+        self.parents[name] = parent
+        if marked:
+            _mark(f"{MARK_CLOSE}{name}#{self.step_id}")
+
+    def open_spans(self):
+        """The names of the spans open now, outermost first."""
+        return [o[0] for o in self._open if o is not None]
+
+    def report(self, since=None) -> str:
+        """Spans by total time (with their parent), then the counters and
+        the kernels' launches.  since: a `snapshot()` whose totals and
+        counts are left out."""
+        totals, counts, counters = _minus(self.snapshot(), since)
+        lines = ["span                           total(s)   calls  "
+                 "mean(ms)  parent"]
+        for k in sorted(totals, key=lambda k: -totals[k]):
+            n = counts[k]
+            lines.append(f"{k:<30} {totals[k]:>8.3f} {n:>7d} "
+                         f"{1000.0 * totals[k] / n:>9.2f}  "
+                         f"{self.parents.get(k) or '-'}")
+        from .kernels import launch_counts
+        counters = dict(counters, **{f"launches.{k}": v for k, v in
+                                     launch_counts().items() if v})
+        if counters:
+            lines.append("counter                            value")
+            lines += [f"{k:<30} {v:>9d}" for k, v in sorted(counters.items())]
+        return "\n".join(lines)
+
+    def snapshot(self):
+        return dict(self.totals), dict(self.counts), dict(self.counters)
+
+
+def _minus(now, since):
+    """The spans and counters of `now` less those of `since`."""
+    totals, counts, counters = now
+    if since is None:
+        return now
+    t0, c0, k0 = since
+    keep = [k for k in counts if counts[k] != c0.get(k, 0)]
+    return ({k: totals[k] - t0.get(k, 0.0) for k in keep},
+            {k: counts[k] - c0.get(k, 0) for k in keep},
+            {k: v - k0.get(k, 0) for k, v in counters.items()
+             if v != k0.get(k, 0)})
+
+
+def _profiling() -> bool:
+    return torch._C._autograd._profiler_enabled()
+
+
+def _mark(name: str):
+    with torch.profiler.record_function(name):
+        pass
+
+
+RECORDER = Recorder()
+span = RECORDER.span
+count = RECORDER.count
+
 
 def _sync():
     if torch.cuda.is_available() and torch.cuda.is_initialized():
@@ -246,30 +396,17 @@ def _sync():
 
 
 class PhaseTimers:
-    """Named wall-clock timers, the analog of the reference's
-    hierarchical mpas_timer instrumentation
-    (velocity_solver.F:579-669).  `time` reads the host clock only;
+    """The recorder seen from this object's creation on: a runner's
+    report (`run.py`).  `time(name)` is a span of the recorder; `totals`
+    and `counts` hold the spans closed since, the program's own (`step`,
+    `velocity.*`, `transport.remap`, the column phases) among them;
     `timed` synchronises the card after the call."""
 
     def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
+        self._since = RECORDER.snapshot()
 
-    def time(self, name: str):
-        timers = self
-
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-                return self
-
-            def __exit__(self, *exc):
-                dt = time.perf_counter() - self.t0
-                timers.totals[name] = timers.totals.get(name, 0.0) + dt
-                timers.counts[name] = timers.counts.get(name, 0) + 1
-                return False
-
-        return _Ctx()
+    def time(self, name: str) -> _Span:
+        return RECORDER.span(name)
 
     def timed(self, name: str, fn, *args, **kwargs):
         with self.time(name):
@@ -277,10 +414,13 @@ class PhaseTimers:
             _sync()
         return out
 
+    @property
+    def totals(self) -> Dict[str, float]:
+        return _minus(RECORDER.snapshot(), self._since)[0]
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        return _minus(RECORDER.snapshot(), self._since)[1]
+
     def report(self) -> str:
-        lines = ["timer                          total(s)   calls  mean(ms)"]
-        for k in sorted(self.totals, key=lambda k: -self.totals[k]):
-            n = self.counts[k]
-            lines.append(f"{k:<30} {self.totals[k]:>8.3f} {n:>7d} "
-                         f"{1000.0 * self.totals[k] / n:>9.2f}")
-        return "\n".join(lines)
+        return RECORDER.report(since=self._since)

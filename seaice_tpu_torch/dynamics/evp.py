@@ -53,6 +53,7 @@ from typing import Any, Optional
 import torch
 
 from .. import constants as c
+from ..diagnostics import span
 from ..config import (Config, ConstitutiveRelation, OceanStressType,
                       StrainScheme, StressDivergenceScheme)
 from ..mesh.core import Mesh, MeshTensors, cell_to_vertex
@@ -234,6 +235,7 @@ def subcycle_exports(ov: SubcycleOverlap, fast, pressure, solve_stress,
     return exports
 
 
+@span("setup.dynamics_tensors")
 def build_dynamics_tensors(mesh: Mesh, cfg: Config, dtype=torch.float32,
                            device=None) -> DynamicsTensors:
     """Init-time basis precompute + device upload
@@ -614,92 +616,97 @@ def velocity_solve_steps(cfg: Config, *, halo: bool = False,
         dtype = state.u_velocity.dtype
 
         # --- pre-subcycle (reference velocity_solver.F:613-671) ---
-        mass = aggregate_mass(ice_area_cat, ice_volume_cat, snow_volume_cat)
-        (solve_stress, solve_velocity, total_mass, mass_vertex,
-         area_vertex) = _computation_masks(mass, forcing, dyn)
-        if not v_cfg.calc_velocity_masks:
-            # config_calc_velocity_masks=false: the dynamic ice-presence
-            # masks are NOT recomputed (velocity_solver.F:897-900):
-            # solve everywhere the geometry allows
-            solve_stress = torch.ones_like(solve_stress)
-            solve_velocity = (mesh.interior_vertex > 0).to(
-                solve_velocity.dtype)
+        with span("velocity.prepare"):
+            mass = aggregate_mass(ice_area_cat, ice_volume_cat,
+                                  snow_volume_cat)
+            (solve_stress, solve_velocity, total_mass, mass_vertex,
+             area_vertex) = _computation_masks(mass, forcing, dyn)
+            if not v_cfg.calc_velocity_masks:
+                # config_calc_velocity_masks=false: the dynamic ice-presence
+                # masks are NOT recomputed (velocity_solver.F:897-900):
+                # solve everywhere the geometry allows
+                solve_stress = torch.ones_like(solve_stress)
+                solve_velocity = (mesh.interior_vertex > 0).to(
+                    solve_velocity.dtype)
         # the solveStress neighbor-max and the vertex masks reach one ring
         # beyond the halo: refresh from their owners
         yield "cell_field", (solve_stress,)
         yield "vertex_field", (solve_velocity,)
-        sv = solve_velocity > 0
-        zero_v = torch.zeros_like(state.u_velocity)
+        with span("velocity.prepare"):
+            sv = solve_velocity > 0
+            zero_v = torch.zeros_like(state.u_velocity)
 
-        # new-ice velocities (reference :1164-1327)
-        uo_v = cell_to_vertex(mesh, forcing.u_ocean_velocity)
-        vo_v = cell_to_vertex(mesh, forcing.v_ocean_velocity)
-        is_new = sv & (state.solve_velocity_prev == 0)
-        u = torch.where(is_new, uo_v, state.u_velocity)
-        v = torch.where(is_new, vo_v, state.v_velocity)
-        u = torch.where(sv, u, zero_v)
-        v = torch.where(sv, v, zero_v)
+            # new-ice velocities (reference :1164-1327)
+            uo_v = cell_to_vertex(mesh, forcing.u_ocean_velocity)
+            vo_v = cell_to_vertex(mesh, forcing.v_ocean_velocity)
+            is_new = sv & (state.solve_velocity_prev == 0)
+            u = torch.where(is_new, uo_v, state.u_velocity)
+            v = torch.where(is_new, vo_v, state.v_velocity)
+            u = torch.where(sv, u, zero_v)
+            v = torch.where(sv, v, zero_v)
         yield "vertex_uv", (u, v)
 
-        # ice strength (reference :1341-1508)
-        if pressure_in is None:
-            pressure = _ice_strength_hibler(mass, solve_stress)
-        else:
-            pressure = torch.where(solve_stress > 0, pressure_in,
-                                   torch.zeros_like(pressure_in))
+        with span("velocity.prepare"):
+            # ice strength (reference :1341-1508)
+            if pressure_in is None:
+                pressure = _ice_strength_hibler(mass, solve_stress)
+            else:
+                pressure = torch.where(solve_stress > 0, pressure_in,
+                                       torch.zeros_like(pressure_in))
 
-        # air stress (reference :1522-1651)
-        air_u, air_v = _air_stress(forcing, mass, dyn, v_cfg.use_air_stress)
+            # air stress (reference :1522-1651)
+            air_u, air_v = _air_stress(forcing, mass, dyn,
+                                       v_cfg.use_air_stress)
 
-        # coriolis coefficient (reference :1742-1788)
-        mass_f = mass_vertex * mesh.f_vertex
+            # coriolis coefficient (reference :1742-1788)
+            mass_f = mass_vertex * mesh.f_vertex
 
-        # ocean stress rotation (reference :1802-1883)
-        sgn_f = torch.sign(mesh.f_vertex)
-        sgn_f = torch.where(sgn_f == 0, torch.ones_like(sgn_f), sgn_f)
-        if v_cfg.use_ocean_stress:
-            ocean_u = torch.where(
-                sv,
-                uo_v * c.COS_OCEAN_TURNING_ANGLE -
-                vo_v * c.SIN_OCEAN_TURNING_ANGLE * sgn_f, zero_v)
-            ocean_v = torch.where(
-                sv,
-                uo_v * c.SIN_OCEAN_TURNING_ANGLE * sgn_f +
-                vo_v * c.COS_OCEAN_TURNING_ANGLE, zero_v)
-        else:
-            ocean_u = ocean_v = zero_v
+            # ocean stress rotation (reference :1802-1883)
+            sgn_f = torch.sign(mesh.f_vertex)
+            sgn_f = torch.where(sgn_f == 0, torch.ones_like(sgn_f), sgn_f)
+            if v_cfg.use_ocean_stress:
+                ocean_u = torch.where(
+                    sv,
+                    uo_v * c.COS_OCEAN_TURNING_ANGLE -
+                    vo_v * c.SIN_OCEAN_TURNING_ANGLE * sgn_f, zero_v)
+                ocean_v = torch.where(
+                    sv,
+                    uo_v * c.SIN_OCEAN_TURNING_ANGLE * sgn_f +
+                    vo_v * c.COS_OCEAN_TURNING_ANGLE, zero_v)
+            else:
+                ocean_u = ocean_v = zero_v
 
-        # surface tilt (reference :1897-2213)
-        if not v_cfg.use_surface_tilt:
-            tilt_u = zero_v
-            tilt_v = zero_v
-        elif v_cfg.geostrophic_surface_tilt:
-            tilt_u = torch.where(sv, -mesh.f_vertex * mass_vertex * vo_v,
-                                 zero_v)
-            tilt_v = torch.where(sv, mesh.f_vertex * mass_vertex * uo_v,
-                                 zero_v)
-        else:
-            tilt_uv = cell_to_vertex(mesh, forcing.sea_surface_tilt_u)
-            tilt_vv = cell_to_vertex(mesh, forcing.sea_surface_tilt_v)
-            tilt_u = torch.where(sv, -c.GRAVITY * mass_vertex * tilt_uv,
-                                 zero_v)
-            tilt_v = torch.where(sv, -c.GRAVITY * mass_vertex * tilt_vv,
-                                 zero_v)
+            # surface tilt (reference :1897-2213)
+            if not v_cfg.use_surface_tilt:
+                tilt_u = zero_v
+                tilt_v = zero_v
+            elif v_cfg.geostrophic_surface_tilt:
+                tilt_u = torch.where(
+                    sv, -mesh.f_vertex * mass_vertex * vo_v, zero_v)
+                tilt_v = torch.where(
+                    sv, mesh.f_vertex * mass_vertex * uo_v, zero_v)
+            else:
+                tilt_uv = cell_to_vertex(mesh, forcing.sea_surface_tilt_u)
+                tilt_vv = cell_to_vertex(mesh, forcing.sea_surface_tilt_v)
+                tilt_u = torch.where(sv, -c.GRAVITY * mass_vertex * tilt_uv,
+                                     zero_v)
+                tilt_v = torch.where(sv, -c.GRAVITY * mass_vertex * tilt_vv,
+                                     zero_v)
 
-        # init subcycle variables (reference :2227-2386): zero stress
-        # where not solving
-        ss = (solve_stress > 0)[:, None]
-        zero_s = torch.zeros_like(state.stress11)
-        s11 = torch.where(ss, state.stress11, zero_s)
-        s22 = torch.where(ss, state.stress22, zero_s)
-        s12 = torch.where(ss, state.stress12, zero_s)
+            # init subcycle variables (reference :2227-2386): zero stress
+            # where not solving
+            ss = (solve_stress > 0)[:, None]
+            zero_s = torch.zeros_like(state.stress11)
+            s11 = torch.where(ss, state.stress11, zero_s)
+            s22 = torch.where(ss, state.stress22, zero_s)
+            s12 = torch.where(ss, state.stress12, zero_s)
 
-        # --- elastic subcycle loop (reference :2447-2592), in the
-        # transposed [maxEdges, nCells] layout ---
-        kw = dict(dt_elastic=dt_e, damping_timescale=damping_t,
-                  n_subcycles=n_sub)
-        sT = (s11.t().contiguous(), s22.t().contiguous(),
-              s12.t().contiguous())
+            # --- elastic subcycle loop (reference :2447-2592), in the
+            # transposed [maxEdges, nCells] layout ---
+            kw = dict(dt_elastic=dt_e, damping_timescale=damping_t,
+                      n_subcycles=n_sub)
+            sT = (s11.t().contiguous(), s22.t().contiguous(),
+                  s12.t().contiguous())
         if (panel_route is not None or variant_route == "panel") and \
                 dyn.panel is None:
             raise ValueError("panel_n given but the dynamics tensors carry "
@@ -731,73 +738,26 @@ def velocity_solve_steps(cfg: Config, *, halo: bool = False,
                 cfg, variant_route, dyn, momentum, u, v, *sT, pressure,
                 solve_stress, solve_velocity, panel_n=panel_n,
                 raster=raster)
-        elif panel_route == "loop":
-            # ONE call runs all subcycles on the panel lattice
-            u, v, t11, t22, t12 = evp_panel_loop(
-                dyn.panel, u, v, *sT, pressure, solve_stress, uo_v, vo_v,
-                mass_vertex, mass_f, air_u + tilt_u, air_v + tilt_v,
-                ocean_u, ocean_v, solve_velocity, area_vertex,
-                include_metric=metric, **kw)
-        elif panel_route == "cell":
-            # one kernel launch per subcycle for the cell side; ghosts,
-            # dual sum, the 12 exception cells and the momentum solve in
-            # torch; the loop state is slot-indexed and padded
-            pt = dyn.panel
-            exc_cols = pt.exc_pad_cols
-            p_pad = vpn.cells_to_padded(pt, pressure)
-            ss_pad = vpn.cells_to_padded(pt, solve_stress)
-            p_exc = p_pad[exc_cols][None, :]
-            ss_exc = (ss_pad[exc_cols] > 0)[None, :]
-            ss_kernel = ss_pad.clone()
-            ss_kernel[exc_cols] = 0      # the kernel leaves those columns
-            # the kernel's buffers and arguments, once per solve
-            cell_loop = panel_cell_prepare(
-                pt, p_pad, ss_kernel,
-                *(vpn.stress_ring_to_slot(pt, s) for s in sT),
-                dt_elastic=dt_e, damping_timescale=damping_t,
-                include_metric=metric)
-            rhs_u0, rhs_v0 = air_u + tilt_u, air_v + tilt_v
-            for _ in range(n_sub):
-                vpn.velocity_planes(pt, panel_n, u, v, metric,
-                                    out=cell_loop.planes)
-                panel_cell_step(cell_loop)
-                # 12-cell exception path: ring-indexed strain + stress
-                # update, written into the exception columns
-                x11, x22, x12 = vpn.exception_strain(pt, u, v, metric)
-                o11, o22, o12 = (t[:, exc_cols] for t in cell_loop.previous)
-                e11, e22, e12, _ = constitutive.evp_stress_update(
-                    o11, o22, o12, x11, x22, x12, p_exc, dt_e, damping_t)
-                t11, t22, t12 = cell_loop.current
-                t11[:, exc_cols] = torch.where(ss_exc, e11, o11)
-                t22[:, exc_cols] = torch.where(ss_exc, e22, o22)
-                t12[:, exc_cols] = torch.where(ss_exc, e12, o12)
-                div_u, div_v = vpn.divergence_finish(
-                    pt, panel_n, cell_loop.partials, t11, t22, t12,
-                    solve_velocity, metric)
-                u, v = momentum_update(
-                    u, v, div_u, div_v, uo_v, vo_v, mass_vertex, mass_f,
-                    rhs_u0, rhs_v0, ocean_u, ocean_v, solve_velocity,
-                    area_vertex, dt_e)
-            t11, t22, t12 = (vpn.stress_slot_to_ring(pt, t)
-                             for t in cell_loop.current)
         elif halo:
             # a block of a partitioned mesh: one subcycle at a time, the
             # vertex halo refreshed between subcycles (in place); the
             # copies, checks and scratch once per solve.  The subcycle of
             # every block of the card is one kernel call
             # (`utils/lockstep.py`, "evp_subcycle")
-            loop = evp_subcycle_prepare(
-                dyn.fast, u, v, *sT, pressure, solve_stress, uo_v, vo_v,
-                mass_vertex, mass_f, air_u + tilt_u, air_v + tilt_v,
-                ocean_u, ocean_v, solve_velocity, area_vertex,
-                include_metric=metric, dt_elastic=dt_e,
-                damping_timescale=damping_t)
+            with span("velocity.loop"):
+                loop = evp_subcycle_prepare(
+                    dyn.fast, u, v, *sT, pressure, solve_stress, uo_v, vo_v,
+                    mass_vertex, mass_f, air_u + tilt_u, air_v + tilt_v,
+                    ocean_u, ocean_v, solve_velocity, area_vertex,
+                    include_metric=metric, dt_elastic=dt_e,
+                    damping_timescale=damping_t)
             if overlap is not None:
-                exports = subcycle_exports(
-                    overlap, dyn.fast, pressure, solve_stress,
-                    (uo_v, vo_v, mass_vertex, mass_f, air_u, air_v, tilt_u,
-                     tilt_v, ocean_u, ocean_v, solve_velocity, area_vertex,
-                     dyn.fast.denominator), dt_e, damping_t)
+                with span("velocity.loop"):
+                    exports = subcycle_exports(
+                        overlap, dyn.fast, pressure, solve_stress,
+                        (uo_v, vo_v, mass_vertex, mass_f, air_u, air_v,
+                         tilt_u, tilt_v, ocean_u, ocean_v, solve_velocity,
+                         area_vertex, dyn.fast.denominator), dt_e, damping_t)
                 for _ in range(n_sub):
                     yield "evp_overlap", (loop, exports(
                         loop.u, loop.v, loop.t11, loop.t22, loop.t12))
@@ -805,77 +765,133 @@ def velocity_solve_steps(cfg: Config, *, halo: bool = False,
                 for _ in range(n_sub):
                     yield "evp_subcycle", (loop,)
                     yield "vertex_uv", (loop.u, loop.v)
-            u, v, t11, t22, t12 = evp_subcycle_finish(loop)
-        elif raster_loop is not None:
-            # ONE call runs all subcycles on the raster with the four
-            # cell-constant basis tables
-            u, v, t11, t22, t12 = raster_loop(
-                *basis_tables(dyn.fast), u, v, *sT, pressure, solve_stress,
-                uo_v, vo_v, mass_vertex, mass_f, air_u, air_v, tilt_u,
-                tilt_v, ocean_u, ocean_v, solve_velocity, area_vertex,
-                dyn.fast.denominator)
+            with span("velocity.loop"):
+                u, v, t11, t22, t12 = evp_subcycle_finish(loop)
         else:
-            # ONE call runs all subcycles for any connectivity
-            u, v, t11, t22, t12 = evp_subcycle_loop(
-                dyn.fast, u, v, *sT, pressure, solve_stress, uo_v, vo_v,
-                mass_vertex, mass_f, air_u + tilt_u, air_v + tilt_v,
-                ocean_u, ocean_v, solve_velocity, area_vertex,
-                include_metric=metric, **kw)
-        s11, s22, s12 = (t11.t().contiguous(), t22.t().contiguous(),
-                         t12.t().contiguous())
+            with span("velocity.loop"):
+                if panel_route == "loop":
+                    # ONE call runs all subcycles on the panel lattice
+                    u, v, t11, t22, t12 = evp_panel_loop(
+                        dyn.panel, u, v, *sT, pressure, solve_stress, uo_v,
+                        vo_v, mass_vertex, mass_f, air_u + tilt_u,
+                        air_v + tilt_v, ocean_u, ocean_v, solve_velocity,
+                        area_vertex, include_metric=metric, **kw)
+                elif panel_route == "cell":
+                    # one kernel launch per subcycle for the cell side;
+                    # ghosts, dual sum, the 12 exception cells and the
+                    # momentum solve in torch; the loop state is
+                    # slot-indexed and padded
+                    pt = dyn.panel
+                    exc_cols = pt.exc_pad_cols
+                    p_pad = vpn.cells_to_padded(pt, pressure)
+                    ss_pad = vpn.cells_to_padded(pt, solve_stress)
+                    p_exc = p_pad[exc_cols][None, :]
+                    ss_exc = (ss_pad[exc_cols] > 0)[None, :]
+                    ss_kernel = ss_pad.clone()
+                    ss_kernel[exc_cols] = 0   # the kernel leaves those
+                    # the kernel's buffers and arguments, once per solve
+                    cell_loop = panel_cell_prepare(
+                        pt, p_pad, ss_kernel,
+                        *(vpn.stress_ring_to_slot(pt, s) for s in sT),
+                        dt_elastic=dt_e, damping_timescale=damping_t,
+                        include_metric=metric)
+                    rhs_u0, rhs_v0 = air_u + tilt_u, air_v + tilt_v
+                    for _ in range(n_sub):
+                        vpn.velocity_planes(pt, panel_n, u, v, metric,
+                                            out=cell_loop.planes)
+                        panel_cell_step(cell_loop)
+                        # 12-cell exception path: ring-indexed strain + stress
+                        # update, written into the exception columns
+                        x11, x22, x12 = vpn.exception_strain(pt, u, v, metric)
+                        o11, o22, o12 = (t[:, exc_cols]
+                                         for t in cell_loop.previous)
+                        e11, e22, e12, _ = constitutive.evp_stress_update(
+                            o11, o22, o12, x11, x22, x12, p_exc, dt_e,
+                            damping_t)
+                        t11, t22, t12 = cell_loop.current
+                        t11[:, exc_cols] = torch.where(ss_exc, e11, o11)
+                        t22[:, exc_cols] = torch.where(ss_exc, e22, o22)
+                        t12[:, exc_cols] = torch.where(ss_exc, e12, o12)
+                        div_u, div_v = vpn.divergence_finish(
+                            pt, panel_n, cell_loop.partials, t11, t22, t12,
+                            solve_velocity, metric)
+                        u, v = momentum_update(
+                            u, v, div_u, div_v, uo_v, vo_v, mass_vertex,
+                            mass_f, rhs_u0, rhs_v0, ocean_u, ocean_v,
+                            solve_velocity, area_vertex, dt_e)
+                    t11, t22, t12 = (vpn.stress_slot_to_ring(pt, t)
+                                     for t in cell_loop.current)
+                elif raster_loop is not None:
+                    # ONE call runs all subcycles on the raster with the four
+                    # cell-constant basis tables
+                    u, v, t11, t22, t12 = raster_loop(
+                        *basis_tables(dyn.fast), u, v, *sT, pressure,
+                        solve_stress, uo_v, vo_v, mass_vertex, mass_f,
+                        air_u, air_v, tilt_u, tilt_v, ocean_u, ocean_v,
+                        solve_velocity, area_vertex, dyn.fast.denominator)
+                else:
+                    # ONE call runs all subcycles for any connectivity
+                    u, v, t11, t22, t12 = evp_subcycle_loop(
+                        dyn.fast, u, v, *sT, pressure, solve_stress, uo_v,
+                        vo_v, mass_vertex, mass_f, air_u + tilt_u,
+                        air_v + tilt_v, ocean_u, ocean_v, solve_velocity,
+                        area_vertex, include_metric=metric, **kw)
+        with span("velocity.finish"):
+            s11, s22, s12 = (t11.t().contiguous(), t22.t().contiguous(),
+                             t12.t().contiguous())
 
-        # --- post-subcycle (reference :3360-3700) ---
-        if variant_route == "gather":
-            e11, e22, e12 = gather_strain(cfg, dyn, u, v, solve_stress)
-        elif panel_route is not None or variant_route == "panel":
-            # final diagnostic strain via the panel-shift formulation
-            eS = vpn.strain_tensor_P(dyn.panel, panel_n, u, v, metric)
-            e11, e22, e12 = (
-                vpn.stress_slot_to_ring(dyn.panel, e).t() for e in eS)
-        else:
-            eT = strain_tensor_T(dyn.fast, u, v, metric)
-            e11, e22, e12 = (e.t() for e in eT)
-        div, shear, ridge_conv, ridge_shear = \
-            variational.final_divergence_shear(
-                e11, e22, e12, mesh, solve_stress, c.EVP_ECCENTRICITY_SQ)
+            # --- post-subcycle (reference :3360-3700) ---
+            if variant_route == "gather":
+                e11, e22, e12 = gather_strain(cfg, dyn, u, v, solve_stress)
+            elif panel_route is not None or variant_route == "panel":
+                # final diagnostic strain via the panel-shift formulation
+                eS = vpn.strain_tensor_P(dyn.panel, panel_n, u, v, metric)
+                e11, e22, e12 = (
+                    vpn.stress_slot_to_ring(dyn.panel, e).t() for e in eS)
+            else:
+                eT = strain_tensor_T(dyn.fast, u, v, metric)
+                e11, e22, e12 = (e.t() for e in eT)
+            div, shear, ridge_conv, ridge_shear = \
+                variational.final_divergence_shear(
+                    e11, e22, e12, mesh, solve_stress, c.EVP_ECCENTRICITY_SQ)
 
-        # principal stresses (reference :3443-3555)
-        vm = mesh.vertices_on_cell_mask
-        nvm = vm.sum(dim=1).clamp(min=1.0)
-        s11m = (s11 * vm).sum(dim=1) / nvm
-        s22m = (s22 * vm).sum(dim=1) / nvm
-        s12m = (s12 * vm).sum(dim=1) / nvm
-        mean = 0.5 * (s11m + s22m)
-        rad = torch.sqrt((0.5 * (s11m - s22m)) ** 2 + s12m ** 2)
-        sig1 = mean + rad
-        sig2 = mean - rad
+            # principal stresses (reference :3443-3555)
+            vm = mesh.vertices_on_cell_mask
+            nvm = vm.sum(dim=1).clamp(min=1.0)
+            s11m = (s11 * vm).sum(dim=1) / nvm
+            s22m = (s22 * vm).sum(dim=1) / nvm
+            s12m = (s12 * vm).sum(dim=1) / nvm
+            mean = 0.5 * (s11m + s22m)
+            rad = torch.sqrt((0.5 * (s11m - s22m)) ** 2 + s12m ** 2)
+            sig1 = mean + rad
+            sig2 = mean - rad
 
-        # final ocean stress for the coupler (reference :3624-3700)
-        ocean_coeff = ocean_stress_coefficient(
-            v_cfg.use_ocean_stress, quadratic, u, v, uo_v, vo_v,
-            area_vertex, solve_velocity)
-        tau_ou = ocean_coeff * (
-            (uo_v - u) * c.COS_OCEAN_TURNING_ANGLE -
-            (vo_v - v) * c.SIN_OCEAN_TURNING_ANGLE * sgn_f)
-        tau_ov = ocean_coeff * (
-            (vo_v - v) * c.COS_OCEAN_TURNING_ANGLE +
-            (uo_v - u) * c.SIN_OCEAN_TURNING_ANGLE * sgn_f)
+            # final ocean stress for the coupler (reference :3624-3700)
+            ocean_coeff = ocean_stress_coefficient(
+                v_cfg.use_ocean_stress, quadratic, u, v, uo_v, vo_v,
+                area_vertex, solve_velocity)
+            tau_ou = ocean_coeff * (
+                (uo_v - u) * c.COS_OCEAN_TURNING_ANGLE -
+                (vo_v - v) * c.SIN_OCEAN_TURNING_ANGLE * sgn_f)
+            tau_ov = ocean_coeff * (
+                (vo_v - v) * c.COS_OCEAN_TURNING_ANGLE +
+                (uo_v - u) * c.SIN_OCEAN_TURNING_ANGLE * sgn_f)
 
-        new_state = VelocitySolverState(
-            u_velocity=u, v_velocity=v,
-            stress11=s11, stress22=s22, stress12=s12,
-            solve_velocity_prev=solve_velocity.to(dtype),
-        )
-        diags = {
-            "divergence": div, "shear": shear,
-            "ridge_convergence": ridge_conv, "ridge_shear": ridge_shear,
-            "principal_stress1": sig1, "principal_stress2": sig2,
-            "ice_pressure": pressure,
-            "ocean_stress_u": tau_ou, "ocean_stress_v": tau_ov,
-            "solve_stress": solve_stress, "solve_velocity": solve_velocity,
-            "stress_divergence_u": torch.zeros_like(u),
-            "stress_divergence_v": torch.zeros_like(v),
-        }
+            new_state = VelocitySolverState(
+                u_velocity=u, v_velocity=v,
+                stress11=s11, stress22=s22, stress12=s12,
+                solve_velocity_prev=solve_velocity.to(dtype),
+            )
+            diags = {
+                "divergence": div, "shear": shear,
+                "ridge_convergence": ridge_conv, "ridge_shear": ridge_shear,
+                "principal_stress1": sig1, "principal_stress2": sig2,
+                "ice_pressure": pressure,
+                "ocean_stress_u": tau_ou, "ocean_stress_v": tau_ov,
+                "solve_stress": solve_stress, "solve_velocity": solve_velocity,
+                "stress_divergence_u": torch.zeros_like(u),
+                "stress_divergence_v": torch.zeros_like(v),
+            }
         return new_state, diags
 
     return solve

@@ -17,7 +17,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from .diagnostics import check_state
+from .diagnostics import check_state, count
 from .model import State
 
 
@@ -36,6 +36,7 @@ def fetch_flags(checks: Dict[str, Any], comm=None) -> Dict[str, bool]:
     where it fails on any rank (the failures max-reduced, as the
     reference max-reduces its abort flag across ranks), so that every
     rank takes the same branch."""
+    count("host.flag_fetches")
     flags = torch.stack([torch.as_tensor(v).all() for v in checks.values()])
     if comm is not None and comm.world_size > 1:
         flags = comm.all_reduce_max((~flags).to(torch.uint8)) == 0

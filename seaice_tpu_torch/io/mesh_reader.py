@@ -14,6 +14,7 @@ from typing import Dict
 
 import numpy as np
 
+from ..diagnostics import span
 from ..mesh.core import Mesh
 
 
@@ -44,6 +45,7 @@ def _read_netcdf(path: str) -> Dict[str, np.ndarray]:
     raise ValueError(f"unrecognized netCDF magic in {path!r}")
 
 
+@span("setup.mesh")
 def read_mpas_mesh(path: str) -> Mesh:
     """Read an MPAS mesh file into a finalized Mesh."""
     var = _read_netcdf(path)

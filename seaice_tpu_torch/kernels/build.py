@@ -11,7 +11,9 @@ nothing else, into `build/seaice_tpu_torch/` beside the package:
 
 Libraries are keyed by a hash of the sources and the flags, so a changed
 source rebuilds and an unchanged one is reused.  A failed build raises
-with the compiler's output.  Nothing here runs at import time.
+with the compiler's output.  Nothing here runs at import time: a model
+on a card builds the CUDA libraries in its set-up (`SeaIceModel`), and
+the wrappers open them at their first launch.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import shutil
 import subprocess
 from typing import Dict, Optional
 
+from ..diagnostics import count, span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 NATIVE_SRC = os.path.join(_PKG, "native", "remap_stencil.cpp")
@@ -33,6 +37,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# {source name: library path} once `build_cuda` has run in this process,
+# and the names it compiled (not found built)
+_built: Dict[str, str] = {}
+_compiled = set()
 # compiler output (registers, spills) of the last CUDA build, by source
 build_log: Dict[str, str] = {}
 
@@ -77,9 +85,11 @@ def _cuda_lib_path(src: str) -> str:
     return os.path.join(build_dir(), f"lib{name}_{key}.so")
 
 
+@span("setup.kernels")
 def build_cuda() -> Dict[str, str]:
     """Compile every stale `csrc/*.cu`, one nvcc each, in parallel.
-    Returns {source name: library path}."""
+    Returns {source name: library path}.  Counts the nvcc runs
+    (`kernels.compiled`)."""
     out = {}
     procs = []
     for src in cuda_sources():
@@ -88,6 +98,8 @@ def build_cuda() -> Dict[str, str]:
         out[name] = lib
         if os.path.exists(lib):
             continue
+        count("kernels.compiled")
+        _compiled.add(name)
         tmp = lib + f".tmp{os.getpid()}"
         cmd = [_nvcc()] + NVCC_FLAGS + ["-I", CSRC, "-o", tmp, src]
         procs.append((name, lib, tmp, cmd, subprocess.Popen(
@@ -105,17 +117,21 @@ def build_cuda() -> Dict[str, str]:
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+    _built.update(out)
     return out
 
 
 def get_cuda_lib(name: str) -> ctypes.CDLL:
     """The shared library built from `csrc/<name>.cu` (building every
-    kernel source first if any is missing)."""
+    kernel source first where this process has not).  Counts a library
+    opened from the cache, not compiled here (`kernels.loaded`)."""
     if name not in _libs:
-        paths = build_cuda()
+        paths = _built or build_cuda()
         if name not in paths:
             raise RuntimeError(f"no CUDA source csrc/{name}.cu")
         _libs[name] = ctypes.CDLL(paths[name])
+        if name not in _compiled:
+            count("kernels.loaded")
     return _libs[name]
 
 

@@ -21,6 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..diagnostics import span
 from ..utils.containers import tensor_dataclass
 from ..utils.device import resolve_device
 
@@ -147,6 +148,7 @@ class Mesh:
 
     # -- device export --------------------------------------------------------
 
+    @span("setup.upload")
     def tensors(self, dtype=torch.float32, device=None) -> "MeshTensors":
         """Build the device-side container used by the step
         (device=None: the GPU)."""

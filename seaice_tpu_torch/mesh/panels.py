@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..diagnostics import span
 from .sphere import _icosahedron
 
 # corner slot offsets: (di, dj, t) such that the corner vertex of the
@@ -546,6 +547,7 @@ def permute_mesh(mesh, cell_new_of_old: np.ndarray,
     return m.finalize()
 
 
+@span("setup.panel_reorder")
 def panel_reorder(mesh, subdivisions: int):
     """Relabel an icosahedral mesh into panel-major order and rebase
     the layout: cell id = p*N^2 + i*N + j (poles last), vertex id =

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..diagnostics import span
 from .core import Mesh
 from .. import constants as c
 
@@ -97,6 +98,7 @@ def _spherical_polygon_area(points, radius):
     return (ang.sum(-1) - (n - 2) * np.pi) * radius ** 2
 
 
+@span("setup.mesh")
 def icosahedral_mesh(subdivisions: int = 3,
                      radius: float = c.EARTH_RADIUS) -> Mesh:
     """Build the spherical Voronoi mesh from an n-subdivided icosahedron.

@@ -29,6 +29,7 @@ import torch
 from .column.driver import AtmosForcing, ColumnPhysics, OceanForcing
 from .column.tuning import Tunables
 from .config import AdvectionType, Config
+from .diagnostics import span
 from .mesh.core import Mesh, MeshTensors, vertex_to_cell
 from .dynamics import evp
 from .dynamics.evp import (DynamicsForcing, DynamicsTensors,
@@ -158,6 +159,11 @@ class SeaIceModel:
         self._set_config(cfg, tracer_tree)
 
         dev = self.device
+        if dev.type == "cuda":
+            # set-up, not the first step, pays nvcc where a library is
+            # stale (`setup.kernels`)
+            from .kernels.build import build_cuda
+            build_cuda()
         mesh_t = mesh.tensors(dtype, dev)
         dyn_t = build_dynamics_tensors(mesh, cfg, dtype, dev)
         remap_t = None
@@ -362,14 +368,16 @@ class SeaIceModel:
             (dict: fsurf/fcondtop/flat/fsens [nCells, nCat]).  faero_atm
             [nCells, nAero]: aerosol deposition rate (kg/m^2/s)."""
             thermo = column is not None and atmos is not None
-            if thermo:
-                state, fluxes = column_before_dynamics(
-                    cfg, column, state, atmos, ocean, coszen,
-                    day_of_year, lat, sfc_fluxes, tensors.mesh, faero_atm)
-            new_state, diags = drive(body(tensors, state, forcing))
-            if thermo:
-                new_state, diags = column_after_dynamics(
-                    cfg, column, new_state, diags, atmos, fluxes)
+            with span("step"):
+                if thermo:
+                    state, fluxes = column_before_dynamics(
+                        cfg, column, state, atmos, ocean, coszen,
+                        day_of_year, lat, sfc_fluxes, tensors.mesh,
+                        faero_atm)
+                new_state, diags = drive(body(tensors, state, forcing))
+                if thermo:
+                    new_state, diags = column_after_dynamics(
+                        cfg, column, new_state, diags, atmos, fluxes)
             return new_state, diags
 
         return step
@@ -390,10 +398,11 @@ def column_before_dynamics(cfg: Config, column: ColumnPhysics, state: State,
         vel = state.velocity
         uvel = vertex_to_cell(mesh_t, vel.u_velocity)
         vvel = vertex_to_cell(mesh_t, vel.v_velocity)
-    tr, fluxes = column.step_thermodynamics(
-        cfg.run.dt, dict(state.tracers), atmos, ocean, coszen=coszen,
-        uvel=uvel, vvel=vvel, day_of_year=day_of_year, lat=lat,
-        faero_atm=faero_atm, sfc_fluxes=sfc_fluxes)
+    with span("column.thermo"):
+        tr, fluxes = column.step_thermodynamics(
+            cfg.run.dt, dict(state.tracers), atmos, ocean, coszen=coszen,
+            uvel=uvel, vvel=vvel, day_of_year=day_of_year, lat=lat,
+            faero_atm=faero_atm, sfc_fluxes=sfc_fluxes)
     return state.replace(tracers=tr), fluxes
 
 
@@ -402,9 +411,10 @@ def column_after_dynamics(cfg: Config, column: ColumnPhysics, state: State,
     """The column phase after the dynamics, per cell: snow physics and
     coupling prep (reference column.F:1208).  Returns (state, diags)
     with the coupling prep and the thermodynamics' fluxes in diags."""
-    wind = torch.sqrt(atmos.u_air ** 2 + atmos.v_air ** 2)
-    tr, post = column.step_post_dynamics(
-        cfg.run.dt, state.tracers, wind=wind, snow_rate=atmos.snow_rate)
+    with span("column.post"):
+        wind = torch.sqrt(atmos.u_air ** 2 + atmos.v_air ** 2)
+        tr, post = column.step_post_dynamics(
+            cfg.run.dt, state.tracers, wind=wind, snow_rate=atmos.snow_rate)
     diags["coupling_prep"] = post
     diags["column_fluxes"] = fluxes
     return state.replace(tracers=tr), diags
@@ -477,9 +487,10 @@ def dynamics_transport_steps(cfg: Config, tree: TracerTree, vel_solve,
                 tr = upwind_step(tensors.upwind, tensors.area_cell, tr,
                                  vel.u_velocity, vel.v_velocity, dt_dyn)
             if use_ridging and diags:
-                tr, rdg = column.step_ridging(
-                    dt_dyn, tr, diags["ridge_convergence"],
-                    diags["ridge_shear"])
+                with span("column.ridging"):
+                    tr, rdg = column.step_ridging(
+                        dt_dyn, tr, diags["ridge_convergence"],
+                        diags["ridge_shear"])
                 diags.update(rdg)
         new_state = State(velocity=vel, tracers=tr,
                           time=state.time + cfg.run.dt)
@@ -489,36 +500,40 @@ def dynamics_transport_steps(cfg: Config, tree: TracerTree, vel_solve,
         """Incremental remap of every tracer, the tracer halo refresh and
         the optional self-checks."""
         if adv_checks:
-            pre_sums = (global_conserved_sums(tree, tr, tensors.area_cell)
-                        if cfg.advection.conservation_check else None)
-            pre_ext = (local_extrema(
-                tree, tr, tensors.mesh.cells_on_cell,
-                tensors.mesh.cells_on_cell_mask)
-                if cfg.advection.monotonicity_check else None)
-        tr = remap_step(
-            tensors.remap, tensors.mesh.cells_on_cell,
-            tensors.mesh.cells_on_cell_mask, tensors.area_cell,
-            tr, vel.u_velocity, vel.v_velocity, dt_dyn)
+            with span("remap.checks"):
+                pre_sums = (global_conserved_sums(tree, tr,
+                                                  tensors.area_cell)
+                            if cfg.advection.conservation_check else None)
+                pre_ext = (local_extrema(
+                    tree, tr, tensors.mesh.cells_on_cell,
+                    tensors.mesh.cells_on_cell_mask)
+                    if cfg.advection.monotonicity_check else None)
+        with span("transport.remap"):
+            tr = remap_step(
+                tensors.remap, tensors.mesh.cells_on_cell,
+                tensors.mesh.cells_on_cell_mask, tensors.area_cell,
+                tr, vel.u_velocity, vel.v_velocity, dt_dyn)
         # 2-deep tracer halo refresh (owned values are authoritative;
         # halo updates computed locally are discarded)
         yield "cell_field", tuple(tr.values())
         if adv_checks:
             # runtime self-checks (reference optional IR checks,
             # ..._incremental_remap.F:8126,8416)
-            if pre_sums is not None:
-                post = global_conserved_sums(tree, tr, tensors.area_cell)
-                err = torch.stack([
-                    (post[k] - pre_sums[k]).abs() /
-                    pre_sums[k].abs().clamp(min=1e-30)
-                    for k in pre_sums]).max()
-                prev = diags.get("ir_conservation_error")
-                diags["ir_conservation_error"] = err \
-                    if prev is None else torch.maximum(prev, err)
-            if pre_ext is not None:
-                viol = monotonicity_violation(tree, tr, *pre_ext)
-                prev = diags.get("ir_monotonicity_violation")
-                diags["ir_monotonicity_violation"] = viol \
-                    if prev is None else torch.maximum(prev, viol)
+            with span("remap.checks"):
+                if pre_sums is not None:
+                    post = global_conserved_sums(tree, tr, tensors.area_cell)
+                    err = torch.stack([
+                        (post[k] - pre_sums[k]).abs() /
+                        pre_sums[k].abs().clamp(min=1e-30)
+                        for k in pre_sums]).max()
+                    prev = diags.get("ir_conservation_error")
+                    diags["ir_conservation_error"] = err \
+                        if prev is None else torch.maximum(prev, err)
+                if pre_ext is not None:
+                    viol = monotonicity_violation(tree, tr, *pre_ext)
+                    prev = diags.get("ir_monotonicity_violation")
+                    diags["ir_monotonicity_violation"] = viol \
+                        if prev is None else torch.maximum(prev, viol)
         return tr, diags
 
     return steps

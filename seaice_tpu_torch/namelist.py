@@ -232,8 +232,8 @@ _na("decomposition", "aggregate_halo_exch", False,
 _na("decomposition", "reuse_halo_exch", False,
     "the step reuses its exchange buffers itself (parallel/sharded.py)")
 _na("decomposition", "load_balance_timers", False,
-    "device-phase attribution (diagnostics.PhaseTimers, bench_phases*) "
-    "replaces MPI barrier timers")
+    "the recorder's spans and counters (diagnostics.RECORDER) "
+    "replace MPI barrier timers")
 
 # --- restart -------------------------------------------------------------------
 _opt("restart", "do_restart", False, "setup.do_restart")

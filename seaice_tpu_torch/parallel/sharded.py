@@ -80,6 +80,7 @@ import torch.distributed as dist
 
 from ..config import (AdvectionType, Config, ConstitutiveRelation,
                       StrainScheme, StressDivergenceScheme)
+from ..diagnostics import span
 from ..dynamics import evp
 from ..dynamics.cuda_unstructured import (evp_subcycle_share_uv,
                                           evp_subcycle_step)
@@ -662,33 +663,37 @@ class ShardedSeaIceModel:
 
             def advance(kind, fields):
                 if kind == "evp_subcycle":
-                    self.evp_subcycle([f[0] for f in fields], solve)
+                    with span("velocity.loop"):
+                        self.evp_subcycle([f[0] for f in fields], solve)
                 elif kind == "evp_overlap":
-                    self.evp_overlap([f[0] for f in fields],
-                                     [f[1] for f in fields], solve)
+                    with span("velocity.loop"):
+                        self.evp_overlap([f[0] for f in fields],
+                                         [f[1] for f in fields], solve)
                 else:
                     self.exchange(kind, fields, halo, solve)
 
             blocks = range(len(self.blocks))
             thermo = columns[0] is not None and atmos is not None
-            if thermo:
-                none = [None] * len(self.blocks)
-                coszen, lat = coszen or none, lat or none
-                sfc_fluxes, faero_atm = sfc_fluxes or none, faero_atm or none
-                # every block's cells carry all their vertices, whose
-                # velocities the last exchange of the previous step
-                # refreshed, so a highfreq cell velocity is the owner's
-                pre = [column_before_dynamics(
-                    cfg, columns[s], state[s], atmos[s], ocean[s],
-                    coszen[s], day_of_year, lat[s], sfc_fluxes[s],
-                    tensors[s].mesh, faero_atm[s]) for s in blocks]
-                state = [p[0] for p in pre]
-            outs = drive_lockstep(
-                [body(t, st, f) for body, t, st, f in
-                 zip(bodies, tensors, state, forcing)], advance)
-            if thermo:
-                outs = [column_after_dynamics(cfg, columns[s], *outs[s],
-                                              atmos[s], pre[s][1])
+            with span("step"):
+                if thermo:
+                    none = [None] * len(self.blocks)
+                    coszen, lat = coszen or none, lat or none
+                    sfc_fluxes = sfc_fluxes or none
+                    faero_atm = faero_atm or none
+                    # every block's cells carry all their vertices, whose
+                    # velocities the last exchange of the previous step
+                    # refreshed, so a highfreq cell velocity is the owner's
+                    pre = [column_before_dynamics(
+                        cfg, columns[s], state[s], atmos[s], ocean[s],
+                        coszen[s], day_of_year, lat[s], sfc_fluxes[s],
+                        tensors[s].mesh, faero_atm[s]) for s in blocks]
+                    state = [p[0] for p in pre]
+                outs = drive_lockstep(
+                    [body(t, st, f) for body, t, st, f in
+                     zip(bodies, tensors, state, forcing)], advance)
+                if thermo:
+                    outs = [column_after_dynamics(
+                        cfg, columns[s], *outs[s], atmos[s], pre[s][1])
                         for s in blocks]
             return [o[0] for o in outs], [o[1] for o in outs]
 

@@ -30,6 +30,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..diagnostics import span
 from ..mesh.core import Mesh
 from ..utils.containers import tensor_dataclass
 from ..utils.device import resolve_device
@@ -92,6 +93,7 @@ class RemapGeometry:
     y_local: np.ndarray = None            # [nCells, maxEdges]
     edge_to_cell_rot: np.ndarray = None   # [nEdges, 6, 2, 2]
 
+    @span("setup.upload")
     def tensors(self, dtype=torch.float64, device=None) -> "RemapTensors":
         """Device upload of the remap geometry (device=None: the GPU)."""
         device = resolve_device(device)
@@ -232,6 +234,7 @@ def _spherical_frames(mesh: Mesh, rotate: bool = True):
     return (x_local, y_local, vert_pts, to_edge_frame, edge_to_cell_rot)
 
 
+@span("setup.remap_geometry")
 def build_remap_geometry(mesh: Mesh,
                          rotate_cartesian_grid: bool = True,
                          use_native: bool = True) -> RemapGeometry:

@@ -33,6 +33,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..diagnostics import span
 from .geometry import RemapTensors, N_TRI_SLOTS
 from .tracers import TracerTree
 
@@ -837,20 +838,24 @@ def make_remap_step(tree: TracerTree, vertex_degree: int,
 
     def step(rt: RemapTensors, cells_on_cell, cells_on_cell_mask,
              area_cell, state, u_vertex, v_vertex, dt):
-        fields = to_transport_fields(tree, state)
-        mask_cell, masks = make_masks(tree, fields)
-        recon = reconstruct_fields(tree, fields, masks, mask_cell, rt,
-                                   cells_on_cell, cells_on_cell_mask,
-                                   monotonic=monotonic)
-        dpx, dpy = departure_points(u_vertex, v_vertex, dt)
-        tris = find_departure_triangles(rt, dpx, dpy, vertex_degree)
-        cell, xq, yq, area = triangles_to_cell_coords(rt, tris)
-        fluxes = cuda_flux.integrate_fluxes_cuda(
-            tree, recon, rt, cell, xq, yq, area, tris["mask_edge"])
-        new_fields = update_mass_and_tracers(tree, fields, fluxes, rt,
-                                             area_cell)
-        new_fields = zap_small_mass(tree, new_fields)
-        return from_transport_fields(tree, new_fields)
+        with span("remap.reconstruct"):
+            fields = to_transport_fields(tree, state)
+            mask_cell, masks = make_masks(tree, fields)
+            recon = reconstruct_fields(tree, fields, masks, mask_cell, rt,
+                                       cells_on_cell, cells_on_cell_mask,
+                                       monotonic=monotonic)
+        with span("remap.departure"):
+            dpx, dpy = departure_points(u_vertex, v_vertex, dt)
+            tris = find_departure_triangles(rt, dpx, dpy, vertex_degree)
+            cell, xq, yq, area = triangles_to_cell_coords(rt, tris)
+        with span("remap.flux"):
+            fluxes = cuda_flux.integrate_fluxes_cuda(
+                tree, recon, rt, cell, xq, yq, area, tris["mask_edge"])
+        with span("remap.update"):
+            new_fields = update_mass_and_tracers(tree, fields, fluxes, rt,
+                                                 area_cell)
+            new_fields = zap_small_mass(tree, new_fields)
+            return from_transport_fields(tree, new_fields)
 
     return step
 

@@ -302,14 +302,23 @@ def test_budgets_monitor_and_regional_statistics_match_reference(
 
 
 def test_phase_timers():
-    from seaice_tpu_torch.diagnostics import PhaseTimers
+    """The runner's report is a view of the program's recorder from its
+    creation on: spans and counters kept there before it are left out."""
+    from seaice_tpu_torch.diagnostics import RECORDER, PhaseTimers
+    with RECORDER.span("before"):
+        pass
     t = PhaseTimers()
     for _ in range(2):
         with t.time("a"):
             sum(range(1000))
     assert t.timed("b", lambda x: x + 1, 1) == 2
+    RECORDER.count("host.flag_fetches")
     assert t.counts == {"a": 2, "b": 1}
-    assert "a" in t.report()
+    assert RECORDER.counts["a"] >= 2 and RECORDER.parents["a"] is None
+    assert set(t.totals) == {"a", "b"} and t.totals["a"] > 0.0
+    report = t.report()
+    assert "a" in report and "before" not in report
+    assert "host.flag_fetches          " in report
 
 
 # -- abort --------------------------------------------------------------------
