@@ -18,7 +18,10 @@ NVIDIA Hopper GPU, PyTorch with CUDA and `nvcc`.  It
        panel sphere the same model on the panel-reordered mesh: the
                     whole-loop panel kernel K3 + K2, and with
                     `use_fused_panel_loop=False` the per-subcycle cell
-                    kernel K5 (bound once per solve, 120 launches);
+                    kernel K5 (bound once per solve, 120 launches); then
+                    K3 alone on the subdiv-7 panel sphere (163,842 cells,
+                    the benchmark's QU60 mesh), where its blocks stream
+                    the basis, held to its plain version as at subdiv 6;
        sharded sphere the raw sphere split into 4 blocks on the one card,
                     stepped in lockstep: the one-subcycle kernel K6 (one
                     call per subcycle for all 4 blocks, two launches, the
@@ -1180,6 +1183,34 @@ def k3_against_k1(call, dyn, reps, limit64):
         fail(f"K3 and K1 disagree after one subcycle in f64: {e1}")
     if not max(e.values()) <= limit64:
         fail(f"K3 and K1 disagree after the loop in f64: {e} > {limit64}")
+    return out
+
+
+def k3_at_qu60_scale(reps, subdiv=SUBDIV + 1):
+    """K3 on the subdivision-7 panel sphere (N = 128, the benchmark's QU60
+    mesh), where a block owns more columns than threads and its columns'
+    basis no longer fits in shared memory: held to its plain version as at
+    subdivision 6 (`check_loop`: one subcycle f32 and f64, 10 subcycles
+    f32, the whole f64 loop, the same limits) on the inputs of the model's
+    second step.  `launch_f32` / `launch_f64` say where the loop state
+    lived (`cuda_panel_fused.launch_shape`: the shares of columns whose
+    basis is resident, streamed or read in place, whose stresses stay on
+    chip, and the basis bytes streamed a subcycle)."""
+    t0 = time.perf_counter()
+    model, state, forcing = build_model(
+        subdiv, N_CATEGORIES, N_ICE_LAYERS, N_SUBCYCLES, torch.float32, None,
+        panel=True)
+    state, _ = stepper(model)(state, forcing)
+    state, calls = capture_kernel_inputs(model, state, forcing)
+    if set(calls) != {"evp_panel_loop", "integrate_fluxes_cuda"}:
+        fail(f"panel sphere, subdiv {subdiv}: the step called "
+             f"{sorted(calls)}")
+    out = check_loop("evp_panel_loop", calls["evp_panel_loop"][0], reps)
+    out["subdiv"] = subdiv
+    out["seconds"] = time.perf_counter() - t0
+    emit({"k3_qu60": out})
+    del model, state, forcing, calls
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4782,6 +4813,7 @@ def main():
     kernels["panel_cell_step"]["route_ms_per_step"] = route_ms
     del model, model5, state, forcing, step
     torch.cuda.empty_cache()
+    kernels["evp_panel_loop"]["qu60"] = k3_at_qu60_scale(args.reps)
 
     # --- raster box: K4 ---
     t0 = time.perf_counter()

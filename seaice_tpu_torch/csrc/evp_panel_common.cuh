@@ -167,13 +167,25 @@ __device__ __forceinline__ int corner_position(int k, int q, int p, int a, int b
 // six corner values, EVP stress relaxation where ss (the stresses updated
 // in place in the caller's registers), divergence partials pu, pv (mu, mv
 // with metric) per dual slot.  The whole-loop route (evp_panel_fused.cu)
-// keeps a column's stresses in registers across subcycles and its basis in
-// shared memory where it fits, so the basis comes as three base pointers
-// and one stride: basis value k of the column is bg[k * stride]
-// (k = (b*2 + d)*6 + g), bi[k * stride] (k = (s*2 + d)*6 + j) and
-// bm[k * stride] (k = s*6 + j).  The per-subcycle route (evp_panel_cell.cu)
-// spreads a column over six threads and sums in the same order.
-template <typename T>
+// keeps a column's stresses in registers or shared memory across subcycles
+// and its basis in shared memory where it fits, so the basis comes as three
+// base pointers and one stride: basis value k of the column is
+// bg[k * stride] (k = (b*2 + d)*6 + g), bi[k * stride] (k = (s*2 + d)*6 + j)
+// and bm[k * stride] (k = s*6 + j); kStream loads it with `basis_load`'s
+// evict-first hint.  The per-subcycle route (evp_panel_cell.cu) spreads a
+// column over six threads and sums in the same order.
+
+// A basis value: a plain load, or (kStream: a value read from device
+// memory every subcycle) one the L2 evicts first, so that it does not push
+// out what the loop reads again soon.
+template <bool kStream, typename T>
+__device__ __forceinline__ T basis_load(const T* p)
+{
+  if constexpr (kStream) return __ldcs(p);
+  else return *p;
+}
+
+template <typename T, bool kStream = false>
 __device__ __forceinline__ void panel_cell_math(
     const T uc[6], const T vc[6], const T tl[6], int metric,
     const T* bg, const T* bi, const T* bm, int stride,
@@ -190,8 +202,8 @@ __device__ __forceinline__ void panel_cell_math(
   for (int b = 0; b < 6; ++b) {
 #pragma unroll
     for (int g = 0; g < 6; ++g) {
-      const T gx = bg[((b * 2 + 0) * 6 + g) * stride];
-      const T gy = bg[((b * 2 + 1) * 6 + g) * stride];
+      const T gx = basis_load<kStream>(bg + ((b * 2 + 0) * 6 + g) * stride);
+      const T gy = basis_load<kStream>(bg + ((b * 2 + 1) * 6 + g) * stride);
       e11[g] += uc[b] * gx;
       e22[g] += vc[b] * gy;
       eA[g] += uc[b] * gy;
@@ -217,14 +229,14 @@ __device__ __forceinline__ void panel_cell_math(
     T a = T(0), b2 = T(0), c2 = T(0), d2 = T(0), m1 = T(0), m2 = T(0);
 #pragma unroll
     for (int s = 0; s < 6; ++s) {
-      const T bu = bi[((s * 2 + 0) * 6 + j) * stride];
-      const T bv = bi[((s * 2 + 1) * 6 + j) * stride];
+      const T bu = basis_load<kStream>(bi + ((s * 2 + 0) * 6 + j) * stride);
+      const T bv = basis_load<kStream>(bi + ((s * 2 + 1) * 6 + j) * stride);
       a += s11[s] * bu;
       b2 += s12[s] * bv;
       c2 += s22[s] * bv;
       d2 += s12[s] * bu;
       if (metric) {
-        const T w = bm[(s * 6 + j) * stride];
+        const T w = basis_load<kStream>(bm + (s * 6 + j) * stride);
         m1 += s12[s] * w;
         m2 += s11[s] * w;
       }

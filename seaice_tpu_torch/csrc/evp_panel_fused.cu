@@ -10,25 +10,40 @@
 //   -> ocean drag -> 2x2 momentum solve.
 // The TPU kernel is one sequential program that holds the basis and the
 // whole state in its fast memory for the loop.  Here that becomes a grid of
-// co-resident blocks (one per SM on an H100: the occupancy query at the
-// shared-memory budget, times the SM count), each owning for the whole loop
-//   * a fixed run of real cell columns: their 18 stresses, pressure, stress
-//     mask, six corner positions and six tan(lat)/r corner values in
-//     registers, their basis (180 values a column in f32 with metric) in
-//     dynamic shared memory as far as the opt-in budget goes (232,448 B:
-//     all 311 columns a block owns at N = 64 in f32; the rest, and the f64
-//     case, read it from global memory);
-//   * fixed vertex positions: the twelve vertex invariants, u, v and the
-//     three dual-sum positions in registers (two per thread at N = 64);
-//   * in the last block, 72 threads (exception cell e, ring slot j) for the
-//     12 exception cells.
-// Inside, per subcycle: cell phase -> grid barrier -> vertex phase -> grid
-// barrier (cooperative_groups::this_grid().sync()).  Only u, v (the vertex
-// planes), the partials [4, 6, npc], the exception cells' stresses (double
-// buffered) and their 72 divergence contributions go through global memory
-// (L2) between phases.  A prologue gathers the caller's real-order inputs
-// through cell_pad_idx, ring_of_slot and k_real_pos, an epilogue scatters
-// the results back through slot_of_ring_a: the wrapper does no layout work.
+// co-resident blocks (one per SM on an H100), each owning a fixed run of
+// real cell columns and fixed vertices for the whole loop.  Inside, per
+// subcycle: cell phase -> grid barrier -> vertex phase -> grid barrier
+// (cooperative_groups::this_grid().sync()).  Only u, v (the vertex planes),
+// the partials [4, 6, npc], the exception cells' stresses (double buffered)
+// and their 72 divergence contributions go through global memory (L2)
+// between phases.
+//
+// Where the loop state lives follows from the shapes, the SM count and the
+// opt-in shared-memory budget (`plan_loop`), in one of two placements:
+//   * registers (a block's columns and vertices fit one column and two
+//     vertices a thread: N = 64): blocks of 320 threads (168 registers);
+//     a thread keeps its column's 18 stresses (slot order), pressure,
+//     stress mask, six corner positions and six tan(lat)/r values and its
+//     two vertices' invariants and u, v in registers for the whole loop;
+//   * tables (N = 128: 1,242 columns and 2,482 vertices a block): blocks of
+//     kTableThreads threads (640 in f32, at 96 registers), whose registers
+//     hold a column or a vertex only while it is worked on, so that more
+//     warps keep loads in flight; every column's fixed data lives in
+//     block-local int32 / T tables that the prologue writes once, in the
+//     order the threads read them (six corner positions, 2 q + stress
+//     mask; pressure, tan(lat)/r at the corners), its stresses in slot
+//     order in shared memory as far as it goes and in s_out at its own
+//     cell past that; every vertex reads its three dual-sum positions,
+//     plane position and exception-target row from a table and its 12
+//     invariants from the inputs, whose id order is the threads'.
+// Ring <-> slot is done in the prologue and the epilogue only; the loop
+// neither recomputes a corner position nor scans a table.  The basis (180
+// values a column in f32 with metric) takes the shared memory the
+// stresses leave, for the block's first columns: all 311 columns a block
+// owns at N = 64 in f32 (223,920 B); the rest is read in place, each value
+// by 32 neighbouring columns at once.  (Streamed through shared memory by
+// each warp with cp.async instead, it measured slower: the warp issuing
+// the copies stalls on them and computes nothing meanwhile.)
 //
 // No ghost is ever stored.  A reader whose static offset lands on a seam
 // position (corner reads: the a = N row or b = 0 column of a panel; dual
@@ -42,17 +57,18 @@
 // repeats bitwise.  Data written during the launch is read with plain
 // loads after a grid barrier (never through the read-only path).
 //
-// What bounds it: the inputs read once take ~0.01 ms and the ~1,100 flops
-// per cell and subcycle ~0.08 ms at the f32 peak; what the design cannot
-// remove is 2 * n_sub + 1 grid barriers and, per subcycle, the partials
-// (24 values a column) and u, v through L2.  Measured on an H100 80GB
-// HBM3 at 700 W (chip_smoke.py): a co-resident grid of 132 blocks x 320
-// threads; 168 registers a thread, the most that 10 warps on the SM's 4
-// sub-partitions allow (a few hundred bytes of spills in f32, 1.3 KB in
-// f64); 223,920 B of dynamic shared memory a block in f32 (the basis of
-// all its 311 columns), 231,840 B in f64 (161 columns).  A subcycle takes
-// ~17.5 us: ~60% the blocks' cell work (latency-bound at 10 warps per SM),
-// ~1.5 us each bare grid barrier, the rest waiting for the slowest block.
+// What bounds it.  At N = 64 in f32 the ~1,100 flops per cell and subcycle
+// (~0.08 ms a call at the f32 peak), 2 * n_sub + 1 grid barriers and, per
+// subcycle, the partials (24 values a column) and u, v through L2:
+// measured ~15.5 us a subcycle on an H100 80GB HBM3 at 700 W (1.85 to
+// 1.86 ms a call of 120).  At N = 128 in f32 the basis streamed from device
+// memory every subcycle: 143,644 of the 163,840 columns, 103.4 MB, 31 us
+// at 3.35 TB/s against the operations' 2.75 us; measured ~72 us a
+// subcycle (8.6 ms a call), the cell phase (~60 us) reading that basis at
+// about 1.7 TB/s.  The table placement keeps shared memory to what leaves
+// the L1 kL1Keep more than its least, since the loads in flight land there
+// (measured: 8% slower with the whole budget); its in-place basis loads
+// carry the evict-first hint (`basis_load`, 1.3% faster).
 
 #include <algorithm>
 
@@ -67,8 +83,16 @@ namespace {
 constexpr int kExc = 12;                 // exception cells
 constexpr int kMe = 6;                   // ring size (max edges)
 constexpr int kExcItems = kExc * kMe;    // (ring slot j, cell e) -> j*12 + e
-constexpr int kThreads = 320;            // >= the 311 columns a block owns at N = 64
-constexpr int kVertRegs = 2;             // vertex positions a thread holds in registers
+constexpr int kRegThreads = 320;         // >= the 311 columns a block owns at N = 64
+// the table placement's blocks: as many threads as hold a column's
+// arithmetic in registers with few spills (f32: 96 registers; f64, whose
+// values take two registers each: 204), measured on an H100 (704 f32
+// threads spill and are 21% slower, 384 f64 threads 3%)
+template <typename T>
+constexpr int kTableThreads = sizeof(T) == 4 ? 640 : 320;
+constexpr int kVertRegs = 2;             // vertices a thread holds in registers
+constexpr int kL1Keep = 32 * 1024;       // table placement: L1 left beyond its least
+constexpr int kStress = 18;              // stresses a column
 
 // SM cycles per phase for one block, added by its thread 0 to
 // timer[blockIdx.x][p] (zeroed by the caller): mark(p, timer) ends phase p
@@ -92,7 +116,9 @@ struct LoopArgs {
   int N, npp, npc, nc, nv, metric, n_sub, n_tgt, tgt_k;
   int ncol;        // real panel cells (columns) = 10 N^2; the poles are exceptions
   int cpb;         // columns per block
-  int n_smem;      // columns per block whose basis is in shared memory
+  int n_res;       // columns per block whose basis stays in shared memory
+  int n_ss;        // table columns per block whose stresses are in shared memory
+  int tables;      // 1: the table placement (else registers)
   // inputs, real order
   const T* __restrict__ u_in;
   const T* __restrict__ v_in;
@@ -129,9 +155,14 @@ struct LoopArgs {
   T* part;         // [4, 6, npc]; zero at every column no thread writes
   T* exc_s;        // [2 (parity), 3, 6(g), 12] exception cells' stresses
   T* exc_c;        // [2 (u, v), 72] their divergence contributions
+  int* ctab_i;     // tables: [7, grid * cpb] six corner positions,
+                   // 2 q + stress mask (-1: none, or an exception cell)
+  T* ctab_t;       // tables: [1 + 6 metric, grid * cpb] pressure, tan(lat)/r
+  int* vtab;       // tables: [5, nv] three dual-sum positions, plane
+                   // position, exception-target row
   // outputs, real order
   T* uv_out;       // [2, nv]
-  T* s_out;        // [3, 6, nc]; also the stress store of overflow columns
+  T* s_out;        // [3, 6, nc]; tables: the stresses past n_ss, slot order
   long long* timer;  // [grid, 4] phase cycles (PhaseTimer), or null
   EvpParams<T> P;
 };
@@ -168,10 +199,9 @@ __device__ __forceinline__ T pick6(const T x[6], long long k)
   return r;
 }
 
-// Column c's fixed data and its stresses, ring -> slot.  Exception cells
-// (the 10 pentagons among the panel cells) get q = -1: the exception
-// threads carry them.  `from` is the caller's stresses or, for an overflow
-// column, s_out.
+// Column c's fixed data and its stresses from the caller's, ring -> slot
+// (the prologue).  Exception cells (the 10 pentagons among the panel cells)
+// get q = -1: the exception threads carry them.
 template <typename T>
 __device__ __forceinline__ void load_column(Column<T>& col, int c, const LoopArgs<T>& A,
                             const T* const from[3])
@@ -208,8 +238,7 @@ __device__ __forceinline__ void load_corner_tl(Column<T>& col, const LoopArgs<T>
     col.tl[k] = (A.metric && col.at[k] >= 0) ? pl_t[col.at[k]] : T(0);
 }
 
-// Stresses slot -> ring into s_out (the epilogue, and an overflow column's
-// store after each subcycle).
+// Stresses slot -> ring into s_out (the epilogue).
 template <typename T>
 __device__ __forceinline__ void store_column(const Column<T>& col, const LoopArgs<T>& A)
 {
@@ -224,7 +253,7 @@ __device__ __forceinline__ void store_column(const Column<T>& col, const LoopArg
 }
 
 // Cell phase of one column; basis value k at bg[k * stride] etc.
-template <typename T>
+template <typename T, bool kStream = false>
 __device__ __forceinline__ void column_step(Column<T>& col, const LoopArgs<T>& A,
                                             const T* bg, const T* bi, const T* bm,
                                             int stride)
@@ -238,7 +267,7 @@ __device__ __forceinline__ void column_step(Column<T>& col, const LoopArgs<T>& A
     vc[k] = col.at[k] >= 0 ? pl_v[col.at[k]] : T(0);
   }
   T pu[6], pv[6], mu[6], mv[6];
-  panel_cell_math<T>(uc, vc, col.tl, A.metric, bg, bi, bm, stride, col.press, col.ss,
+  panel_cell_math<T, kStream>(uc, vc, col.tl, A.metric, bg, bi, bm, stride, col.press, col.ss,
                      col.s11, col.s22, col.s12, pu, pv, mu, mv, A.P);
   const size_t n = A.npc;
   const int q = col.q;
@@ -253,10 +282,65 @@ __device__ __forceinline__ void column_step(Column<T>& col, const LoopArgs<T>& A
   }
 }
 
-// Vertex `id`'s fixed data; u, v from the caller (prologue) or from the
-// planes (an overflow vertex, every subcycle).
+// Table column g (= blockIdx.x * cpb + jl, real cell c): its fixed data
+// from the tables, its stresses in slot order from shared memory
+// (jl < n_ss) or s_out.
 template <typename T>
-__device__ __forceinline__ void load_vertex(Vertex<T>& vx, int id, const LoopArgs<T>& A, bool from_planes)
+__device__ __forceinline__ T* table_stresses(const LoopArgs<T>& A, T* ss_smem, int jl, int c,
+                                             size_t& stride)
+{
+  if (jl < A.n_ss) {
+    stride = A.n_ss;
+    return ss_smem + jl;
+  }
+  stride = A.nc;
+  return A.s_out + c;
+}
+
+template <typename T>
+__device__ __forceinline__ void load_table_column(Column<T>& col, const LoopArgs<T>& A,
+                                                  T* ss_smem, int jl, int c)
+{
+  const size_t n = (size_t)gridDim.x * A.cpb;
+  const size_t g = (size_t)blockIdx.x * A.cpb + jl;
+  const int qs = A.ctab_i[6 * n + g];
+  col.c = c;
+  col.q = qs < 0 ? -1 : qs >> 1;
+  if (qs < 0) return;
+  col.ss = (qs & 1) != 0;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) col.at[k] = A.ctab_i[k * n + g];
+  col.press = A.ctab_t[g];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) col.tl[k] = A.metric ? A.ctab_t[(1 + k) * n + g] : T(0);
+  size_t st;
+  const T* p = table_stresses(A, ss_smem, jl, c, st);
+#pragma unroll
+  for (int s = 0; s < 6; ++s) {
+    col.s11[s] = p[(0 * 6 + s) * st];
+    col.s22[s] = p[(1 * 6 + s) * st];
+    col.s12[s] = p[(2 * 6 + s) * st];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_table_stresses(const Column<T>& col, const LoopArgs<T>& A,
+                                                     T* ss_smem, int jl)
+{
+  if (col.q < 0) return;
+  size_t st;
+  T* p = table_stresses(A, ss_smem, jl, col.c, st);
+#pragma unroll
+  for (int s = 0; s < 6; ++s) {
+    p[(0 * 6 + s) * st] = col.s11[s];
+    p[(1 * 6 + s) * st] = col.s22[s];
+    p[(2 * 6 + s) * st] = col.s12[s];
+  }
+}
+
+// Vertex `id`'s fixed data and its u, v from the caller (the prologue).
+template <typename T>
+__device__ __forceinline__ void load_vertex(Vertex<T>& vx, int id, const LoopArgs<T>& A)
 {
   vx.id = id;
   vx.pos = -1;
@@ -265,13 +349,8 @@ __device__ __forceinline__ void load_vertex(Vertex<T>& vx, int id, const LoopArg
   vx.pos = pos;
 #pragma unroll
   for (int k = 0; k < 12; ++k) vx.inv[k] = A.inv[k][id];
-  if (from_planes) {
-    vx.u = A.planes[pos];
-    vx.v = A.planes[(size_t)2 * A.npp + pos];
-  } else {
-    vx.u = A.u_in[id];
-    vx.v = A.v_in[id];
-  }
+  vx.u = A.u_in[id];
+  vx.v = A.v_in[id];
   // Vertex (t; a, b) sums pu[slot] at (a + da, b + db) (variational_panel.py
   // DUAL_OFFSETS moved to the padded lattice):
   //   t=0: s0:(0,-1)  s1:(+1,-1)  s2:(0,0)    t=1: s3:(+1,-1)  s4:(0,0)  s5:(+1,0)
@@ -295,6 +374,23 @@ __device__ __forceinline__ void load_vertex(Vertex<T>& vx, int id, const LoopArg
   }
   vx.tgt = -1;
   for (int k = 0; k < A.n_tgt; ++k) if (A.tgt_pos[k] == pos) vx.tgt = k;
+}
+
+// Table vertex i: its fixed data from the table the prologue wrote, its
+// invariants from the inputs, u, v from the planes.
+template <typename T>
+__device__ __forceinline__ void load_table_vertex(Vertex<T>& vx, int i, const LoopArgs<T>& A)
+{
+  const size_t n = A.nv;
+  vx.id = i;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) vx.at[k] = A.vtab[k * n + i];
+  vx.pos = A.vtab[3 * n + i];
+  vx.tgt = A.vtab[4 * n + i];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) vx.inv[k] = A.inv[k][i];
+  vx.u = A.planes[vx.pos];
+  vx.v = A.planes[(size_t)2 * A.npp + vx.pos];
 }
 
 template <typename T>
@@ -440,54 +536,68 @@ __device__ __forceinline__ void exception_step(int x, int k, const LoopArgs<T>& 
   A.exc_c[kExcItems + x] = cv * mk_j;
 }
 
-template <typename T>
+template <typename T, int kThreads, bool kTables>
 __global__ void __launch_bounds__(kThreads, 1) panel_loop_kernel(LoopArgs<T> A)
 {
   extern __shared__ __align__(16) unsigned char k3_smem[];
-  T* bs = reinterpret_cast<T*>(k3_smem);   // [nk][n_smem] basis of the block's columns
+  const int nk = A.metric ? 180 : 144;
+  T* const res = reinterpret_cast<T*>(k3_smem);   // [nk][n_res] the first columns' basis
+  T* const ss_smem = res + (size_t)nk * A.n_res;  // [18][n_ss] table columns' stresses
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int nthreads = gridDim.x * kThreads;
   const int gtid = blockIdx.x * kThreads + tid;
   const int c0 = blockIdx.x * A.cpb;                        // first column of the block
   const int ncb = max(0, min(A.cpb, A.ncol - c0));          // columns of the block
-  const int ns = A.n_smem;
-  const int nk = A.metric ? 180 : 144;
   const int exc_x = (blockIdx.x == gridDim.x - 1) ? tid - (kThreads - kExcItems) : -1;
-  const int half = A.nv / 2;    // visit the even vertex ids (plane t = 0), then the odd
+  const size_t n_tab = (size_t)gridDim.x * A.cpb;           // table columns, all blocks
+  const int half = A.nv / 2;    // register vertices: the even ids (plane t = 0), then odd
 
   // ---- prologue ----
-  for (int jl = tid; jl < min(ns, ncb); jl += kThreads) {
+  for (int jl = tid; jl < min(A.n_res, ncb); jl += kThreads) {
     const long long q = A.cell_pad[c0 + jl];
     for (int k = 0; k < nk; ++k) {
       const T* src = k < 72 ? A.bgrad + (size_t)k * A.npc
                    : k < 144 ? A.bint + (size_t)(k - 72) * A.npc
                    : A.bmet + (size_t)(k - 144) * A.npc;
-      bs[k * ns + jl] = src[q];
+      res[k * A.n_res + jl] = src[q];
     }
   }
   const T* const s_in[3] = {A.s_in[0], A.s_in[1], A.s_in[2]};
-  const T* const s_out[3] = {A.s_out, A.s_out + (size_t)6 * A.nc,
-                             A.s_out + (size_t)12 * A.nc};
   Column<T> col;
-  load_column(col, tid < ncb ? c0 + tid : -1, A, s_in);
-  for (int jl = tid + kThreads; jl < ncb; jl += kThreads) {   // overflow columns
-    Column<T> o;
-    load_column(o, c0 + jl, A, s_in);
-    store_column(o, A);
-  }
   Vertex<T> vx[kVertRegs];
+  if constexpr (!kTables) {
+    load_column(col, tid < ncb ? c0 + tid : -1, A, s_in);
 #pragma unroll
-  for (int m = 0; m < kVertRegs; ++m) {
-    const int i = gtid + m * nthreads;
-    load_vertex(vx[m], i < A.nv ? 2 * (i % half) + i / half : -1, A, false);
+    for (int r = 0; r < kVertRegs; ++r) {
+      const int i = gtid + r * nthreads;
+      load_vertex(vx[r], i < A.nv ? 2 * (i % half) + i / half : -1, A);
+    }
+  } else {
+    for (int jl = tid; jl < ncb; jl += kThreads) {
+      Column<T> o;
+      load_column(o, c0 + jl, A, s_in);
+      const size_t g = (size_t)blockIdx.x * A.cpb + jl;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) A.ctab_i[k * n_tab + g] = o.q >= 0 ? o.at[k] : -1;
+      A.ctab_i[6 * n_tab + g] = o.q >= 0 ? 2 * o.q + (o.ss ? 1 : 0) : -1;
+      A.ctab_t[g] = o.q >= 0 ? o.press : T(0);
+      store_table_stresses(o, A, ss_smem, jl);
+    }
+    for (int i = gtid; i < A.nv; i += nthreads) {
+      Vertex<T> o;
+      load_vertex(o, i, A);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) A.vtab[(size_t)k * A.nv + i] = o.at[k];
+      A.vtab[(size_t)3 * A.nv + i] = o.pos;
+      A.vtab[(size_t)4 * A.nv + i] = o.tgt;
+    }
   }
-  for (int i = gtid; i < A.nv; i += nthreads) {   // every owned vertex: the planes
-    const int id = 2 * (i % half) + i / half;
-    const int pos = (int)A.real_pos[id];
-    A.planes[pos] = A.u_in[id];
-    A.planes[(size_t)2 * A.npp + pos] = A.v_in[id];
-    A.planes[(size_t)4 * A.npp + pos] = A.inv[11][id];
+  for (int i = gtid; i < A.nv; i += nthreads) {   // every vertex: the planes
+    const int pos = (int)A.real_pos[i];
+    A.planes[pos] = A.u_in[i];
+    A.planes[(size_t)2 * A.npp + pos] = A.v_in[i];
+    A.planes[(size_t)4 * A.npp + pos] = A.inv[11][i];
   }
   if (exc_x >= 0) {
     const int e = exc_x % kExc, j = exc_x / kExc;
@@ -497,11 +607,20 @@ __global__ void __launch_bounds__(kThreads, 1) panel_loop_kernel(LoopArgs<T> A)
       A.exc_s[f * kExcItems + exc_x] = s_in[f][(size_t)j * A.nc + c];
   }
   grid.sync();
-  if (col.q >= 0) load_corner_tl(col, A);
+  if constexpr (!kTables) {
+    if (col.q >= 0) load_corner_tl(col, A);
+  } else if (A.metric) {                 // the table columns' tan(lat)/r at the corners
+    const T* pl_t = A.planes + (size_t)4 * A.npp;
+    for (int jl = tid; jl < ncb; jl += kThreads) {
+      const size_t g = (size_t)blockIdx.x * A.cpb + jl;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        const int at = A.ctab_i[k * n_tab + g];
+        A.ctab_t[(1 + k) * n_tab + g] = at >= 0 ? pl_t[at] : T(0);
+      }
+    }
+  }
 
-  const T* bg_s = bs + tid;
-  const T* bi_s = bs + 72 * ns + tid;
-  const T* bm_s = bs + 144 * ns + tid;
   // optional phase timer (A.timer non-null): thread 0 of each block sums
   // the SM cycles of its block's cell work, its wait at the first barrier,
   // its vertex work and its wait at the second, each behind a block barrier
@@ -510,32 +629,41 @@ __global__ void __launch_bounds__(kThreads, 1) panel_loop_kernel(LoopArgs<T> A)
     timer.mark(-1, A.timer);
     // ---- cell phase ----
     if (exc_x >= 0) exception_step(exc_x, k, A);
-    if (col.q >= 0) {
-      if (tid < ns) column_step(col, A, bg_s, bi_s, bm_s, ns);
-      else column_step(col, A, A.bgrad + col.q, A.bint + col.q, A.bmet + col.q, A.npc);
-    }
-    for (int jl = tid + kThreads; jl < ncb; jl += kThreads) {
-      Column<T> o;
-      load_column(o, c0 + jl, A, s_out);
-      if (o.q < 0) continue;
-      load_corner_tl(o, A);
-      if (jl < ns)
-        column_step(o, A, bs + jl, bs + 72 * ns + jl, bs + 144 * ns + jl, ns);
-      else
-        column_step(o, A, A.bgrad + o.q, A.bint + o.q, A.bmet + o.q, A.npc);
-      store_column(o, A);
+    if constexpr (!kTables) {
+      if (col.q >= 0) {
+        if (tid < A.n_res)
+          column_step(col, A, res + tid, res + 72 * A.n_res + tid, res + 144 * A.n_res + tid,
+                      A.n_res);
+        else
+          column_step(col, A, A.bgrad + col.q, A.bint + col.q, A.bmet + col.q, A.npc);
+      }
+    } else {
+      for (int jl = tid; jl < ncb; jl += kThreads) {
+        Column<T> o;
+        load_table_column(o, A, ss_smem, jl, c0 + jl);
+        if (o.q < 0) continue;
+        if (jl < A.n_res)
+          column_step(o, A, res + jl, res + 72 * A.n_res + jl, res + 144 * A.n_res + jl,
+                      A.n_res);
+        else
+          column_step<T, true>(o, A, A.bgrad + o.q, A.bint + o.q, A.bmet + o.q, A.npc);
+        store_table_stresses(o, A, ss_smem, jl);
+      }
     }
     timer.mark(0, A.timer);
     grid.sync();
     timer.mark(1, A.timer);
     // ---- vertex phase ----
+    if constexpr (!kTables) {
 #pragma unroll
-    for (int m = 0; m < kVertRegs; ++m)
-      if (vx[m].pos >= 0) vertex_step(vx[m], A);
-    for (int i = gtid + kVertRegs * nthreads; i < A.nv; i += nthreads) {
-      Vertex<T> o;
-      load_vertex(o, 2 * (i % half) + i / half, A, true);
-      vertex_step(o, A);
+      for (int r = 0; r < kVertRegs; ++r)
+        if (vx[r].pos >= 0) vertex_step(vx[r], A);
+    } else {
+      for (int i = gtid; i < A.nv; i += nthreads) {
+        Vertex<T> o;
+        load_table_vertex(o, i, A);
+        vertex_step(o, A);
+      }
     }
     timer.mark(2, A.timer);
     grid.sync();
@@ -543,18 +671,25 @@ __global__ void __launch_bounds__(kThreads, 1) panel_loop_kernel(LoopArgs<T> A)
   }
 
   // ---- epilogue ----
-  store_column(col, A);
+  if constexpr (!kTables) {
+    store_column(col, A);
 #pragma unroll
-  for (int m = 0; m < kVertRegs; ++m)
-    if (vx[m].pos >= 0) {
-      A.uv_out[vx[m].id] = vx[m].u;
-      A.uv_out[(size_t)A.nv + vx[m].id] = vx[m].v;
+    for (int r = 0; r < kVertRegs; ++r)
+      if (vx[r].pos >= 0) {
+        A.uv_out[vx[r].id] = vx[r].u;
+        A.uv_out[(size_t)A.nv + vx[r].id] = vx[r].v;
+      }
+  } else {
+    for (int jl = tid; jl < ncb; jl += kThreads) {   // slot -> ring into s_out
+      Column<T> o;
+      load_table_column(o, A, ss_smem, jl, c0 + jl);
+      store_column(o, A);
     }
-  for (int i = gtid + kVertRegs * nthreads; i < A.nv; i += nthreads) {
-    const int id = 2 * (i % half) + i / half;
-    const int pos = (int)A.real_pos[id];
-    A.uv_out[id] = A.planes[pos];
-    A.uv_out[(size_t)A.nv + id] = A.planes[(size_t)2 * A.npp + pos];
+    for (int i = gtid; i < A.nv; i += nthreads) {
+      const int pos = A.vtab[(size_t)3 * A.nv + i];
+      A.uv_out[i] = A.planes[pos];
+      A.uv_out[(size_t)A.nv + i] = A.planes[(size_t)2 * A.npp + pos];
+    }
   }
   if (exc_x >= 0) {
     const int e = exc_x % kExc, j = exc_x / kExc;
@@ -566,9 +701,90 @@ __global__ void __launch_bounds__(kThreads, 1) panel_loop_kernel(LoopArgs<T> A)
   }
 }
 
-// Sizes the grid and the shared-memory basis, then launches.  info[0..5]:
-// launches, grid, threads per block, dynamic shared memory bytes per block,
-// columns per block, columns per block with the basis in shared memory.
+// The co-resident grid of one placement: blocks per SM at the whole
+// shared-memory budget (one on an H100) times the SM count, cut to a
+// warp's worth of columns per block on small meshes.
+template <typename K>
+int coresident_grid(K kernel, int threads, int budget, int sms, int ncol, int* grid)
+{
+  cudaError_t err;
+  int per_sm = 0;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  budget)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                           (size_t)budget)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  *grid = std::min(per_sm * sms, std::max(1, (ncol + 31) / 32));
+  return 0;
+}
+
+// Where the loop state lives (see the header), from the shapes, the SM
+// count and the opt-in shared-memory budget.  Registers where a block's
+// columns and vertices fit one column and kVertRegs vertices a thread;
+// then the basis of the block's first columns takes the shared memory.
+// Else tables; then the columns' stresses take the shared memory first
+// (72 B read and 72 B written a subcycle for 72 B of shared memory, twice
+// what their basis saves a byte: 720 B read for 720 B), the basis of the
+// first columns what is left.  info[1..7]: grid, threads per block,
+// dynamic shared memory bytes per block, columns per block, resident-basis
+// columns per block, table columns per block whose stresses are in shared
+// memory, 1 for the table placement.
+template <typename T>
+int plan_loop(LoopArgs<T>& A, int* info)
+{
+  cudaError_t err;
+  int dev = 0, sms = 0, budget = 0, grid = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaDeviceGetAttribute(&budget, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return (int)err;
+  int e = coresident_grid(panel_loop_kernel<T, kRegThreads, false>, kRegThreads, budget, sms,
+                          A.ncol, &grid);
+  if (e != 0) return e;
+  A.cpb = (A.ncol + grid - 1) / grid;
+  A.tables = A.cpb > kRegThreads || A.nv > kVertRegs * kRegThreads * grid;
+  if (A.tables) {
+    e = coresident_grid(panel_loop_kernel<T, kTableThreads<T>, true>, kTableThreads<T>, budget, sms,
+                        A.ncol, &grid);
+    if (e != 0) return e;
+    A.cpb = (A.ncol + grid - 1) / grid;
+  }
+  const size_t per_col = (size_t)(A.metric ? 180 : 144) * sizeof(T);
+  const size_t per_ss = (size_t)kStress * sizeof(T);
+  const size_t B = (size_t)budget;
+  size_t room = B;
+  A.n_ss = 0;
+  if (A.tables) {
+    // the stresses first; the resident basis only as far as the L1 keeps
+    // kL1Keep more than its least (the streamed loads land there)
+    int per_sm = 0, reserved = 0;
+    if ((err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                      dev)) != cudaSuccess)
+      return (int)err;
+    if ((err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock,
+                                      dev)) != cudaSuccess)
+      return (int)err;
+    A.n_ss = (int)std::min<size_t>(A.cpb, B / per_ss);
+    const size_t cap = (size_t)std::max(0, per_sm - reserved - kL1Keep);
+    room = std::min(B, std::max(cap, A.n_ss * per_ss));
+  }
+  A.n_res = (int)std::min<size_t>(A.cpb, (room - A.n_ss * per_ss) / per_col);
+  info[1] = grid;
+  info[2] = A.tables ? kTableThreads<T> : kRegThreads;
+  info[3] = (int)(A.n_res * per_col + A.n_ss * per_ss);
+  info[4] = A.cpb;
+  info[5] = A.n_res;
+  info[6] = A.n_ss;
+  info[7] = A.tables;
+  return 0;
+}
+
+// Plans (plan_loop), then launches; with ptrs null it only plans.  info[0]:
+// launches made.
 template <typename T>
 int run_loop(const int* ints, const void* const* ptrs, const double* reals,
              void* stream_v, int* info)
@@ -588,6 +804,8 @@ int run_loop(const int* ints, const void* const* ptrs, const double* reals,
   info[0] = 0;
   if (A.N < 1 || A.n_sub < 0 || (A.n_tgt > 0 && A.tgt_k <= 0))
     return (int)cudaErrorInvalidValue;
+  const int planned = plan_loop(A, info);
+  if (planned != 0 || ptrs == nullptr) return planned;
   int i = 0;
   A.u_in = (const T*)ptrs[i++];
   A.v_in = (const T*)ptrs[i++];
@@ -619,52 +837,28 @@ int run_loop(const int* ints, const void* const* ptrs, const double* reals,
   A.part = (T*)ptrs[i++];
   A.exc_s = (T*)ptrs[i++];
   A.exc_c = (T*)ptrs[i++];
+  A.ctab_t = (T*)ptrs[i++];
+  A.ctab_i = (int*)ptrs[i++];
+  A.vtab = (int*)ptrs[i++];
   A.uv_out = (T*)ptrs[i++];
   A.s_out = (T*)ptrs[i++];
   A.timer = (long long*)ptrs[i++];
   A.P = make_params<T>(reals[0], reals[1], reals[2], reals[3], reals[4], reals[5],
                        reals[6]);
 
-  cudaError_t err;
-  int dev = 0, sms = 0, budget = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaDeviceGetAttribute(&budget, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
-      cudaSuccess)
-    return (int)err;
-  auto kernel = panel_loop_kernel<T>;
-  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  budget)) != cudaSuccess)
-    return (int)err;
-  // blocks per SM at the whole budget (one on an H100): the grid is what is
-  // co-resident, cut to a warp's worth of columns per block on small meshes
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                           (size_t)budget)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int grid = std::min(per_sm * sms, std::max(1, (A.ncol + 31) / 32));
-  A.cpb = (A.ncol + grid - 1) / grid;
-  const int per_col = (A.metric ? 180 : 144) * (int)sizeof(T);
-  A.n_smem = std::min(A.cpb, budget / per_col);
-  const size_t smem = (size_t)A.n_smem * per_col;
-  info[1] = grid;
-  info[2] = kThreads;
-  info[3] = (int)smem;
-  info[4] = A.cpb;
-  info[5] = A.n_smem;
-
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3(info[1]);
+  cfg.blockDim = dim3(info[2]);
+  cfg.dynamicSmemBytes = (size_t)info[3];
   cfg.stream = (cudaStream_t)stream_v;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, A);
+  cudaError_t err = A.tables
+      ? cudaLaunchKernelEx(&cfg, panel_loop_kernel<T, kTableThreads<T>, true>, A)
+      : cudaLaunchKernelEx(&cfg, panel_loop_kernel<T, kRegThreads, false>, A);
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -674,13 +868,14 @@ int run_loop(const int* ints, const void* const* ptrs, const double* reals,
 
 }  // namespace
 
-// ints: N, n_sub, metric, n_tgt, tgt_k.  ptrs: the 46 pointers in the order
+// ints: N, n_sub, metric, n_tgt, tgt_k.  ptrs: the 49 pointers in the order
 // of run_loop (cuda_panel_fused.py::_bind builds the list; the last, the
-// phase timer, may be null).  reals: dte,
-// damping, ecc2, puny, cos w, sin w, drag.  The inputs are not written; the
-// scratch needs zeros at the columns no thread writes (the caller zeroes it
-// once); uv_out [2, nv] and s_out [3, 6, nc] receive the result.  Returns
-// the first CUDA error (0 = none); info as run_loop says.
+// phase timer, may be null), or null to plan only (info[1..7], no launch).
+// reals: dte, damping, ecc2, puny, cos w, sin w, drag.  The inputs are not
+// written; the scratch needs zeros at the columns no thread writes (the
+// caller zeroes it once; the kernel fills the tables itself); uv_out
+// [2, nv] and s_out [3, 6, nc] receive the result.  Returns the first CUDA
+// error (0 = none); info as plan_loop and run_loop say.
 extern "C" int evp_panel_loop_f32(const int* ints, const void* const* ptrs,
                                   const double* reals, void* stream, int* info)
 {

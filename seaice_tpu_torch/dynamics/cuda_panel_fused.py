@@ -13,27 +13,34 @@ ring-indexed side path -> ocean drag -> 2x2 momentum solve (reference
 
 The CUDA source is `csrc/evp_panel_fused.cu`: ONE cooperative launch per
 call, its grid what is co-resident on the card (the occupancy query at the
-shared-memory budget times the SM count: one block of 320 threads per SM
-on an H100).  Each block owns a fixed run of cell columns and fixed vertex
-positions for the whole loop: their state in registers, the columns' basis
-in shared memory as far as the budget goes (all of it at N = 64 in f32),
-and a grid-wide barrier after the cell phase and after the vertex phase of
-every subcycle.  The kernel gathers the real-order inputs itself in a
-prologue and scatters the results in an epilogue (through `cell_pad_idx`,
+shared-memory budget times the SM count: one block per SM on an H100).
+Each block owns a fixed run of cell columns and fixed vertices for the
+whole loop, with a grid-wide barrier after the cell phase and after the
+vertex phase of every subcycle.  Where their state lives follows from N,
+the dtype, the metric terms, the SM count and the opt-in shared-memory
+budget (the C side's `plan_loop`; `launch_shape` reports it): one column
+and two vertices a thread in registers, 320 threads a block, where they
+fit (N = 64); else blocks of 640 threads (320 in f64) with every
+column's and vertex's fixed data in tables the kernel's prologue writes,
+the columns' stresses in shared memory as far as it goes (N = 128: all of
+them) and in `s_out` past that.  The basis of a block's first columns takes the shared memory
+left (N = 64 in f32: all of it); the rest is read from device memory every
+subcycle.  The kernel gathers the real-order inputs itself in a prologue
+and scatters the results in an epilogue (through `cell_pad_idx`,
 `ring_of_slot`, `slot_of_ring_a` and `k_real_pos`), so the wrapper only
-checks, allocates the two outputs and launches.  Its scratch (vertex
-planes, partials, the exception cells' buffers) is allocated and zeroed
-once per (N, dtype, device): the kernel writes only the positions it
-reads.  No seam ghost is stored: a reader whose static offset lands on a
-seam position takes the real position from the edge tables of
+checks, plans, allocates the two outputs and launches.  Its scratch
+(vertex planes, partials, the exception cells' buffers, the tables) is
+allocated and zeroed once per shape: the kernel writes only the positions
+it reads.  No seam ghost is stored: a reader whose static offset lands on
+a seam position takes the real position from the edge tables of
 `variational_panel.kernel_index_lists`, once, in the prologue.  The strip
 schedule of the JAX package (`panel_strips.py`) exists because its kernel
 cannot gather, and is not needed here.
 
-Its bound on an H100 (`evp_panel_loop_work`): the inputs read once take
-about 0.01 ms and the ~1,100 flops per cell and subcycle about 0.08 ms at
-the f32 peak.  What the design cannot remove is the 2 * n_subcycles + 1
-grid barriers and, per subcycle, the partials and u, v through L2;
+Its bound on an H100 (`evp_panel_loop_work`): the ~1,100 flops per cell
+and subcycle, 0.08 ms a call at the f32 peak at N = 64 and 0.33 ms at
+N = 128.  At N = 128 the basis streamed from device memory every subcycle
+(`launch_shape`'s `streamed_basis_bytes_per_subcycle`) is what bounds it.
 `chip_smoke.py` reports the kernel's time beside its bound.  A refused
 cooperative launch raises; there is no per-subcycle fallback.
 
@@ -52,10 +59,12 @@ CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import constants as c
+from ..diagnostics import RECORDER
 from . import constitutive
 from .cuda_unstructured import _check
 from .momentum import momentum_update
@@ -149,33 +158,63 @@ def check_panel_tensors(pt: PanelTensors, N: int, dt, dev):
 _scratch = {}
 
 
-def loop_scratch(N: int, dtype, device):
-    """The kernel's scratch for panel size N: vertex planes [3, 2, npp],
-    partials [4, 6, npc], the exception cells' stresses [2, 3, 6, 12] and
-    contributions [2, 72], zeroed once and reused by every call on the
-    same (N, dtype, device).  The kernel writes only the positions it
-    reads, so the zeros elsewhere (pad columns of the partials) hold."""
-    key = (N, dtype, str(device))
+def loop_scratch(N: int, metric: bool, dtype, device, info):
+    """The kernel's scratch for panel size N and the plan `info`
+    (`plan_loop`): vertex planes [3, 2, npp], partials [4, 6, npc], the
+    exception cells' stresses [2, 3, 6, 12] and contributions [2, 72]; in
+    the table placement the columns' values [1 + 6 metric, grid * cpb] and,
+    int32, their corner positions and columns [7, grid * cpb] and the
+    vertices' table [5, nv].  Zeroed once and reused by every call with
+    the same shapes: the kernel writes only the positions it reads, so the
+    zeros elsewhere (pad columns of the partials) hold."""
+    grid, cpb, tables = int(info[1]), int(info[4]), bool(info[7])
+    n_tab = grid * cpb if tables else 0
+    n_vt = 20 * N * N if tables else 0
+    key = (N, bool(metric), dtype, str(device), n_tab, n_vt)
     if key not in _scratch:
         npp = 10 * (N + 1) ** 2
         npc = npp + 2
-        sizes = (3 * 2 * npp, 4 * 6 * npc, 2 * 3 * 72, 2 * 72)
+        sizes = (3 * 2 * npp, 4 * 6 * npc, 2 * 3 * 72, 2 * 72,
+                 (7 if metric else 1) * n_tab)
         flat = torch.zeros(sum(sizes), dtype=dtype, device=device)
-        _scratch[key] = torch.split(flat, sizes)
+        isizes = (7 * n_tab, 5 * n_vt)
+        iflat = torch.zeros(sum(isizes), dtype=torch.int32, device=device)
+        _scratch[key] = torch.split(flat, sizes) + torch.split(iflat, isizes)
     return _scratch[key]
 
 
-def launch_shape(info, N: int):
-    """What the last launch was: grid, threads per block, dynamic shared
-    memory per block, columns per block, and the share of the basis held
-    in shared memory."""
-    grid, threads, smem, cpb, ns = (int(x) for x in info[1:6])
+@functools.lru_cache(maxsize=64)
+def launch_shape(info, N: int, metric: bool, itemsize: int):
+    """What a launch with plan `info` (a tuple, `plan_loop`) was: grid,
+    threads per block, dynamic shared memory per block, columns per block,
+    the placement ("registers" or "tables"), resident-basis columns and
+    shared-memory stress columns per block; the shares of the 10 N^2
+    columns whose basis stays in shared memory (`basis_share_in_smem`) or
+    is streamed from device memory every subcycle
+    (`basis_share_streamed`), and whose stresses stay on chip (registers
+    or shared memory); and the basis bytes streamed a subcycle (the
+    exception cells among the columns included)."""
+    grid, threads, smem, cpb, n_res, n_ss, tables = (
+        int(x) for x in info[1:8])
     ncol = 10 * N * N
-    in_smem = sum(min(ns, max(0, min(cpb, ncol - b * cpb)))
-                  for b in range(grid))
+    resident = on_chip = 0
+    for b in range(grid):
+        ncb = max(0, min(cpb, ncol - b * cpb))
+        resident += min(n_res, ncb)
+        on_chip += min(n_ss, ncb) if tables else ncb
+    streamed = ncol - resident
+    nk = 180 if metric else 144
     return {"grid": grid, "threads": threads, "smem_bytes": smem,
-            "columns_per_block": cpb, "smem_columns_per_block": ns,
-            "basis_share_in_smem": in_smem / ncol}
+            "columns_per_block": cpb,
+            "placement": "tables" if tables else "registers",
+            "smem_columns_per_block": n_res,
+            "smem_stress_columns_per_block": n_ss,
+            "basis_share_in_smem": resident / ncol,
+            "basis_share_streamed": streamed / ncol,
+            "stress_share_on_chip": on_chip / ncol,
+            "streamed_basis_columns": streamed,
+            "on_chip_stress_columns": on_chip,
+            "streamed_basis_bytes_per_subcycle": streamed * nk * itemsize}
 
 
 def evp_panel_loop(pt: PanelTensors, u, v, s11T, s22T, s12T, pressure,
@@ -197,7 +236,10 @@ def evp_panel_loop(pt: PanelTensors, u, v, s11T, s22T, s12T, pressure,
     `evp_panel_loop.launches`; `evp_panel_loop.inner_launches`
     accumulates the kernel launches made inside those calls (one each),
     and `evp_panel_loop.last_launch` says how the last one was shaped
-    (`launch_shape`).
+    (`launch_shape`).  Each launch adds to the counters
+    `velocity.k3_streamed_basis_bytes` (the basis bytes it streamed over
+    its subcycles), `velocity.k3_streamed_basis_columns` and
+    `velocity.k3_on_chip_stress_columns` of `diagnostics.RECORDER`.
     """
     kw = dict(dt_elastic=dt_elastic, damping_timescale=damping_timescale,
               n_subcycles=n_subcycles, include_metric=include_metric)
@@ -222,7 +264,17 @@ def _launch(*args, **kw):
         raise RuntimeError(f"evp_panel_loop: CUDA error {err} (a refused "
                            "cooperative launch is not retried)")
     _COUNTS.launches += 1
-    _COUNTS.last_launch = launch_shape(info, panel_n_of(args[0]))
+    metric = bool(kw["include_metric"])
+    shape = launch_shape(tuple(info), panel_n_of(args[0]), metric,
+                         args[1].element_size())
+    _COUNTS.last_launch = shape
+    RECORDER.count("velocity.k3_streamed_basis_bytes",
+                   shape["streamed_basis_bytes_per_subcycle"]
+                   * int(kw["n_subcycles"]))
+    RECORDER.count("velocity.k3_streamed_basis_columns",
+                   shape["streamed_basis_columns"])
+    RECORDER.count("velocity.k3_on_chip_stress_columns",
+                   shape["on_chip_stress_columns"])
     return outputs
 
 
@@ -279,6 +331,20 @@ def _bind(pt, u, v, s11T, s22T, s12T, pressure, solve_stress, uo_v, vo_v,
              torch.int32)):
         _check(name, x, shape, t, dev)
 
+    ints = (ctypes.c_int * 5)(N, int(n_subcycles), int(bool(include_metric)),
+                              n_t, k_t)
+    reals = (ctypes.c_double * 7)(
+        float(dt_elastic), float(damping_timescale),
+        float(c.EVP_ECCENTRICITY_SQ), float(c.PUNY),
+        float(c.COS_OCEAN_TURNING_ANGLE), float(c.SIN_OCEAN_TURNING_ANGLE),
+        float(c.ICE_OCEAN_DRAG * c.DENSITY_SEAWATER))
+    info = (ctypes.c_int * 8)()
+    fn = _c_function(dt)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ints, None, reals, None, info)     # the plan alone
+    if err != 0:
+        raise RuntimeError(f"evp_panel_loop: CUDA error {err} while planning")
     uv = torch.empty((2, nv), dtype=dt, device=dev)
     s_out = torch.empty((3, 6, nc), dtype=dt, device=dev)
     ptrs = [x.data_ptr() for x in (
@@ -293,20 +359,10 @@ def _bind(pt, u, v, s11T, s22T, s12T, pressure, solve_stress, uo_v, vo_v,
         pt.exc_real, pt.k_plane_row_pos, pt.k_plane_col_pos, pt.k_pu_row_src,
         pt.k_pu_col_src, pt.k_exc_vpos, pt.k_exc_tgt_pos, pt.k_exc_tgt_items,
         pt.exc_mask, pt.exc_basis_grad, pt.exc_basis_int,
-        pt.exc_basis_metric, *loop_scratch(N, dt, dev), uv, s_out)] + [
+        pt.exc_basis_metric,
+        *loop_scratch(N, include_metric, dt, dev, info), uv, s_out)] + [
         None if phase_timer is None else phase_timer.data_ptr()]
-    ints = (ctypes.c_int * 5)(N, int(n_subcycles), int(bool(include_metric)),
-                              n_t, k_t)
-    reals = (ctypes.c_double * 7)(
-        float(dt_elastic), float(damping_timescale),
-        float(c.EVP_ECCENTRICITY_SQ), float(c.PUNY),
-        float(c.COS_OCEAN_TURNING_ANGLE), float(c.SIN_OCEAN_TURNING_ANGLE),
-        float(c.ICE_OCEAN_DRAG * c.DENSITY_SEAWATER))
-    info = (ctypes.c_int * 6)()
-    fn = _c_function(dt)
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
 
     def call():
         return fn(ints, c_ptrs, reals, stream, info), info

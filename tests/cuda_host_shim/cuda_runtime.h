@@ -18,7 +18,8 @@
 //     after another.
 //   * The device queries report a small card: $SHIM_SMS multiprocessors
 //     (3 if unset), one co-resident block each, and $SHIM_SMEM_OPTIN bytes
-//     (kShimSmemOptin if unset) of shared memory per block, so that a small
+//     (kShimSmemOptin if unset) of shared memory per block (1 KB more per
+//     multiprocessor, 1 KB of it reserved, as on an H100), so that a small
 //     mesh already exercises both sides of a kernel's shared-memory budget
 //     and, on one multiprocessor, blocks that own more columns than threads.
 //   * As on a card, a `<<<>>>` launch may take more dynamic shared memory
@@ -63,6 +64,8 @@ inline thread_local unsigned char* shim_dyn_smem = nullptr;
 inline std::barrier<>* shim_grid_barrier = nullptr;
 
 inline void __syncthreads() { shim_block_barrier->arrive_and_wait(); }
+// a load with a cache hint is a load
+template <class T> inline T __ldcs(const T* p) { return *p; }
 inline long long clock64() { return 0; }
 // every lane of the warp must arrive, as the kernels here use it
 inline void __syncwarp(unsigned = 0xffffffffu) { shim_warp_barrier->arrive_and_wait(); }
@@ -95,7 +98,9 @@ inline std::map<const void*, int> shim_smem_allowed;
 enum cudaDeviceAttr {
   cudaDevAttrMaxSharedMemoryPerBlock = 8,
   cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrMaxSharedMemoryPerMultiprocessor = 81,
   cudaDevAttrMaxSharedMemoryPerBlockOptin = 97,
+  cudaDevAttrReservedSharedMemoryPerBlock = 111,
 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 enum cudaLaunchAttributeID { cudaLaunchAttributeCooperative = 2 };
@@ -104,6 +109,8 @@ inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
   *v = a == cudaDevAttrMultiProcessorCount ? shim_sms()
        : a == cudaDevAttrMaxSharedMemoryPerBlock ? shim_smem_default()
+       : a == cudaDevAttrReservedSharedMemoryPerBlock ? 1024
+       : a == cudaDevAttrMaxSharedMemoryPerMultiprocessor ? shim_smem_optin() + 1024
        : shim_smem_optin();
   return cudaSuccess;
 }

@@ -28,6 +28,7 @@ import torch
 
 import seaice_tpu_torch.mesh as tmesh
 from seaice_tpu_torch import config as tconfig
+from seaice_tpu_torch.diagnostics import RECORDER
 from seaice_tpu_torch.dynamics import (cuda_panel, cuda_panel_fused,
                                        cuda_raster, cuda_unstructured)
 from seaice_tpu_torch.dynamics import evp as tevp
@@ -184,12 +185,28 @@ def _panel_loop_on_host(mesh, dyn, metric, dtype, seed):
     before = [a.clone() for a in args]
     k3 = cuda_panel_fused.evp_panel_loop
     n0 = (k3.launches, k3.inner_launches)
+    c0 = dict(RECORDER.counters)
     got = cuda_panel_fused._launch(dyn.panel, *args, **kw)
     _assert_close(got, want, dtype, "K3")
     assert (k3.launches, k3.inner_launches) == (n0[0] + 1, n0[1] + 1)
     for a, b in zip(args, before):
         assert torch.equal(a, b)
-    return args, kw, got, k3.last_launch
+    # the launch's placement, counted once in the recorder
+    shape = k3.last_launch
+    added = {k: RECORDER.counters.get(k, 0) - c0.get(k, 0) for k in (
+        "velocity.k3_streamed_basis_bytes",
+        "velocity.k3_streamed_basis_columns",
+        "velocity.k3_on_chip_stress_columns")}
+    assert added == {
+        "velocity.k3_streamed_basis_bytes":
+            shape["streamed_basis_bytes_per_subcycle"] * kw["n_subcycles"],
+        "velocity.k3_streamed_basis_columns": shape["streamed_basis_columns"],
+        "velocity.k3_on_chip_stress_columns": shape["on_chip_stress_columns"]}
+    ncol = mesh.n_cells - 2
+    assert shape["streamed_basis_columns"] == round(
+        shape["basis_share_streamed"] * ncol)
+    assert "velocity.k3_on_chip_stress_columns" in RECORDER.report()
+    return args, kw, got, shape
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
@@ -198,9 +215,10 @@ def _panel_loop_on_host(mesh, dyn, metric, dtype, seed):
 def test_panel_loop_source_matches_plain(on_host, metric, dtype):
     mesh, _, dyn = _panel_problem(metric, dtype)
     args, kw, got, shape = _panel_loop_on_host(mesh, dyn, metric, dtype, 7)
-    # three blocks at once; with metric terms the stand-in's 32 KB hold
-    # part of each block's basis, the rest is read from global memory
-    assert shape["grid"] == 3
+    # three blocks at once, a column and two vertices a thread in
+    # registers; with metric terms the stand-in's 32 KB hold part of each
+    # block's basis, the rest is read from global memory
+    assert shape["grid"] == 3 and shape["placement"] == "registers"
     if metric:
         assert 0.0 < shape["basis_share_in_smem"] < 1.0
     # and the any-connectivity loop (its plain version) gives the same
@@ -212,19 +230,37 @@ def test_panel_loop_source_matches_plain(on_host, metric, dtype):
                   dtype, "K3 against K1's plain version")
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
-                         ids=["f64", "f32"])
+@pytest.mark.parametrize("dtype,optin,n_ss,n_res", [
+    (torch.float64, None, 227, 0), (torch.float32, None, 455, 0),
+    (torch.float32, 98304, 640, 27)], ids=["f64", "f32", "f32-resident"])
 def test_panel_loop_source_one_block_many_columns(on_host, monkeypatch,
-                                                  dtype):
+                                                  dtype, optin, n_ss, n_res):
     """On a card of one multiprocessor the one block owns 640 columns and
-    1,280 vertices with 320 threads: the columns and vertices beyond the
-    first per thread keep their state in global memory between subcycles,
-    and the exception threads own columns too."""
+    1,280 vertices, more than one column and two vertices a thread: the
+    table placement, 640 threads a block in float32 and 320 in float64.  Every column's fixed data and
+    every vertex's come from the tables the prologue writes, the columns'
+    stresses stay in the stand-in's 32 KB of shared memory as far as they
+    go (227 columns in float64, 455 in float32) and in s_out past that,
+    and the basis is read from global memory: the register, stress and
+    resident-basis shares are all exceeded at once.  The exception threads
+    own columns too.  With 96 KB (f32-resident) every column's stresses
+    fit, and the basis of the first 27 columns stays in shared memory: as
+    far as the placement leaves the L1 32 KB more than its least (64 KB of
+    shared memory used)."""
     monkeypatch.setenv("SHIM_SMS", "1")
+    if optin is not None:
+        monkeypatch.setenv("SHIM_SMEM_OPTIN", str(optin))
     mesh, _, dyn = _panel_problem(True, dtype, subdiv=3)
     args, kw, got, shape = _panel_loop_on_host(mesh, dyn, True, dtype, 12)
+    assert shape["placement"] == "tables"
+    assert shape["threads"] == (640 if dtype == torch.float32 else 320)
     assert shape["grid"] == 1 and shape["columns_per_block"] == 640
-    assert 0.0 < shape["basis_share_in_smem"] < 1.0
+    assert shape["smem_stress_columns_per_block"] == n_ss
+    assert shape["smem_columns_per_block"] == n_res
+    assert shape["stress_share_on_chip"] == n_ss / 640
+    assert shape["basis_share_in_smem"] == n_res / 640
+    assert shape["streamed_basis_bytes_per_subcycle"] == (
+        (640 - n_res) * 180 * got[0].element_size())
     # the phase timer's barriers leave the result as it was
     timer = torch.zeros((1, 4), dtype=torch.int64)
     call, timed = cuda_panel_fused._bind(dyn.panel, *args, **kw,
