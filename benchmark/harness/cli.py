@@ -3,9 +3,13 @@
     python -m benchmark.run --workload <name> --seed <n> --seconds <s> \\
         --trace <0|1>
 
-Set-up (counted in `setup_s`, from the process's start): the program's
-model on the configuration's mesh, the seeded initial state and wind, and
-the warm-up steps that build every table and load every kernel (the
+Before anything is built, the reference's phases check the
+configuration (`reference/model.py::check_config`): a cell whose physics
+no phase steps ends here.  Set-up (counted in `setup_s`, from the
+process's start): the program's model on the configuration's mesh, the
+seeded initial state and wind (with the column on, also the column
+forcing and a day's table of the sun), and the warm-up steps that build
+every table and load every kernel (the
 kernels' build cache is in `benchmark/.cache/` in the checkout).  Then the window (see
 `window.py`).  Once it has closed, the device's peak memory is read, the
 program is freed, and the reference checks the sampled steps (see
@@ -85,6 +89,14 @@ def main(argv=None, device=None, overrides=None, t_start=None,
         print(f"no result: no limits for {cell.name} in benchmark/workloads",
               file=sys.stderr)
         return 4
+    from ..reference.model import check_config
+    from .sides import check_inputs
+    try:
+        check_config(conf)
+        check_inputs(conf, traffic)
+    except (NotImplementedError, ValueError) as e:
+        print(f"no result: {e}", file=sys.stderr)
+        return 5
     if device is None:
         if not torch.cuda.is_available() or \
                 torch.cuda.device_count() < cell.chips:

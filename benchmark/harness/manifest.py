@@ -4,9 +4,12 @@
     general generator (`harness/inputs.py`);
   * `benchmark/workloads/<cell>.json`: the cell's amounts and limits for
     `correct` and the number of steps it samples;
-  * `benchmark/metrics/<metric>.py`: one reader a per-layer metric.
-A later change adds a cell, a configuration or a metric by adding files
-and entries; no file here needs an edit."""
+  * `benchmark/metrics/<metric>.py`: one reader a per-layer metric;
+  * `benchmark/reference/<phase>.py`: one phase of the reference's step,
+    named in the configuration's "reference" list
+    (`reference/model.py`).
+A later change adds a cell, a configuration, a reference phase or a
+metric by adding files and entries; no file here needs an edit."""
 
 from __future__ import annotations
 

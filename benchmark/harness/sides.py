@@ -2,7 +2,8 @@
 file and seed:
   * `Side`: the program (`seaice_tpu_torch`) as a user drives it:
     `SeaIceModel(...).make_step()` under the analytic wind, one call a
-    step, the state checked on the device after it;
+    step, the state checked on the device after it; with the column on,
+    the step is also given the column's atmosphere, ocean and sun;
   * `reference_side`: the benchmark's plain reference
     (`benchmark/reference`), given the same seeded inputs on its own mesh.
 """
@@ -47,6 +48,20 @@ def make_config(conf: dict):
         column=group(C.ColumnConfig, conf.get("column", {})))
 
 
+def column_on(conf: dict) -> bool:
+    """Whether the configuration runs the column (the program's default
+    where the file does not say)."""
+    return conf.get("column", {}).get("use_column_package", True)
+
+
+def check_inputs(conf: dict, traffic: dict):
+    """A configuration whose column is on needs the traffic's column
+    forcing."""
+    if column_on(conf) and "column_forcing" not in traffic:
+        raise ValueError("the column is on and the traffic has no "
+                         "\"column_forcing\" group")
+
+
 def flatten_state(state) -> dict:
     """{"velocity.<field>", "tracers.<name>", "time": tensor}."""
     out = {f"velocity.{f.name}": getattr(state.velocity, f.name)
@@ -57,11 +72,15 @@ def flatten_state(state) -> dict:
 
 
 class Side:
-    """The program's model with its state and step."""
+    """The program's model with its state and step.  With the column on,
+    `step` gives the model the column forcing: the fields that do not
+    follow the sun once, and the sun of the step from a day's table on
+    the device, indexed by the steps taken (a host count: no sync)."""
 
     def __init__(self, conf, traffic, seed, device, dtype):
         if conf["path"] != "model_step":
             raise ValueError(f"unknown path {conf['path']!r}")
+        check_inputs(conf, traffic)
         self.conf = conf
         self.traffic = traffic
         self.device = torch.device(device)
@@ -81,6 +100,9 @@ class Side:
             tree = _mod("transport.tracers").standard_tracer_tree(
                 n_ice_layers=self.cfg.run.n_ice_layers,
                 n_snow_layers=self.cfg.run.n_snow_layers)
+        elif conf.get("tracer_tree") not in (None, "column"):
+            # "column": the model's own tree from the column options
+            raise ValueError(f"unknown tracer tree {conf['tracer_tree']!r}")
         self.model = _mod("model").SeaIceModel(
             self.mesh, self.cfg, dtype=dtype, device=self.device,
             tracer_tree=tree)
@@ -89,7 +111,8 @@ class Side:
         self.seed_inputs(seed)
 
     def seed_inputs(self, seed):
-        """The seeded initial state and the analytic wind."""
+        """The seeded initial state, the analytic wind and, with the
+        column on, the column forcing."""
         run = self.cfg.run
         caps = inputs.caps_state(self.mesh, run.n_categories,
                                  run.n_ice_layers, run.n_snow_layers,
@@ -110,7 +133,32 @@ class Side:
             u_ocean_velocity=self._t(z), v_ocean_velocity=self._t(z),
             sea_surface_tilt_u=self._t(z), sea_surface_tilt_v=self._t(z),
             land_ice_mask=self._t(z))
+        self.column = None
+        self.warnings = {}
+        self.n_steps = 0
+        if self.model.column is not None:
+            self._seed_column(seed, start)
         self.initial = flatten_state(self.state)
+
+    def _seed_column(self, seed, start):
+        """The column forcing: one AtmosForcing for each step of a day,
+        sharing every field but the sun's, and the ocean."""
+        drv = _mod("column.driver")
+        ci = inputs.ColumnInputs(self.mesh, self.traffic, seed,
+                                 self.cfg.run.dt, start)
+        f = {k: self._t(v) for k, v in ci.fields.items()
+             if k not in inputs.SUN}
+        f["u_air"] = self.forcing.u_air_velocity
+        f["v_air"] = self.forcing.v_air_velocity
+        table = {k: v.to(self.dtype) for k, v in
+                 ci.sun_table(self.device).items()}
+        atmos = [drv.AtmosForcing(**{k: f[k] if k in f else table[k][i]
+                                     for k in inputs.ATMOS})
+                 for i in range(ci.per_day)]
+        self.column = {
+            "inputs": ci, "atmos": atmos, "coszen": table["coszen"],
+            "ocean": drv.OceanForcing(**{k: f[k] for k in inputs.OCEAN}),
+            "lat": self._t(ci.lat)}
 
     def _t(self, a):
         return torch.as_tensor(np.asarray(a, np.float64)).to(
@@ -119,25 +167,44 @@ class Side:
     def step(self):
         """One step; the device's synchronise is the flag fetch of
         `check`."""
-        self.state, _ = self._step_fn(self.model.tensors, self.state,
-                                      self.forcing)
+        col = self.column
+        if col is None:
+            self.state, _ = self._step_fn(self.model.tensors, self.state,
+                                          self.forcing)
+        else:
+            i = self.n_steps % col["inputs"].per_day
+            self.state, diags = self._step_fn(
+                self.model.tensors, self.state, self.forcing,
+                atmos=col["atmos"][i], ocean=col["ocean"],
+                coszen=col["coszen"][i],
+                day_of_year=col["inputs"].day_of_year(self.n_steps),
+                lat=col["lat"])
+            self.warnings = diags["column_fluxes"].warnings or {}
+        self.n_steps += 1
 
     def check(self) -> dict:
         """The harness's state check of the current state, fetched to the
-        host in one copy: finite, |u| < 3 m/s, aice <= 1 + 1e-6."""
+        host in one copy: finite, |u| < 3 m/s, aice <= 1 + 1e-6; with the
+        column on, no cell flagged by the last step's column warnings
+        (`column_<warning>`, the runner's abort gate)."""
         st = self.state
         a = st.tracers["iceAreaCategory"]
         u, v = st.velocity.u_velocity, st.velocity.v_velocity
         speed = torch.sqrt(u * u + v * v)
-        flags = torch.stack([
+        names = ["finite_ice", "finite_velocity", "speed_below_3",
+                 "aice_at_most_1"]
+        flags = [
             torch.isfinite(a).all() & torch.isfinite(
                 st.tracers["iceVolumeCategory"]).all(),
             torch.isfinite(speed).all(),
             (speed < 3.0).all(),
             (a.sum(-1) <= 1.0 + 1e-6).all(),
-        ]).cpu().numpy()
-        return dict(zip(("finite_ice", "finite_velocity", "speed_below_3",
-                         "aice_at_most_1"), (bool(f) for f in flags)))
+        ]
+        for k, mask in self.warnings.items():
+            names.append(f"column_{k}")
+            flags.append(~mask.any())
+        got = torch.stack(flags).cpu().numpy()
+        return dict(zip(names, (bool(f) for f in got)))
 
     def snapshot(self) -> dict:
         """A copy of the state on the device."""
@@ -154,6 +221,10 @@ class Side:
         tr = {k: self._t(fields[f"tracers.{k}"]) for k in st.tracers}
         self.state = st.replace(velocity=vel, tracers=tr,
                                 time=self._t(fields["time"]))
+        if self.column is not None:
+            # the sun's table follows the loaded clock
+            self.n_steps = self.column["inputs"].step_of(
+                float(fields["time"]))
 
 
 @contextlib.contextmanager
@@ -185,9 +256,15 @@ def reference_side(conf, traffic, seed, device, dtype=torch.float64):
 
 
 def seed_reference(ref, conf, traffic, seed):
+    """The seed's inputs on the reference's mesh: the caps, the wind and,
+    with the column on, the column forcing (`inputs.ColumnInputs`)."""
     run = conf["run"]
+    start = inputs.start_seconds(traffic, run["dt"], seed)
+    column = None
+    if column_on(conf):
+        column = inputs.ColumnInputs(ref.mesh, traffic, seed, run["dt"],
+                                     start)
     ref.set_inputs(
         inputs.caps_state(ref.mesh, run["n_categories"], run["n_ice_layers"],
                           run["n_snow_layers"], traffic, seed),
-        inputs.analytic_wind(ref.mesh, traffic, seed),
-        inputs.start_seconds(traffic, run["dt"], seed))
+        inputs.analytic_wind(ref.mesh, traffic, seed), start, column)
