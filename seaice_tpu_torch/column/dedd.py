@@ -208,8 +208,17 @@ def solve_dedd_column(taus, w0s, gs_list, coszen, kfrsnl: int,
     mu0n = torch.stack([mu0] * n_above + [mu0n_below] * (K - n_above), -1)
     ts, ws, gsc = _delta_scale(torch.stack(taus, -1), torch.stack(w0s, -1),
                                torch.stack(gs_list, -1))
+    # the layers' coefficients in float64 whatever the state's dtype: the
+    # particular solution's terms grow as 1 / (1 - lm^2 mu^2) near its
+    # removable singularity at lm mu = 1 (a strongly absorbing layer, such
+    # as the visible band's algal bottom layer, meets it at the first
+    # Gaussian angle) and cancel to the O(1) coefficients, which float32
+    # then holds to no digit: the absorbed shortwave of a layer came out
+    # 3.6 times too large and its neighbours' zero, and the mushy solve's
+    # energy closure could not close.  A no-op in float64.
     rdirs, tdirs, rdifas, tdifas, trnlays = (
-        list(x.unbind(-1)) for x in _layer_coeffs(ts, ws, gsc, mu0n))
+        list(x.to(ts.dtype).unbind(-1)) for x in _layer_coeffs(
+            ts.double(), ws.double(), gsc.double(), mu0n.double()))
     rdifbs, tdifbs = list(rdifas), list(tdifas)
     if kfrsnl >= 0:
         k = kfrsnl

@@ -57,6 +57,7 @@ from .snow import (drain_snow, snow_effective_density,
 from .thermo_shared import ice_temperature_from_enthalpy, salinity_profile
 from .vertical import (frzmlt_bottom_lateral, thermo_vertical,
                        thermo_vertical_noop)
+from ..diagnostics import span
 from ..utils.containers import tensor_dataclass
 from ..utils.device import resolve_device
 
@@ -531,13 +532,14 @@ class ColumnPhysics:
             raise ValueError(
                 "dEdd shortwave requires coszen (compute real zenith "
                 "angles with column.orbital.compute_coszen)")
-        sw = self._step_radiation(aicen, vicen, vsnon, tsfc, coszen,
-                                  atm.sw_vis_dir, atm.sw_vis_dif,
-                                  atm.sw_ir_dir, atm.sw_ir_dif, tracers)
-        if not self.use_shortwave:
-            # package off (config_use_column_shortwave=false): no
-            # absorbed/transmitted shortwave anywhere
-            sw = ShortwaveResult(*[torch.zeros_like(x) for x in sw])
+        with span("column.shortwave"):
+            sw = self._step_radiation(aicen, vicen, vsnon, tsfc, coszen,
+                                      atm.sw_vis_dir, atm.sw_vis_dif,
+                                      atm.sw_ir_dir, atm.sw_ir_dif, tracers)
+            if not self.use_shortwave:
+                # package off (config_use_column_shortwave=false): no
+                # absorbed/transmitted shortwave anywhere
+                sw = ShortwaveResult(*[torch.zeros_like(x) for x in sw])
 
         # form drag from the pack geometry (reference :2102, Tsamados)
         Cdn_atm = Cdn_ocn = None
@@ -554,20 +556,21 @@ class ColumnPhysics:
         # atmosphere boundary layer per category (reference :2150);
         # atmbndy='constant' selects the fixed-coefficient scheme
         # (atmo_boundary_const, ice_atmo.F90:382)
-        if self.atmbndy == "constant":
-            ab = atmo_constant_coefficients(
-                tsfc, pc(atm.air_temperature), pc(atm.u_air),
-                pc(atm.v_air), pc(wind),
-                pc(atm.specific_humidity), pc(atm.air_density))
-        else:
-            ab = atmo_boundary_layer(
-                tsfc, pc(atm.air_temperature), pc(atm.u_air),
-                pc(atm.v_air), pc(wind), pc(atm.air_level_height),
-                pc(atm.specific_humidity), pc(atm.air_density),
-                natmiter=self.natmiter, highfreq=self.highfreq,
-                uvel=pc(uvel) if uvel is not None else None,
-                vvel=pc(vvel) if vvel is not None else None,
-                Cdn_atm=pc(Cdn_atm) if Cdn_atm is not None else None)
+        with span("column.atmo"):
+            if self.atmbndy == "constant":
+                ab = atmo_constant_coefficients(
+                    tsfc, pc(atm.air_temperature), pc(atm.u_air),
+                    pc(atm.v_air), pc(wind),
+                    pc(atm.specific_humidity), pc(atm.air_density))
+            else:
+                ab = atmo_boundary_layer(
+                    tsfc, pc(atm.air_temperature), pc(atm.u_air),
+                    pc(atm.v_air), pc(wind), pc(atm.air_level_height),
+                    pc(atm.specific_humidity), pc(atm.air_density),
+                    natmiter=self.natmiter, highfreq=self.highfreq,
+                    uvel=pc(uvel) if uvel is not None else None,
+                    vvel=pc(vvel) if vvel is not None else None,
+                    Cdn_atm=pc(Cdn_atm) if Cdn_atm is not None else None)
 
         # age / first-year tracers (reference :2186-2189)
         if self.use_ice_age and "iceAge" in at:
@@ -617,28 +620,29 @@ class ColumnPhysics:
         rsnw = st.get("snowGrainRadius")
 
         # vertical thermodynamics (therm1) with ktherm dispatch
-        if self.use_vertical_thermodynamics:
-            tv = thermo_vertical(
-                dt, aicen, vicen, vsnon, tsfc, qin, qsn,
-                sin if ktherm == 2 else self.salin.expand(qin.shape),
-                flw=pc(atm.longwave_down),
-                potT=pc(atm.air_temperature),
-                Qa=pc(atm.specific_humidity), rhoa=pc(atm.air_density),
-                fsnow=pc(snow_rate_eff), fbot=fbot,
-                Tbot=pc(Tbot),
-                fswsfc=sw.fswsfc, fswint=sw.fswint,
-                Sswabs=sw.Sswabs, Iswabs=sw.Iswabs,
-                shcoef=ab.shcoef, lhcoef=ab.lhcoef,
-                ktherm=ktherm,
-                sss=pc(ocn.sss) if ktherm == 2 else None,
-                frain=pc(atm.rain_rate),
-                apond=apond_cat, hpond=hpnd, tun=self.tun,
-                smice=smice, smliq=smliq, rsnw=rsnw,
-                prescribed_sfc_fluxes=sfc_fluxes)
-        else:
-            # package off: therm1 skipped, state passes through
-            tv = thermo_vertical_noop(aicen, vicen, vsnon, tsfc,
-                                      qin, qsn, sin)
+        with span("column.vertical"):
+            if self.use_vertical_thermodynamics:
+                tv = thermo_vertical(
+                    dt, aicen, vicen, vsnon, tsfc, qin, qsn,
+                    sin if ktherm == 2 else self.salin.expand(qin.shape),
+                    flw=pc(atm.longwave_down),
+                    potT=pc(atm.air_temperature),
+                    Qa=pc(atm.specific_humidity), rhoa=pc(atm.air_density),
+                    fsnow=pc(snow_rate_eff), fbot=fbot,
+                    Tbot=pc(Tbot),
+                    fswsfc=sw.fswsfc, fswint=sw.fswint,
+                    Sswabs=sw.Sswabs, Iswabs=sw.Iswabs,
+                    shcoef=ab.shcoef, lhcoef=ab.lhcoef,
+                    ktherm=ktherm,
+                    sss=pc(ocn.sss) if ktherm == 2 else None,
+                    frain=pc(atm.rain_rate),
+                    apond=apond_cat, hpond=hpnd, tun=self.tun,
+                    smice=smice, smliq=smliq, rsnw=rsnw,
+                    prescribed_sfc_fluxes=sfc_fluxes)
+            else:
+                # package off: therm1 skipped, state passes through
+                tv = thermo_vertical_noop(aicen, vicen, vsnon, tsfc,
+                                          qin, qsn, sin)
 
         aicen2 = aicen
         vicen2 = tv.hin * aicen
@@ -692,61 +696,62 @@ class ColumnPhysics:
         # drained snow-liquid mass into the ponds instead of snow melt
         # + rain (ice_colpkg.F90:2278-2334)
         fpond = torch.zeros_like(aice)
-        pond_smliq = meltsliq if self.use_snow_liquid_ponds else None
-        if self.pond_scheme != "none" and apnd is not None:
-            rfrac = self.rfracmin + \
-                (self.rfracmax - self.rfracmin) * aicen2
-            lid = at2.get("pondLidThickness", torch.zeros_like(aicen2))
-            if self.pond_scheme == "cesm":
-                from .ponds import compute_ponds_cesm
-                at2["pondArea"], at2["pondDepth"] = compute_ponds_cesm(
-                    dt, rfrac, tv.meltt, tv.melts, pc(atm.rain_rate),
-                    aicen2, vicen2, vsnon2, at2["surfaceTemperature"],
-                    at2["pondArea"], at2["pondDepth"],
-                    pndaspect=self.pndaspect, meltsliq=pond_smliq)
-            elif self.pond_scheme == "lvl":
-                from .ponds import compute_ponds_lvl
-                apnd_n, hpnd_n, ipnd_n, _ = compute_ponds_lvl(
-                    dt, rfrac, tv.meltt, tv.melts, pc(atm.rain_rate),
-                    pc(atm.air_temperature), tv.fsurfn, tv.dsnow,
-                    aicen2, vicen2, vsnon2, it2["iceEnthalpy"],
-                    it2["iceSalinity"], at2["surfaceTemperature"],
-                    at2["levelIceArea"], at2["pondArea"], at2["pondDepth"],
-                    lid, pndaspect=self.pndaspect, hi_min=self.hi_min_pond,
-                    dpscale=self.dpscale, frzpnd=self.frzpnd,
-                    ktherm=ktherm, meltsliq=pond_smliq)
-                at2["pondArea"], at2["pondDepth"] = apnd_n, hpnd_n
-                if "pondLidThickness" in at2:
-                    at2["pondLidThickness"] = ipnd_n
-            else:   # topo: collect water per category, level cell-wise
-                from .ponds import compute_ponds_topo
-                if pond_smliq is None:
-                    pond_src = (tv.meltt * c.RHOI + tv.melts * c.RHOS +
-                                pc(atm.rain_rate) * dt)
-                else:
-                    pond_src = tv.meltt * c.RHOI + pond_smliq
-                pond = rfrac / c.RHOFRESH * pond_src
-                apnd_t = at2["pondArea"]
-                hpnd_t = at2["pondDepth"]
-                new_pond = apnd_t < c.PUNY
-                apnd_t = torch.where(new_pond & (pond > 0), 1.0, apnd_t)
-                hpnd_t = torch.where(new_pond, 0.0, hpnd_t)
-                hpnd_t = torch.where(
-                    apnd_t > c.PUNY,
-                    (pond + hpnd_t * apnd_t) / apnd_t.clamp(min=c.PUNY),
-                    hpnd_t)
-                fpond = fpond + (pond * aicen2).sum(-1)
-                fsurf_cell = (tv.fsurfn * aicen2).sum(-1)
-                meltt_cell = (tv.meltt * aicen2).sum(-1)
-                apnd_t, hpnd_t, ipnd_t, dfpond, _ = compute_ponds_topo(
-                    dt, aicen2, vicen2, vsnon2, meltt_cell, fsurf_cell,
-                    at2["surfaceTemperature"], it2["iceEnthalpy"],
-                    it2["iceSalinity"], apnd_t, hpnd_t, lid,
-                    ktherm=ktherm)
-                at2["pondArea"], at2["pondDepth"] = apnd_t, hpnd_t
-                if "pondLidThickness" in at2:
-                    at2["pondLidThickness"] = ipnd_t
-                fpond = fpond + dfpond
+        with span("column.ponds"):
+            pond_smliq = meltsliq if self.use_snow_liquid_ponds else None
+            if self.pond_scheme != "none" and apnd is not None:
+                rfrac = self.rfracmin + \
+                    (self.rfracmax - self.rfracmin) * aicen2
+                lid = at2.get("pondLidThickness", torch.zeros_like(aicen2))
+                if self.pond_scheme == "cesm":
+                    from .ponds import compute_ponds_cesm
+                    at2["pondArea"], at2["pondDepth"] = compute_ponds_cesm(
+                        dt, rfrac, tv.meltt, tv.melts, pc(atm.rain_rate),
+                        aicen2, vicen2, vsnon2, at2["surfaceTemperature"],
+                        at2["pondArea"], at2["pondDepth"],
+                        pndaspect=self.pndaspect, meltsliq=pond_smliq)
+                elif self.pond_scheme == "lvl":
+                    from .ponds import compute_ponds_lvl
+                    apnd_n, hpnd_n, ipnd_n, _ = compute_ponds_lvl(
+                        dt, rfrac, tv.meltt, tv.melts, pc(atm.rain_rate),
+                        pc(atm.air_temperature), tv.fsurfn, tv.dsnow,
+                        aicen2, vicen2, vsnon2, it2["iceEnthalpy"],
+                        it2["iceSalinity"], at2["surfaceTemperature"],
+                        at2["levelIceArea"], at2["pondArea"], at2["pondDepth"],
+                        lid, pndaspect=self.pndaspect, hi_min=self.hi_min_pond,
+                        dpscale=self.dpscale, frzpnd=self.frzpnd,
+                        ktherm=ktherm, meltsliq=pond_smliq)
+                    at2["pondArea"], at2["pondDepth"] = apnd_n, hpnd_n
+                    if "pondLidThickness" in at2:
+                        at2["pondLidThickness"] = ipnd_n
+                else:   # topo: collect water per category, level cell-wise
+                    from .ponds import compute_ponds_topo
+                    if pond_smliq is None:
+                        pond_src = (tv.meltt * c.RHOI + tv.melts * c.RHOS +
+                                    pc(atm.rain_rate) * dt)
+                    else:
+                        pond_src = tv.meltt * c.RHOI + pond_smliq
+                    pond = rfrac / c.RHOFRESH * pond_src
+                    apnd_t = at2["pondArea"]
+                    hpnd_t = at2["pondDepth"]
+                    new_pond = apnd_t < c.PUNY
+                    apnd_t = torch.where(new_pond & (pond > 0), 1.0, apnd_t)
+                    hpnd_t = torch.where(new_pond, 0.0, hpnd_t)
+                    hpnd_t = torch.where(
+                        apnd_t > c.PUNY,
+                        (pond + hpnd_t * apnd_t) / apnd_t.clamp(min=c.PUNY),
+                        hpnd_t)
+                    fpond = fpond + (pond * aicen2).sum(-1)
+                    fsurf_cell = (tv.fsurfn * aicen2).sum(-1)
+                    meltt_cell = (tv.meltt * aicen2).sum(-1)
+                    apnd_t, hpnd_t, ipnd_t, dfpond, _ = compute_ponds_topo(
+                        dt, aicen2, vicen2, vsnon2, meltt_cell, fsurf_cell,
+                        at2["surfaceTemperature"], it2["iceEnthalpy"],
+                        it2["iceSalinity"], apnd_t, hpnd_t, lid,
+                        ktherm=ktherm)
+                    at2["pondArea"], at2["pondDepth"] = apnd_t, hpnd_t
+                    if "pondLidThickness" in at2:
+                        at2["pondLidThickness"] = ipnd_t
+                    fpond = fpond + dfpond
 
         # brine height + vertical salinity + biogeochemistry
         # (reference column_biogeochemistry, column.F:3570; runs after
@@ -799,43 +804,44 @@ class ColumnPhysics:
 
         # therm2 (frazil + lateral melt + ITD remap), gated by the
         # config_use_column_itd_thermodynamics package switch
-        frazil_diag = torch.zeros_like(aice)
-        meltl_diag = torch.zeros_like(aice)
-        if self.use_itd_thermodynamics:
-            # frazil formation (therm2; reference column.F:2086-2460)
-            ni_res = add_new_ice(
-                dt, self.hin_max_f, aicen2, vicen2, at2, it2,
-                ocn.frzmlt, ocn.freezing_temperature, self.salin,
-                dilute_ponds=self.pond_scheme in ("cesm", "topo"))
-            aicen2, vicen2 = ni_res.aicen, ni_res.vicen
-            at2, it2 = ni_res.area_tracers, ni_res.ice_tracers
-            fresh = fresh + ni_res.dfresh
-            fsalt = fsalt + ni_res.dfsalt
+        with span("column.itd_thermo"):
+            frazil_diag = torch.zeros_like(aice)
+            meltl_diag = torch.zeros_like(aice)
+            if self.use_itd_thermodynamics:
+                # frazil formation (therm2; reference column.F:2086-2460)
+                ni_res = add_new_ice(
+                    dt, self.hin_max_f, aicen2, vicen2, at2, it2,
+                    ocn.frzmlt, ocn.freezing_temperature, self.salin,
+                    dilute_ponds=self.pond_scheme in ("cesm", "topo"))
+                aicen2, vicen2 = ni_res.aicen, ni_res.vicen
+                at2, it2 = ni_res.area_tracers, ni_res.ice_tracers
+                fresh = fresh + ni_res.dfresh
+                fsalt = fsalt + ni_res.dfsalt
 
-            # lateral melt
-            lm = lateral_melt(dt, aicen2, vicen2, vsnon2,
-                              it2["iceEnthalpy"], st2["snowEnthalpy"],
-                              rside)
-            aicen2, vicen2, vsnon2 = lm.aicen, lm.vicen, lm.vsnon
-            fresh = fresh + lm.dfresh
-            fsalt = fsalt + lm.dfsalt
-            fhocn = fhocn + lm.dfhocn
+                # lateral melt
+                lm = lateral_melt(dt, aicen2, vicen2, vsnon2,
+                                  it2["iceEnthalpy"], st2["snowEnthalpy"],
+                                  rside)
+                aicen2, vicen2, vsnon2 = lm.aicen, lm.vicen, lm.vsnon
+                fresh = fresh + lm.dfresh
+                fsalt = fsalt + lm.dfsalt
+                fhocn = fhocn + lm.dfhocn
 
-            # ITD linear remap between categories
-            if ncat > 1:
-                (aicen2, vicen2, vsnon2, at2, it2,
-                 st2) = linear_itd_remap(
-                    self.hin_max_f, aicen_init, vicen_init,
-                    aicen2, vicen2, vsnon2, at2, it2, st2)
-            frazil_diag = ni_res.frazil
-            meltl_diag = lm.meltl
+                # ITD linear remap between categories
+                if ncat > 1:
+                    (aicen2, vicen2, vsnon2, at2, it2,
+                     st2) = linear_itd_remap(
+                        self.hin_max_f, aicen_init, vicen_init,
+                        aicen2, vicen2, vsnon2, at2, it2, st2)
+                frazil_diag = ni_res.frazil
+                meltl_diag = lm.meltl
 
-        # cleanup tiny categories
-        (aicen2, vicen2, vsnon2, at2, it2, st2, dfresh_z,
-         dheat_z) = cleanup_small_ice(aicen2, vicen2, vsnon2, at2, it2,
-                                      st2)
-        fresh = fresh + dfresh_z / dt
-        fhocn = fhocn + dheat_z / dt
+            # cleanup tiny categories
+            (aicen2, vicen2, vsnon2, at2, it2, st2, dfresh_z,
+             dheat_z) = cleanup_small_ice(aicen2, vicen2, vsnon2, at2, it2,
+                                          st2)
+            fresh = fresh + dfresh_z / dt
+            fhocn = fhocn + dheat_z / dt
 
         # pond freshwater feedback (reference coupling prep,
         # mpas_seaice_column.F:4790-4797): pond-retained water is

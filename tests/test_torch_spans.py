@@ -256,3 +256,64 @@ def test_setup_spans(name):
     SeaIceModel(mesh, cfg, F64, device="cpu")
     assert RECORDER.counts[name] > n0
     assert RECORDER.parents[name] in (None, "setup.dynamics_tensors")
+
+
+COLUMN_CHILDREN = ["column.shortwave", "column.atmo", "column.vertical",
+                   "column.ponds", "column.itd_thermo"]
+
+
+@pytest.mark.parametrize("on", [True, False], ids=["column_on",
+                                                   "column_off"])
+def test_column_thermo_child_spans(on):
+    """A step of the subdiv-2 sphere with MPAS-Seaice's standard column
+    (mushy, dEdd, level-ice ponds, age, first-year ice) opens each child
+    span of `column.thermo` once, directly inside it and in the column's
+    order; with the column package off, no column span opens."""
+    import dataclasses
+    from seaice_tpu_torch.column.driver import AtmosForcing, OceanForcing
+    from seaice_tpu_torch.model import SeaIceModel
+    mesh, cfg, ice, f = sphere_case()
+    cfg = dataclasses.replace(cfg, column=C.ColumnConfig(
+        use_column_package=on, ktherm=2, shortwave="dEdd",
+        pond_scheme="lvl", use_level_ice=True, use_ice_age=True,
+        use_first_year_ice=True))
+    model = SeaIceModel(mesh, cfg, F64, device="cpu")
+    state = model.init_state(*ice)
+    nc = mesh.n_cells
+
+    def full(v):
+        return torch.full((nc,), v, dtype=F64)
+
+    atmos = AtmosForcing(
+        air_temperature=full(255.0), specific_humidity=full(4e-4),
+        u_air=torch.as_tensor(f["u_air_velocity"]),
+        v_air=torch.as_tensor(f["v_air_velocity"]),
+        longwave_down=full(180.0), sw_vis_dir=full(60.0),
+        sw_vis_dif=full(50.0), sw_ir_dir=full(65.0), sw_ir_dif=full(35.0),
+        rain_rate=full(0.0), snow_rate=full(2e-6), air_density=full(1.3),
+        air_level_height=full(10.0))
+    ocean = OceanForcing(sst=full(-1.8), sss=full(34.0),
+                         freezing_temperature=full(-1.8), frzmlt=full(10.0),
+                         mixed_layer_depth=full(20.0))
+    forcing = DynamicsForcing(**{k: torch.as_tensor(v) for k, v in
+                                 f.items()})
+    step = model.make_step()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(model.tensors, state, forcing, atmos=atmos, ocean=ocean,
+             coszen=full(0.3), day_of_year=1,
+             lat=torch.as_tensor(mesh.lat_cell, dtype=F64))
+    spans = mark_spans(prof)
+    names = [n for n, _, _ in spans]
+    if not on:
+        assert not [n for n in names if n.startswith("column.")]
+        return
+    i = names.index("column.thermo")
+    top = spans[i][2]
+    children = []
+    for n, _, d in spans[i + 1:]:
+        if d <= top:
+            break
+        if d == top + 1:
+            children.append(n)
+    assert children == COLUMN_CHILDREN
+    assert all(names.count(n) == 1 for n in COLUMN_CHILDREN)
